@@ -1,0 +1,107 @@
+"""Build the CUDA sources of ``csrc/`` with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` becomes ``_build/<name>-<hash>.so`` (the hash is of
+the source, so an edited source is rebuilt), with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+
+Nothing is built when the module is imported: ``load(name)`` builds one
+source at its first use, and ``build_all()`` starts one ``nvcc`` for every
+source at once and waits for all of them. The build directory is listed in
+``.gitignore``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> List[str]:
+    """Names of the kernel sources (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (process, tmp path, target) or
+    None when the library is already built."""
+    target = _target(name)
+    if target.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, target
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp, target = job
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{out}")
+    os.replace(tmp, target)
+
+
+def build_all() -> List[str]:
+    """Build every source in parallel (one nvcc each); returns the names."""
+    names = sources()
+    jobs = {n: _start(n) for n in names}
+    errors = []
+    for n, job in jobs.items():
+        try:
+            _finish(n, job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return names
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        _finish(name, _start(name))
+        lib = ctypes.CDLL(str(_target(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a C entry returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
