@@ -8,9 +8,10 @@ Phases, in order (any failure exits non-zero):
 1. build   — nvcc builds every kernel of ``rsuper_tpu_torch/csrc`` for
              sm_90a, one process per source, all at once;
 2. kernels — each kernel against its plain PyTorch version at the shapes the
-             serving path gives it, in bf16 and float32, with the stated
-             tolerance; times of the kernel, the plain version and the
-             library call, and the kernel's bound;
+             serving path (forward, window batches of 8) and the training
+             step (backward, batch 1) give it, in bf16 and float32, with the
+             stated tolerance; times of the kernel, the plain version and
+             the library call, and the kernel's bound;
 3. model   — default-config MedFormer (16 classes, seeded random weights)
              on one 96³ window batch of 2, through the kernels and through
              the plain versions, in float32 and in bf16; forward times at
@@ -22,7 +23,19 @@ Phases, in order (any failure exits non-zero):
              before that run and read just after it. Then seconds per volume
              of ``predict_masks_volume`` through the kernels and through the
              plain versions, and blended float32 probabilities against the
-             plain versions.
+             plain versions;
+5. train   — training steps of the default MedFormer on ``bench.py``'s
+             synthetic 96³ batch of 1 (bf16 compute, float32 parameters,
+             ``remat`` off): masked BCE + adaptive-Tversky Dice + Volume Loss
+             on both heads (``LossConfig(loss="dice")``), clipping, AdamW and
+             EMA. Losses and every parameter's gradient through the kernels
+             against the plain versions, in float32 and in bf16; then 1
+             warm-up and 10 timed steps with the launch counts of every
+             kernel set to 0 just before and read just after, peak memory,
+             a split of one step into forward, loss, backward and optimizer,
+             and a torch.profiler breakdown; the loss must be finite at every
+             step and lower after the steps than at the first; one step with
+             ``remat`` on gives the same loss.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. It imports nothing of JAX or of
@@ -42,7 +55,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-CLASSES = [  # the 16 classes of bench.py
+CLASSES = [  # 16 classes for the serving phases
     "aorta", "adrenal_gland_left", "adrenal_gland_right", "colon",
     "duodenum", "gall_bladder", "kidney_left", "kidney_right", "liver",
     "pancreas", "pancreatic_lesion", "postcava", "spleen", "stomach",
@@ -64,6 +77,14 @@ PROB_TOL = 3e-3
 WINDOW = 96  # edge of the sliding window, as the serving path runs it
 VOLUME = 256  # edge of the synthetic phantom, voxels of 1 mm (125 windows)
 REPS = 3  # timed calls per measurement, after one warm-up call
+TRAIN_STEPS = 10  # timed training steps, after one warm-up step
+# training step, kernels vs plain versions. float32: losses 1e-4 relative;
+# per parameter ‖Δg‖ ≤ TRAIN32_TOL·(‖g_ref‖ + TRAIN_FLOOR·max‖g_ref‖) — sums
+# in another order through forward and backward; the floor gives a scale to
+# gradients that are zero but for rounding. bf16: losses and the global
+# relative L2 of all gradients against the plain bf16 run's own distance from
+# the plain float32 run, times BF16_NOISE_FACTOR
+TRAIN32_TOL, TRAIN_FLOOR = 2e-3, 1e-3
 MODEL_ARGS: dict = {}  # MedFormer's default configuration
 
 
@@ -117,6 +138,20 @@ DW_SHAPES = [  # (B, D, H, W, C)
     (8, 12, 12, 12, 1024), (8, 6, 6, 6, 320), (8, 6, 6, 6, 1280),
     (8, 6, 6, 6, 2048),
 ]
+# training step at one 96³ patch: (B, D, C of dy, H, W, C of dx) for dgrad,
+# (B, D, Ci, H, W, Co) for wgrad; the last of each list has B = 2
+DGRAD_SHAPES = [(1, 96, 32, 96, 96, 32), (1, 96, 64, 96, 96, 96),
+                (1, 48, 64, 48, 48, 64), (1, 48, 128, 48, 48, 192),
+                (2, 48, 64, 48, 48, 64)]
+WGRAD_SHAPES = {
+    "conv3x3x3_cf_wgrad": [(1, 96, 1, 96, 96, 32), (2, 96, 1, 96, 96, 32)],
+    "in_relu_conv3x3x3_cf_wgrad": [(1, 96, 32, 96, 96, 32),
+                                   (1, 96, 96, 96, 96, 64),
+                                   (1, 48, 64, 48, 48, 64),
+                                   (1, 48, 192, 48, 48, 128),
+                                   (2, 48, 64, 48, 48, 64)],
+}
+DW_BWD_SHAPES = [(1,) + s[1:] for s in DW_SHAPES] + [(2, 24, 24, 24, 512)]
 KERNELS = {
     "conv3x3x3_cf": dict(
         source="rsuper_tpu_torch/csrc/conv_cf.cu",
@@ -127,7 +162,31 @@ KERNELS = {
     "depthwise_conv3x3x3": dict(
         source="rsuper_tpu_torch/csrc/dwconv.cu",
         replaces="rsuper_tpu/ops/dwconv.py:212"),
+    "conv3x3x3_cf_dgrad": dict(  # the forward kernel on flipped weights
+        source="rsuper_tpu_torch/csrc/conv_cf.cu",
+        replaces="rsuper_tpu/ops/conv_cf.py:1207"),
+    "conv3x3x3_cf_wgrad": dict(
+        source="rsuper_tpu_torch/csrc/conv_cf_wgrad.cu",
+        replaces="rsuper_tpu/ops/conv_cf.py:1169"),
+    "in_relu_conv3x3x3_cf_wgrad": dict(
+        source="rsuper_tpu_torch/csrc/conv_cf_wgrad.cu",
+        replaces="rsuper_tpu/ops/conv_cf.py:1169"),
+    "depthwise_conv3x3x3_bwd": dict(  # dx: dwconv.cu on flipped taps
+        source="rsuper_tpu_torch/csrc/dwconv_bwd.cu",
+        replaces="rsuper_tpu/ops/dwconv.py:229"),
 }
+NO_LIBRARY = ("in_relu_conv3x3x3_cf", "in_relu_conv3x3x3_cf_wgrad")
+SERVING_KERNELS = ("conv3x3x3_cf", "in_relu_conv3x3x3_cf",
+                   "depthwise_conv3x3x3")
+
+
+def wrappers():
+    """name → wrapper (each counts its launches) for every ported kernel."""
+    from rsuper_tpu_torch.ops import conv_cf, dwconv
+
+    mods = {**{n: conv_cf for n in KERNELS if "conv3x3x3_cf" in n},
+            "depthwise_conv3x3x3": dwconv, "depthwise_conv3x3x3_bwd": dwconv}
+    return {n: getattr(mods[n], n) for n in KERNELS}
 
 
 def _err(got, ref):
@@ -139,7 +198,7 @@ def _err(got, ref):
     return (g - r).abs().max().item(), r.abs().max().item()
 
 
-def phase_kernels(reps: int):
+def phase_kernels(dev, reps: int):
     import torch
     import torch.nn.functional as F
 
@@ -148,7 +207,6 @@ def phase_kernels(reps: int):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, failures = [], []
 
@@ -157,9 +215,15 @@ def phase_kernels(reps: int):
         with plain_on_device():
             ref = fn(*ref_args)
         torch.cuda.synchronize()
-        err, mx = _err(got, ref)
-        tol = TOL[dtype] * (1.0 + mx)
-        ok = err <= tol
+        if not isinstance(got, tuple):
+            got, ref = (got,), (ref,)
+        err, tol, ok = 0.0, 0.0, True
+        for g, r in zip(got, ref):  # each output at its own type's tolerance
+            e, mx = _err(g, r)
+            t = TOL[str(g.dtype).split(".")[-1]] * (1.0 + mx)
+            ok = ok and e <= t
+            if e >= err:
+                err, tol = e, t
         row = dict(name=name, dtype=dtype, shape=list(shape),
                    max_abs_err=err, tol=tol, ok=ok)
         if dtype == "bfloat16":  # timings in the serving path's type
@@ -216,7 +280,77 @@ def phase_kernels(reps: int):
             case("depthwise_conv3x3x3", dwconv.depthwise_conv3x3x3, (x, w),
                  (x, w), flops, nbytes, lib, dname, (B, D, H, W, C))
             del x, w
+        backward_cases(case, gen, dev, dtype, dname)
     return rows, failures
+
+
+def backward_cases(case, gen, dev, dtype, dname):
+    """The backward kernels at the training step's shapes. The library call
+    is ``aten.convolution_backward`` (cuDNN) with the matching output mask,
+    on NCDHW copies made outside the timer."""
+    import torch
+
+    from rsuper_tpu_torch.ops import conv_cf, dwconv
+
+    cb = torch.ops.aten.convolution_backward
+
+    def conv_lib(xn, gn, wn, mask, groups=1):
+        return lambda: cb(gn, xn, wn, None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
+                          False, [0, 0, 0], groups, mask)
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for (B, D, Cg, H, W, Cx) in DGRAD_SHAPES:
+        dy = rand((B, D, Cg, H, W)).to(dtype)
+        w = rand((3, 3, 3, Cx, Cg)) / math.sqrt(27 * Cx)
+        flops = 2.0 * B * D * H * W * Cx * Cg * 27
+        nbytes = (dy.numel() + B * D * Cx * H * W) * dy.element_size() \
+            + w.numel() * 4
+        gn = dy.permute(0, 2, 1, 3, 4).contiguous()
+        xn = torch.empty((B, Cx, D, H, W), dtype=dtype, device=dev)
+        wn = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous()
+        lib = ("aten.convolution_backward (cuDNN), input gradient only",
+               conv_lib(xn, gn, wn, [True, False, False]))
+        case("conv3x3x3_cf_dgrad", conv_cf.conv3x3x3_cf_dgrad, (dy, w),
+             (dy, w), flops, nbytes, lib, dname, (B, D, Cg, H, W, Cx))
+        del dy, w, gn, xn, wn
+    for name, shapes in WGRAD_SHAPES.items():
+        fused = name.startswith("in_relu")
+        for (B, D, Ci, H, W, Co) in shapes:
+            x = rand((B, D, Ci, H, W)).to(dtype)
+            dy = rand((B, D, Co, H, W)).to(dtype)
+            flops = 2.0 * B * D * H * W * Ci * Co * 27
+            nbytes = (x.numel() + dy.numel()) * x.element_size() \
+                + 27 * Ci * Co * 4
+            xn = x.permute(0, 2, 1, 3, 4).contiguous()
+            gn = dy.permute(0, 2, 1, 3, 4).contiguous()
+            wn = torch.empty((Co, Ci, 3, 3, 3), dtype=dtype, device=dev)
+            lib = ("aten.convolution_backward (cuDNN), weight gradient only"
+                   + (" of the conv alone, no norm" if fused else ""),
+                   conv_lib(xn, gn, wn, [False, True, False]))
+            args = (x, dy)
+            if fused:
+                args += (conv_cf._in_stats_cf(x, 1e-4),)
+                flops += 3.0 * x.numel()
+            case(name, getattr(conv_cf, name), args, args, flops, nbytes, lib,
+                 dname, (B, D, Ci, H, W, Co))
+            del x, dy, xn, gn, wn, args
+    for (B, D, H, W, C) in DW_BWD_SHAPES:
+        x = rand((B, D, H, W, C)).to(dtype)
+        dy = rand((B, D, H, W, C)).to(dtype)
+        w = rand((3, 3, 3, 1, C)) / 27
+        flops = 4.0 * 27 * x.numel()  # dx and dw
+        nbytes = 3 * x.numel() * x.element_size() + 2 * 27 * C * 4
+        xn, gn = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
+        wn = w.to(dtype).reshape(27, C).t().reshape(C, 1, 3, 3, 3)
+        lib = ("aten.convolution_backward groups=C (cuDNN), input and weight "
+               "gradients, channels_last_3d views",
+               conv_lib(xn, gn, wn, [True, True, False], groups=C))
+        case("depthwise_conv3x3x3_bwd", dwconv.depthwise_conv3x3x3_bwd,
+             (x, w, dy), (x, w, dy), flops, nbytes, lib, dname,
+             (B, D, H, W, C))
+        del x, dy, w
 
 
 def kernels_line(rows, launches):
@@ -233,8 +367,7 @@ def kernels_line(rows, launches):
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"],
-            library_ms=(None if name == "in_relu_conv3x3x3_cf"
-                        else top["library_ms"]),
+            library_ms=(None if name in NO_LIBRARY else top["library_ms"]),
             shape=top["shape"]))
     return {"kernels": out}
 
@@ -390,14 +523,11 @@ def phase_predict(model, model32, dev, edge: int):
                                                     preprocess_volume)
     from rsuper_tpu_torch.inference.sliding_window import (
         _grid, sliding_window_probs_device)
-    from rsuper_tpu_torch.ops import conv_cf, dwconv
     from rsuper_tpu_torch.ops.dispatch import plain_on_device
 
     ct = phantom_ct(edge)
     fn = _model_fn(model)
-    wrappers = {"conv3x3x3_cf": conv_cf.conv3x3x3_cf,
-                "in_relu_conv3x3x3_cf": conv_cf.in_relu_conv3x3x3_cf,
-                "depthwise_conv3x3x3": dwconv.depthwise_conv3x3x3}
+    counted = wrappers()
     win = (WINDOW,) * 3
     n_windows = len(_grid((edge,) * 3, win, (WINDOW // 2,) * 3))
     failures, res = [], {"volume": [edge] * 3, "window": list(win),
@@ -410,14 +540,14 @@ def phase_predict(model, model32, dev, edge: int):
         write_nifti(os.path.join(src, "case0.nii"), ct, np.eye(4))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for w in wrappers.values():
+        for w in counted.values():
             w.launches = 0
         t0 = time.time()
         done = predict_folder([fn], src, dst, CLASSES, window=win,
                               batch=8, save_probabilities=True, device=dev)
         torch.cuda.synchronize()
         res["predict_folder_s"] = time.time() - t0
-        res["launches"] = {k: w.launches for k, w in wrappers.items()}
+        res["launches"] = {k: counted[k].launches for k in SERVING_KERNELS}
         res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
         err_file = os.path.join(dst, "prediction_errors.txt")
         if done != ["case0"] or os.path.exists(err_file):
@@ -481,6 +611,176 @@ def phase_predict(model, model32, dev, edge: int):
     return failures, res["launches"]
 
 
+def _train_losses_and_grads(state, batch, lmap, cfg):
+    """One forward and backward from `state` (no update): every loss term as
+    a float and every parameter's gradient."""
+    from rsuper_tpu_torch.train import loss_fn
+
+    state.model.zero_grad(set_to_none=True)
+    overall, losses = loss_fn(state.model, batch, lmap, cfg)
+    overall.backward()
+    grads = {k: p.grad.detach().clone()
+             for k, p in state.model.named_parameters()}
+    state.model.zero_grad(set_to_none=True)
+    return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def _grad_rel_l2(got, ref):
+    import torch
+
+    num = torch.stack([(got[k] - ref[k]).float().norm() for k in ref]).norm()
+    den = torch.stack([ref[k].float().norm() for k in ref]).norm()
+    return (num / den).item()
+
+
+def phase_train(dev, steps: int):
+    """The training step on bench.py's synthetic 96³ batch: (a) kernels
+    against the plain versions from the same state, float32 and bf16; (b)
+    1 warm-up and `steps` timed steps with launch counts, peak memory, a
+    split of one step and a profile; (c) finite, falling loss; (d) remat."""
+    import torch
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.losses import (LesionChannelMap, LossConfig,
+                                         calculate_loss)
+    from rsuper_tpu_torch.ops.dispatch import plain_on_device
+    from rsuper_tpu_torch.train import build_train_step
+
+    lmap = LesionChannelMap.from_classes(bench_train.CLASSES)
+    cfg = LossConfig(loss="dice")
+    batch = bench_train.synthetic_batch(WINDOW, 1, device=dev)
+    failures, res = [], {"size": WINDOW, "batch": 1, "loss": cfg.loss,
+                         "classes": len(bench_train.CLASSES)}
+    counted = wrappers()
+
+    # (a) kernels against the plain versions, no update in between
+    state32 = bench_train.build_state(dev, False, MODEL_ARGS,
+                                      dtype=torch.float32)
+    got32 = _train_losses_and_grads(state32, batch, lmap, cfg)
+    with plain_on_device():
+        ref32 = _train_losses_and_grads(state32, batch, lmap, cfg)
+    del state32
+    state = bench_train.build_state(dev, False, MODEL_ARGS)
+    got16 = _train_losses_and_grads(state, batch, lmap, cfg)
+    with plain_on_device():
+        ref16 = _train_losses_and_grads(state, batch, lmap, cfg)
+    torch.cuda.synchronize()
+    agree = {"losses": {}, "float32": {}, "bfloat16": {}}
+    for k, r in ref32[0].items():
+        noise = abs(ref16[0][k] - r)
+        d32, d16 = abs(got32[0][k] - r), abs(got16[0][k] - ref16[0][k])
+        tol16 = max(BF16_NOISE_FACTOR * noise, TOL["bfloat16"] * abs(r))
+        ok = (all(math.isfinite(v) for v in (got32[0][k], got16[0][k]))
+              and d32 <= 1e-4 * abs(r) and d16 <= tol16)
+        agree["losses"][k] = dict(
+            float32=got32[0][k], float32_plain=r, bfloat16=got16[0][k],
+            bfloat16_plain=ref16[0][k], bf16_tol=tol16, ok=ok)
+        if not ok:
+            failures.append(f"train loss {k}: {agree['losses'][k]}")
+    top = max(g.norm().item() for g in ref32[1].values())
+    worst, bad = 0.0, []
+    for k, r in ref32[1].items():
+        err = (got32[1][k] - r).norm().item()
+        bound = TRAIN32_TOL * (r.norm().item() + TRAIN_FLOOR * top)
+        worst = max(worst, err / bound)
+        if not (math.isfinite(err) and err <= bound):
+            bad.append(k)
+    agree["float32"] = dict(parameters=len(ref32[1]), tol=TRAIN32_TOL,
+                            floor=TRAIN_FLOOR, worst_err_over_bound=worst,
+                            rel_l2_all=_grad_rel_l2(got32[1], ref32[1]),
+                            failed=bad[:10])
+    if bad:
+        failures.append(f"train gradients float32: {len(bad)} parameters "
+                        f"over the bound, e.g. {bad[:5]}")
+    noise = _grad_rel_l2(ref16[1], ref32[1])
+    rel16 = _grad_rel_l2(got16[1], ref16[1])
+    finite16 = all(bool(torch.isfinite(g).all()) for g in got16[1].values())
+    agree["bfloat16"] = dict(rel_l2_all=rel16, bf16_noise_rel_l2=noise,
+                             tol=BF16_NOISE_FACTOR * noise, finite=finite16)
+    if not (finite16 and rel16 <= BF16_NOISE_FACTOR * noise):
+        failures.append(f"train gradients bf16: {agree['bfloat16']}")
+    res["kernels_vs_plain"] = agree
+    del got32, ref32, got16, ref16
+    torch.cuda.empty_cache()
+
+    # (b) warm-up, then the timed steps: the main path of this slice
+    step = build_train_step(lmap, cfg)
+    state, losses = step(state, batch)
+    history = [float(losses["overall"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in counted.values():
+        w.launches = 0
+    t0 = time.time()
+    for _ in range(steps):
+        state, losses = step(state, batch)
+        history.append(losses["overall"])
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches = {k: w.launches for k, w in counted.items()}
+    history = [float(v) for v in history]
+    res.update(steps=steps, ms_per_step=elapsed / steps * 1e3,
+               patches_per_s=steps / elapsed,
+               launches=launches,
+               launches_per_step={k: n / steps for k, n in launches.items()},
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               loss_history=history,
+               last_losses={k: float(v) for k, v in losses.items()})
+    expect = {"conv3x3x3_cf": 1, "in_relu_conv3x3x3_cf": 14,
+              "depthwise_conv3x3x3": 58, "conv3x3x3_cf_dgrad": 14,
+              "conv3x3x3_cf_wgrad": 1, "in_relu_conv3x3x3_cf_wgrad": 14,
+              "depthwise_conv3x3x3_bwd": 58}
+    for k, n in expect.items():
+        if launches[k] != n * steps:
+            failures.append(f"train: {k} launched {launches[k]} times in "
+                            f"{steps} steps, expected {n} a step")
+    # (c) finite at every step, lower after the steps than at the first
+    if not all(math.isfinite(v) for v in history):
+        failures.append(f"train: non-finite loss {history}")
+    elif not history[-1] < history[0]:
+        failures.append(f"train: loss did not fall: {history}")
+
+    # one step split by CUDA events, and its profile
+    model = state.model
+
+    def split_step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        model.zero_grad(set_to_none=True)
+        ev[0].record()
+        out = model(batch["image"])
+        ev[1].record()
+        ls = calculate_loss(out, batch["label"], batch["unk"],
+                            batch["segment_mask"], batch["volumes"],
+                            batch["diameters"], lmap, cfg)
+        ev[2].record()
+        ls["overall"].backward()
+        ev[3].record()
+        state.apply_gradients()
+        ev[4].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+    split_step()
+    parts = split_step()
+    res["split_ms"] = dict(zip(("forward", "loss", "backward", "optimizer"),
+                               parts))
+    res["profile_step"] = _profile(lambda: step(state, batch))
+
+    # (d) remat on: same first loss as remat off, and a whole step runs
+    del state
+    torch.cuda.empty_cache()
+    state_r = bench_train.build_state(dev, True, MODEL_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    _, losses_r = step(state_r, batch)
+    first_r = float(losses_r["overall"])
+    res["remat"] = dict(first_loss=first_r, first_loss_off=history[0],
+                        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if not abs(first_r - history[0]) <= 1e-6 * abs(history[0]):
+        failures.append(f"train: remat changes the loss: {res['remat']}")
+    log(json.dumps({"train": res}))
+    return failures, launches
+
+
 def main() -> int:
     import torch
 
@@ -500,12 +800,24 @@ def main() -> int:
     t0 = time.time()
     names = _build.build_all()
     log(json.dumps({"build": names, "seconds": time.time() - t0}))
-    rows, failures = phase_kernels(REPS)
     dev = torch.device("cuda")
+    rows, failures = phase_kernels(dev, REPS)
     model, model32 = _build_models(dev)
     failures += phase_model(model, model32, dev, REPS)
     fails, launches = phase_predict(model, model32, dev, VOLUME)
     failures += fails
+    del model, model32
+    torch.cuda.empty_cache()
+    fails, train_launches = phase_train(dev, TRAIN_STEPS)
+    failures += fails
+    # each kernel's count comes from the run of its own slice's main path:
+    # the forward kernels from the predict phase, the backward ones from
+    # the training steps (which launch the forward kernels too)
+    launches.update({k: n for k, n in train_launches.items()
+                     if k not in SERVING_KERNELS})
+    for k in KERNELS:
+        if launches.get(k, 0) <= 0:
+            failures.append(f"kernel {k} was not launched on its main path")
     log(json.dumps(kernels_line(rows, launches)))
     if failures:
         for f in failures:

@@ -35,6 +35,7 @@ def _medformer(args: Dict[str, Any], num_classes: int, dtype):
         norm=args.get("norm", "in"),
         act=args.get("act", "relu"),
         aux_loss=args.get("aux_loss", True),
+        remat=args.get("remat", True),
         dtype=dtype,
     )
 

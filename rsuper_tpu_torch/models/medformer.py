@@ -5,7 +5,10 @@ The default configuration runs as the JAX model's default does: the stem,
 ``(B, D, C, H, W)`` through the CUDA conv kernels (``cf_fullres`` and
 ``cf_halfres``), everything else channels-last. Module names equal the flax
 tree's (remat's ``Checkpoint`` prefix aside), so ``models/params.py`` maps a
-JAX checkpoint onto this model one parameter at a time.
+JAX checkpoint onto this model one parameter at a time. With ``remat`` the
+down and up blocks run under ``torch.utils.checkpoint`` as the JAX model
+wraps them in ``nn.remat``: same loss and gradients, parameter names
+unchanged.
 
 Not ported: the ``torch_port=True`` numerics, the classification and CLIP
 branches, and configurations that leave the channel-first path (the
@@ -18,6 +21,7 @@ from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (
     BasicBlockCF,
@@ -343,7 +347,7 @@ class MedFormer(nn.Module):
                  proj_type: str = "depthwise", norm: str = "in",
                  act: str = "relu", kernel_size=(3, 3, 3, 3, 3),
                  scale=((2, 2, 2),) * 4, aux_loss: bool = True,
-                 dtype=torch.float32):
+                 remat: bool = True, dtype=torch.float32):
         super().__init__()
         cn, tn, ch, nh = conv_num, trans_num, chan_num, num_heads
         scale = [tuple(s) if isinstance(s, (tuple, list)) else (s,) * 3
@@ -366,6 +370,7 @@ class MedFormer(nn.Module):
         dim_head = [ch[i] // nh[i] for i in range(8)]
         self.num_classes, self.aux_loss, self.dtype = num_classes, aux_loss, \
             dtype
+        self.remat = remat
 
         self.Conv_0 = CFConv3(1, base_chan, dtype=dtype)
         self.BasicBlock_0 = BasicBlockCF(base_chan, base_chan, dtype)
@@ -393,22 +398,31 @@ class MedFormer(nn.Module):
         self.UpBlockMF_3 = UpBlockCF(ch[6], base_chan, ch[7], cn[7], dtype)
         self.outc = CFConv1(ch[7], num_classes, True, dtype)
 
+    def _block(self, name: str, *args):
+        """Run a down or up block; with ``remat`` under autograd its
+        activations are dropped after the forward and recomputed in the
+        backward (the blocks the JAX model wraps in ``nn.remat``)."""
+        block = getattr(self, name)
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(self, x):
         x = x.to(self.dtype)
         x_cf = x.permute(0, 1, 4, 2, 3).contiguous()  # (B, D, 1, H, W)
         x0_cf = self.BasicBlock_0(self.Conv_0(x_cf))
-        x1_cf, _ = self.DownBlockMF_0(x0_cf)
-        x2, map2 = self.DownBlockMF_1(x1_cf)
-        x3, map3 = self.DownBlockMF_2(x2)
-        x4, map4 = self.DownBlockMF_3(x3)
+        x1_cf, _ = self._block("DownBlockMF_0", x0_cf)
+        x2, map2 = self._block("DownBlockMF_1", x1_cf)
+        x3, map3 = self._block("DownBlockMF_2", x2)
+        x4, map4 = self._block("DownBlockMF_3", x3)
         map2, map3, map4 = self.SemanticMapFusion_0([map2, map3, map4])
 
-        out, sem = self.UpBlockMF_0(x4, x3, map4, map3)
-        out, sem = self.UpBlockMF_1(out, x2, sem, map2)
+        out, sem = self._block("UpBlockMF_0", x4, x3, map4, map3)
+        out, sem = self._block("UpBlockMF_1", out, x2, sem, map2)
         aux = None
         if self.aux_loss:
             aux = resize_trilinear(self.aux_out(out), x.shape[1:4])
-        out_cf = self.UpBlockMF_2(out.permute(0, 1, 4, 2, 3), x1_cf)
-        out_cf = self.UpBlockMF_3(out_cf, x0_cf)
+        out_cf = self._block("UpBlockMF_2", out.permute(0, 1, 4, 2, 3), x1_cf)
+        out_cf = self._block("UpBlockMF_3", out_cf, x0_cf)
         logits = self.outc(out_cf).permute(0, 1, 3, 4, 2)
         return {"segmentation": [logits, aux] if self.aux_loss else logits}

@@ -15,6 +15,12 @@ its kind:
 * other 3³ ``kernel`` (CF and depthwise)   → ``kernel`` unchanged (the
   layout the CUDA kernels take)
 * ``bias``                                 → ``bias``
+
+The mapping is a pure re-layout, so it carries any tree of the parameters'
+structure across: a JAX gradient tree, the EMA tree, Adam's moments.
+``flax_from_state_dict`` is its inverse, and ``train_state_from_jax`` fills a
+port train state (parameters, EMA copy, AdamW moments and step) from the JAX
+package's, so that the next step of both packages agrees.
 """
 
 from __future__ import annotations
@@ -100,6 +106,63 @@ def params_from_flax(tree: Mapping[str, Any],
         if bad:
             raise ValueError(f"shape mismatch: " + ", ".join(
                 f"{k} {tuple(state[k].shape)} vs {want[k]}" for k in bad[:10]))
+    return state
+
+
+_REMAT_BLOCKS = ("DownBlockMF_0", "DownBlockMF_1", "DownBlockMF_2",
+                 "DownBlockMF_3", "UpBlockMF_0", "UpBlockMF_1")
+
+
+def flax_from_state_dict(state: Mapping[str, torch.Tensor],
+                         remat: bool = False) -> Dict[str, np.ndarray]:
+    """The port's ``state_dict`` (or any mapping of its parameter names, such
+    as gradients) → a flat flax tree ``{"a/b/kernel": array}`` (float32): the
+    inverse of ``params_from_flax``. With `remat` the blocks that flax names
+    with a ``Checkpoint`` prefix under ``nn.remat`` get it back."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, value in state.items():
+        parts = key.split(".")
+        leaf, parent = parts[-1], parts[-2] if len(parts) > 1 else ""
+        w = value.detach().cpu().float().numpy()
+        if leaf == "weight" and w.ndim == 1:
+            leaf = "scale"
+        elif leaf == "weight" and w.ndim == 2 and parent.startswith("Dense"):
+            leaf, w = "kernel", _t_linear(w)
+        elif leaf == "weight" and w.ndim == 2:
+            leaf, w = "kernel", _t_linear(w)[None, None, None]
+        elif leaf == "weight" and w.ndim == 5:
+            leaf, w = "kernel", np.transpose(w, (2, 3, 4, 1, 0))
+        elif leaf not in ("kernel", "bias"):
+            raise KeyError(f"no rule for port parameter {key} {w.shape}")
+        if remat and parts[0] in _REMAT_BLOCKS:
+            parts = ["Checkpoint" + parts[0]] + parts[1:]
+        flat["/".join(parts[:-1] + [leaf])] = np.ascontiguousarray(w)
+    return flat
+
+
+def train_state_from_jax(state, params, ema_params=None, mu=None, nu=None,
+                         count: int = 0, step: int = 0):
+    """Fill a port ``TrainState`` from the JAX package's (flax trees of numpy
+    arrays): the parameters, the EMA copy, AdamW's first and second moments
+    (optax ``ScaleByAdamState.mu`` / ``.nu``) with its update count, and the
+    step counter. Returns `state`."""
+    model = state.model
+    load_flax_params(model, params)
+    dev = next(model.parameters()).device
+    if ema_params is not None:
+        state.ema_params = {k: v.to(dev) for k, v in
+                            params_from_flax(ema_params, model).items()}
+    if mu is not None:
+        m = params_from_flax(mu, model)
+        v = params_from_flax(nu, model)
+        opt = state.optimizer.opt
+        for name, p in model.named_parameters():
+            opt.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": m[name].to(dev),
+                "exp_avg_sq": v[name].to(dev),
+            }
+    state.step = int(step)
     return state
 
 

@@ -7,6 +7,15 @@ of ``csrc/conv_cf.cu``; on CPU tensors they run the plain versions, which
 follow the JAX package's XLA fallbacks (``_conv3_cf_xla``,
 ``_in_relu_conv_xla``): weights rounded to the input's type, float32
 compute, output in the input's type.
+
+Both are differentiable. On CUDA tensors a ``torch.autograd.Function`` runs
+the backward through kernels as the JAX package's custom VJPs do: the input
+gradient is the forward kernel on flipped weights (``conv3x3x3_cf_dgrad``),
+the weight gradient the kernel of ``csrc/conv_cf_wgrad.cu``
+(``conv3x3x3_cf_wgrad``, ``in_relu_conv3x3x3_cf_wgrad``). On CPU tensors
+autograd differentiates the plain versions; ``_wgrad_plain``,
+``_dgrad_plain`` and ``_in_relu_bwd`` are the plain versions the backward
+kernels are held against. Every wrapper counts its launches.
 """
 
 from __future__ import annotations
@@ -51,6 +60,52 @@ def _in_relu_conv_plain(x: torch.Tensor, w: torch.Tensor,
     return _conv3_cf_plain(a, w)
 
 
+def _wgrad_plain(x: torch.Tensor, dy: torch.Tensor, stats=None) -> torch.Tensor:
+    """dw (3, 3, 3, C_in, C_out) float32 of the SAME 3³ conv: the sum over
+    b, d, h, w of dy[b, d, co, h, w] · a[b, d+kd−1, ci, h+kh−1, w+kw−1], with
+    a = x or, with `stats`, a = relu(x·scale+shift) rounded to x's type; a is
+    0 outside the volume. 27 shifted products, float32."""
+    B, D, Ci, H, W = x.shape
+    a = x.float()
+    if stats is not None:
+        st = stats.reshape(B, 2, Ci)
+        a = torch.clamp(a * st[:, 0, None, :, None, None]
+                        + st[:, 1, None, :, None, None], min=0.0)
+        a = a.to(x.dtype).float()
+    ap = F.pad(a, (1, 1, 1, 1, 0, 0, 1, 1))
+    g = dy.float()
+    taps = [torch.einsum("bdihw,bdohw->io",
+                         ap[:, kd:kd + D, :, kh:kh + H, kw:kw + W], g)
+            for kd in range(3) for kh in range(3) for kw in range(3)]
+    return torch.stack(taps).reshape(3, 3, 3, Ci, dy.shape[2])
+
+
+def _flip_w(w: torch.Tensor) -> torch.Tensor:
+    """Weights of the transposed conv: taps flipped, C_in and C_out swapped."""
+    return w.flip(0, 1, 2).transpose(3, 4)
+
+
+def _dgrad_plain(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx (or the gradient at the normalised activation): the SAME conv of
+    dy with the flipped weights, in dy's type."""
+    return _conv3_cf_plain(dy, _flip_w(w))
+
+
+def _in_relu_bwd(x: torch.Tensor, stats: torch.Tensor,
+                 da: torch.Tensor) -> torch.Tensor:
+    """ReLU + instance-norm backward in closed form (the JAX package's
+    ``_in_relu_conv_bwd_xla``): dx = scale·(g − E[g] − x̂·E[g·x̂]) with
+    g = da·1[x̂ > 0], float32, output in x's type. Plain PyTorch on every
+    device: it stands outside the kernels in the JAX package too."""
+    scale = stats[:, 0, :, 0][:, None, :, None, None]
+    shift = stats[:, 1, :, 0][:, None, :, None, None]
+    xh = x.float() * scale + shift
+    g = da.float() * (xh > 0)
+    m1 = g.mean(dim=(1, 3, 4), keepdim=True)
+    m2 = (g * xh).mean(dim=(1, 3, 4), keepdim=True)
+    return (scale * (g - m1 - xh * m2)).to(x.dtype)
+
+
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.dim() != 5:
         raise ValueError(f"x must be (B, D, C, H, W), got {tuple(x.shape)}")
@@ -80,29 +135,154 @@ def _launch(x: torch.Tensor, w: torch.Tensor, stats) -> torch.Tensor:
     return y
 
 
+def _wgrad_splits(B: int, D: int, Ci: int, Co: int, H: int, W: int) -> int:
+    """Number of spatial splits of the wgrad kernel's grid: enough blocks to
+    fill the card about four times over (132 SMs), at most one per 4×16
+    output tile. Each split costs one (27, C_in, C_out) float32 partial."""
+    tiles = B * D * -(-H // 4) * -(-W // 16)
+    pairs = -(-Ci // (4 if Ci <= 4 else 16)) * -(-Co // 32)
+    return max(1, min(tiles, -(-4 * 132 // pairs)))
+
+
+def _launch_wgrad(x: torch.Tensor, dy: torch.Tensor, stats) -> torch.Tensor:
+    """Run csrc/conv_cf_wgrad.cu on CUDA tensors; allocates dw and the
+    partial sums."""
+    B, D, Ci, H, W = x.shape
+    Co = dy.shape[2]
+    x, dy = x.contiguous(), dy.contiguous()
+    st = None if stats is None else stats.reshape(B, 2, Ci).contiguous()
+    S = _wgrad_splits(B, D, Ci, Co, H, W)
+    partial = torch.empty((S, 27, Ci, Co), dtype=torch.float32, device=x.device)
+    dw = torch.empty((3, 3, 3, Ci, Co), dtype=torch.float32, device=x.device)
+    lib = _build.load("conv_cf_wgrad")
+    fn = lib.rsuper_conv3_cf_wgrad
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), dy.data_ptr(), None if st is None else st.data_ptr(),
+             partial.data_ptr(), dw.data_ptr(), B, D, Ci, Co, H, W, S,
+             _DTYPE_CODES[x.dtype],
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "conv_cf_wgrad")
+    return dw
+
+
+def _check_dy(x: torch.Tensor, dy: torch.Tensor) -> None:
+    if (dy.dim() != 5 or dy.dtype != x.dtype or dy.shape[:2] != x.shape[:2]
+            or dy.shape[3:] != x.shape[3:]):
+        raise ValueError(f"dy must be (B, D, Co, H, W) in x's type, got "
+                         f"{tuple(dy.shape)} {dy.dtype} for x "
+                         f"{tuple(x.shape)} {x.dtype}")
+
+
+def conv3x3x3_cf_dgrad(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Input gradient of the SAME 3³ conv: dy (B, D, C_out, H, W),
+    w (3, 3, 3, C_in, C_out) → (B, D, C_in, H, W) in dy's type. As in the JAX
+    package this is the forward kernel on flipped weights (rounded to dy's
+    type), prologue off."""
+    wf = _flip_w(w)
+    _check(dy, wf)
+    if not dispatch.use_kernel(dy, w):
+        return _dgrad_plain(dy, w)
+    dx = _launch(dy, wf, None)
+    conv3x3x3_cf_dgrad.launches += 1
+    return dx
+
+
+def conv3x3x3_cf_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of ``conv3x3x3_cf``: (3, 3, 3, C_in, C_out) float32."""
+    _check_dy(x, dy)
+    if not dispatch.use_kernel(x, dy):
+        return _wgrad_plain(x, dy)
+    dw = _launch_wgrad(x, dy, None)
+    conv3x3x3_cf_wgrad.launches += 1
+    return dw
+
+
+def in_relu_conv3x3x3_cf_wgrad(x: torch.Tensor, dy: torch.Tensor,
+                               stats: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of ``in_relu_conv3x3x3_cf``: the activation
+    relu(x·scale+shift), rounded to x's type, is rebuilt from `stats`
+    (B, 2, C_in, 1) as the kernel stages x, and never stored."""
+    _check_dy(x, dy)
+    if not dispatch.use_kernel(x, dy, stats):
+        return _wgrad_plain(x, dy, stats)
+    dw = _launch_wgrad(x, dy, stats)
+    in_relu_conv3x3x3_cf_wgrad.launches += 1
+    return dw
+
+
+def _round_dw(dw: torch.Tensor, x: torch.Tensor, w: torch.Tensor):
+    """The weight gradient as the JAX package hands it on: rounded to the
+    compute type (the conv saw w in x's type), then cast to w's type."""
+    return dw.to(x.dtype).to(w.dtype)
+
+
+class _Conv3CF(torch.autograd.Function):
+    """``conv3x3x3_cf`` on CUDA tensors: forward, dgrad and wgrad kernels."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = _launch(x, w, None)
+        conv3x3x3_cf.launches += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = conv3x3x3_cf_dgrad(dy, w) if ctx.needs_input_grad[0] else None
+        dw = (_round_dw(conv3x3x3_cf_wgrad(x, dy), x, w)
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw
+
+
+class _InReluConv3CF(torch.autograd.Function):
+    """``in_relu_conv3x3x3_cf`` on CUDA tensors. Backward: da by the dgrad
+    kernel, dw by the fused wgrad kernel, dx by the closed-form ReLU +
+    instance-norm backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        stats = _in_stats_cf(x, eps)
+        ctx.save_for_backward(x, w, stats)
+        y = _launch(x, w, stats)
+        in_relu_conv3x3x3_cf.launches += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, stats = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _in_relu_bwd(x, stats, conv3x3x3_cf_dgrad(dy, w))
+        if ctx.needs_input_grad[1]:
+            dw = _round_dw(in_relu_conv3x3x3_cf_wgrad(x, dy, stats), x, w)
+        return dx, dw, None
+
+
 def conv3x3x3_cf(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """SAME 3³ conv, no bias: x (B, D, C_in, H, W), w (3, 3, 3, C_in, C_out)
-    → (B, D, C_out, H, W) in x's type, float32 accumulation."""
+    → (B, D, C_out, H, W) in x's type, float32 accumulation. Differentiable:
+    autograd of the plain version on the CPU, the kernels on the card."""
     _check(x, w)
     if not dispatch.use_kernel(x, w):
         return _conv3_cf_plain(x, w)
-    y = _launch(x, w, None)
-    conv3x3x3_cf.launches += 1
-    return y
+    return _Conv3CF.apply(x, w)
 
 
 def in_relu_conv3x3x3_cf(x: torch.Tensor, w: torch.Tensor,
                          eps: float = 1e-4) -> torch.Tensor:
     """``conv3x3x3_cf(relu(instance_norm(x)), w)`` with the normalisation
     and ReLU applied as the kernel stages its input (instance norm eps 1e-4,
-    no affine; stats from `_in_stats_cf`)."""
+    no affine; stats from `_in_stats_cf`). Differentiable as `conv3x3x3_cf`."""
     _check(x, w)
     if not dispatch.use_kernel(x, w):
         return _in_relu_conv_plain(x, w, eps)
-    y = _launch(x, w, _in_stats_cf(x, eps))
-    in_relu_conv3x3x3_cf.launches += 1
-    return y
+    return _InReluConv3CF.apply(x, w, eps)
 
 
-conv3x3x3_cf.launches = 0
-in_relu_conv3x3x3_cf.launches = 0
+for _fn in (conv3x3x3_cf, in_relu_conv3x3x3_cf, conv3x3x3_cf_dgrad,
+            conv3x3x3_cf_wgrad, in_relu_conv3x3x3_cf_wgrad):
+    _fn.launches = 0

@@ -28,7 +28,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "rsuper_tpu")
 
 def _sources():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) > 30  # ops, models, inference, data, losses, train
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    for new in ("ops/balls.py", "losses/dispatcher.py", "losses/volume.py",
+                "train/step.py", "train/optim.py", "bench_train.py"):
+        assert f"rsuper_tpu_torch/{new}" in names
     return files
 
 
@@ -103,6 +107,7 @@ def test_resolve_device_needs_cuda_unless_cpu(no_cuda):
 
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from rsuper_tpu_torch import bench_train
     from rsuper_tpu_torch import predict as cli
     from rsuper_tpu_torch.inference.predict import (predict_folder,
                                                     predict_masks_volume)
@@ -123,6 +128,7 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: cli.main(["--input_dir", str(tmp_path), "--output_dir",
                           str(tmp_path / "o"), "--params_npz", "x.npz",
                           "--classes_json", "c.json"]),
+        lambda: bench_train.main(["--size", "32", "--steps", "1"]),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
