@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import numpy as np
@@ -82,33 +81,22 @@ def build_state(device, remat: bool = False, model_args=None, seed: int = 0,
     return create_train_state(model, opt)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def main(argv=None):
+def main(argv=None, model_args=None):
+    """`model_args` overrides MedFormer arguments from Python (a small model
+    for a run on the CPU); the command line always runs the default model."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--size", type=int, default=96)
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--remat", action="store_true")
-    p.add_argument("--model_args_json", default=None,
-                   help="JSON dict of MedFormer arguments (tests use a small "
-                        "model)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
     from .losses import LesionChannelMap, LossConfig
     from .train import build_train_step
-    from .utils.device import resolve_device
+    from .utils.device import card_line, resolve_device
 
     device = resolve_device(args.device)
-    model_args = json.loads(args.model_args_json) if args.model_args_json \
-        else None
     state = build_state(device, args.remat, model_args)
     batch = synthetic_batch(args.size, args.batch, device=device)
     step = build_train_step(LesionChannelMap.from_classes(CLASSES),

@@ -16,16 +16,11 @@ input's type. No gradient flows through a dilation: the masks are data.
 from __future__ import annotations
 
 import math
-import os
 
 import torch
 import torch.nn.functional as F
 
 from .balls import ball_kernel, ball_kernel_wrapped, good_fft_size
-
-# large-kernel (k > 9) strategy under method="auto": "fft" or "iter"
-_BIG_METHOD = os.environ.get("RSUPER_DILATE_BIG", "fft")
-
 
 def binary_union(*masks: torch.Tensor) -> torch.Tensor:
     """Elementwise OR over binary float masks, in the first mask's type."""
@@ -153,8 +148,7 @@ def dilate_cf(x: torch.Tensor, kernel_size: int,
         out = _ball5_float(v)
     elif kernel_size == 7 and method in ("auto", "fast"):
         out = _ball7_float(v)
-    elif method == "iter" or (method == "auto" and kernel_size > 9
-                              and _BIG_METHOD == "iter"):
+    elif method == "iter":
         out = _iter_float(v, kernel_size)
     elif method == "direct" or (method == "auto" and kernel_size <= 9):
         out = _direct_float(v, kernel_size)

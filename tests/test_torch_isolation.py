@@ -2,8 +2,9 @@
 unless the CPU is asked for.
 
 * No module of ``rsuper_tpu_torch`` and not ``chip_smoke.py`` imports
-  ``jax``, ``flax`` or ``rsuper_tpu``: checked on the source (AST) and by
-  importing every module in a fresh interpreter and reading ``sys.modules``.
+  ``jax``, ``flax``, ``optax`` or ``rsuper_tpu``: checked on the source (AST)
+  and by importing every module in a fresh interpreter and reading
+  ``sys.modules``.
 * The entry points raise without CUDA unless ``device="cpu"`` is given.
 * ``chip_smoke.py`` exits non-zero, printing no result, without CUDA and
   when it stands alone in a directory.
@@ -23,7 +24,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "rsuper_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "rsuper_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rsuper_tpu")
 
 
 def _sources():
