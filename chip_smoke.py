@@ -11,7 +11,9 @@ Phases, in order (any failure exits non-zero):
              serving path (forward, window batches of 8) and the training
              step (backward, batch 1) give it, in bf16 and float32, with the
              stated tolerance; times of the kernel, the plain version and
-             the library call, and the kernel's bound;
+             the library call, and the kernel's bound. The two top-N
+             bisection kernels at the Ball Loss's shapes: thresholds and
+             masks equal to the plain version's;
 3. model   — default-config MedFormer (16 classes, seeded random weights)
              on one 96³ window batch of 2, through the kernels and through
              the plain versions, in float32 and in bf16; forward times at
@@ -26,16 +28,24 @@ Phases, in order (any failure exits non-zero):
              plain versions;
 5. train   — training steps of the default MedFormer on ``bench.py``'s
              synthetic 96³ batch of 1 (bf16 compute, float32 parameters,
-             ``remat`` off): masked BCE + adaptive-Tversky Dice + Volume Loss
-             on both heads (``LossConfig(loss="dice")``), clipping, AdamW and
-             EMA. Losses and every parameter's gradient through the kernels
-             against the plain versions, in float32 and in bf16; then 1
-             warm-up and 10 timed steps with the launch counts of every
-             kernel set to 0 just before and read just after, peak memory,
-             a split of one step into forward, loss, backward and optimizer,
-             and a torch.profiler breakdown; the loss must be finite at every
-             step and lower after the steps than at the first; one step with
-             ``remat`` on gives the same loss.
+             ``remat`` off) with the full R-Super losses (``LossConfig()``,
+             ``loss="ball_dice_last"``: masked BCE + adaptive-Tversky Dice on
+             both heads, the Ball Loss on the final head, the Volume Loss on
+             the auxiliary head), clipping, AdamW and EMA. The Ball Loss on
+             identical logits through the top-N kernel and through its plain
+             version (equal pseudo-masks); losses and every parameter's
+             gradient through the kernels against the plain versions, in
+             float32 and in bf16, with the ball centres and pseudo-mask
+             voxel counts of every run; then 1 warm-up and 10 timed steps
+             with the launch counts of every kernel set to 0 just before and
+             read just after, peak memory, host reads, a split of one step
+             into forward, loss (and the Ball Loss inside it), backward and
+             optimizer, and a torch.profiler breakdown; the loss must be
+             finite at every step and lower after the steps than at the
+             first; one step with ``remat`` on gives the same loss; the
+             public ``topn_masks_multi`` on the path's own masked volume
+             equals the batched kernel's masks; 1 + 5 steps of the
+             ``loss="dice"`` step beside it.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. It imports nothing of JAX or of
@@ -152,6 +162,15 @@ WGRAD_SHAPES = {
                                    (2, 48, 64, 48, 48, 64)],
 }
 DW_BWD_SHAPES = [(1,) + s[1:] for s in DW_SHAPES] + [(2, 24, 24, 24, 512)]
+# top-N bisection, float32 as the Ball Loss calls it: (B, V, K) for the
+# batched kernel, the first being the training step's shape; (V, K) for the
+# single volume
+TOPN_SHAPES = [(1, 96 ** 3, 3), (2, 96 ** 3, 3), (1, 128 ** 3, 3),
+               (2, 4099, 2)]
+TOPN_SINGLE_SHAPES = [(96 ** 3, 3), (96 ** 3, 1)]
+TOPN_ITERS = 26
+TOPN_REPS = 20  # timed calls of a top-N measurement (well under 1 ms each)
+DICE_STEPS = 5  # timed steps of the loss="dice" step beside the main path
 KERNELS = {
     "conv3x3x3_cf": dict(
         source="rsuper_tpu_torch/csrc/conv_cf.cu",
@@ -177,6 +196,12 @@ KERNELS = {
         sources=["rsuper_tpu_torch/csrc/dwconv.cu",
                  "rsuper_tpu_torch/csrc/dwconv_bwd.cu"],
         replaces="rsuper_tpu/ops/dwconv.py:229"),
+    "topn_threshold_multi": dict(
+        source="rsuper_tpu_torch/csrc/topn.cu",
+        replaces="rsuper_tpu/ops/pallas_topn.py:63"),
+    "topn_threshold_multi_batched": dict(
+        source="rsuper_tpu_torch/csrc/topn.cu",
+        replaces="rsuper_tpu/ops/pallas_topn.py:128"),
 }
 NO_LIBRARY = ("in_relu_conv3x3x3_cf", "in_relu_conv3x3x3_cf_wgrad")
 SERVING_KERNELS = ("conv3x3x3_cf", "in_relu_conv3x3x3_cf",
@@ -185,9 +210,10 @@ SERVING_KERNELS = ("conv3x3x3_cf", "in_relu_conv3x3x3_cf",
 
 def wrappers():
     """name → wrapper (each counts its launches) for every ported kernel."""
-    from rsuper_tpu_torch.ops import conv_cf, dwconv
+    from rsuper_tpu_torch.ops import conv_cf, dwconv, topn
 
     mods = {**{n: conv_cf for n in KERNELS if "conv3x3x3_cf" in n},
+            **{n: topn for n in KERNELS if n.startswith("topn_")},
             "depthwise_conv3x3x3": dwconv, "depthwise_conv3x3x3_bwd": dwconv}
     return {n: getattr(mods[n], n) for n in KERNELS}
 
@@ -282,7 +308,98 @@ def phase_kernels(dev, reps: int):
                  (x, w), flops, nbytes, lib, dname, (B, D, H, W, C))
             del x, w
         backward_cases(case, gen, dev, dtype, dname)
+    topn_cases(rows, failures, dev)
     return rows, failures
+
+
+def topn_cases(rows, failures, dev):
+    """The two top-N bisection kernels against the plain bisection, float32:
+    thresholds and masks must be EQUAL (integer counts, the same float32
+    arithmetic). Inputs per shape: a seeded uniform volume that is positive
+    only inside one inserted ball (most voxels exactly 0; the timed one,
+    with targets of the order the training batch gives), a dense normal
+    volume (negatives), the ball volume with its last item all zero, and the
+    ball volume with a target above the positive count. The bound is the larger of the volume read
+    once and iters·K + 1 compares a value; no one PyTorch call returns the
+    bisection's threshold, so ``library_ms`` is null. ``kthvalue_ms`` times
+    ``torch.kthvalue`` for the same targets: an exact select, which gives
+    the same mask up to the bisection's resolution but not the same
+    threshold."""
+    import torch
+
+    from rsuper_tpu_torch.ops import selection, topn
+    from rsuper_tpu_torch.ops.balls import insert_ball
+    from rsuper_tpu_torch.ops.dispatch import plain_on_device
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def inputs(B, V, K):
+        edge = round(V ** (1.0 / 3.0))
+        u = torch.rand((B, V), generator=gen, device=dev)
+        if edge ** 3 == V:  # one ball of diameter 20 · 1.2, off the centre
+            c = torch.full((B,), edge // 2, device=dev)
+            inside = insert_ball((edge,) * 3, (c, c + 3, c - 5),
+                                 torch.full((B,), 24.0, device=dev))
+            ns = torch.tensor([4000.0, 3200.0, 4800.0][:K], device=dev)
+        else:
+            inside = (torch.rand((B, V), generator=gen, device=dev) < 0.5
+                      ).float()
+            ns = torch.tensor([1000.0, 800.0, 1200.0][:K], device=dev)
+        x, ns = u * inside.reshape(B, V), ns.repeat(B, 1)
+        zero, above = x.clone(), ns.clone()
+        zero[-1] = 0.0
+        above[:, 0] = float(V + 1)
+        return [("ball", x, ns),
+                ("dense", torch.randn((B, V), generator=gen, device=dev), ns),
+                ("an_all_zero_item", zero, ns),
+                ("n_above_the_positive_count", x, above)]
+
+    def run(name, fn, mask_fn, B, V, K, single, on_path):
+        worst, mismatches = 0.0, 0
+        cases = inputs(B, V, K)
+        for _, x, ns in cases:
+            a = (x[0], ns[0]) if single else (x, ns)
+            got = fn(*a, iters=TOPN_ITERS)
+            masks = mask_fn(*a, iters=TOPN_ITERS)
+            with plain_on_device():
+                ref = fn(*a, iters=TOPN_ITERS)
+                ref_masks = mask_fn(*a, iters=TOPN_ITERS)
+            torch.cuda.synchronize()
+            worst = max(worst, _err(got, ref)[0])
+            mismatches += int((masks != ref_masks).sum().item())
+            del masks, ref_masks
+        ok = worst == 0.0 and mismatches == 0
+        _, x, ns = cases[0]
+        a = (x[0], ns[0]) if single else (x, ns)
+        row = dict(name=name, dtype="float32",
+                   shape=[V, K] if single else [B, V, K], max_abs_err=worst,
+                   mask_mismatches=mismatches, tol=0.0, ok=ok,
+                   on_path=on_path)
+        row["ms"] = time_ms(lambda: fn(*a, iters=TOPN_ITERS), TOPN_REPS)
+        with plain_on_device():
+            row["plain_ms"] = time_ms(lambda: fn(*a, iters=TOPN_ITERS),
+                                      TOPN_REPS)
+        row["library_ms"], row["library_call"] = None, None
+        ks = (V - ns + 1).clamp(1, V).long().tolist()
+        row["kthvalue_ms"] = time_ms(
+            lambda: [torch.kthvalue(x[b], k) for b in range(B)
+                     for k in ks[b]], TOPN_REPS)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            float(B) * V * (TOPN_ITERS * K + 1), B * V * 4 + 2 * B * K * 4,
+            "float32")
+        log(json.dumps({"kernel_case": row}))
+        if not ok:
+            failures.append(f"{name} {row['shape']}: max|Δ| {worst}, "
+                            f"{mismatches} mask voxels differ (must be 0)")
+        rows.append(row)
+        torch.cuda.empty_cache()
+
+    for i, (B, V, K) in enumerate(TOPN_SHAPES):
+        run("topn_threshold_multi_batched", topn.topn_threshold_multi_batched,
+            selection.topn_masks_multi_batched, B, V, K, False, i == 0)
+    for i, (V, K) in enumerate(TOPN_SINGLE_SHAPES):
+        run("topn_threshold_multi", topn.topn_threshold_multi,
+            selection.topn_masks_multi, 1, V, K, True, i == 0)
 
 
 def backward_cases(case, gen, dev, dtype, dname):
@@ -356,12 +473,14 @@ def backward_cases(case, gen, dev, dtype, dname):
 
 def kernels_line(rows, launches):
     """One entry per kernel: its error is the largest over the production
-    shapes in bf16; its times are those of its heaviest production shape."""
+    shapes in the path's type (the timed rows: bf16, float32 for top-N); its
+    times are those of its heaviest production shape, for top-N those of the
+    training step's shape."""
     out = []
     for name, meta in KERNELS.items():
-        mine = [r for r in rows if r["name"] == name
-                and r["dtype"] == "bfloat16"]
-        top = max(mine, key=lambda r: r["bound_ms"])
+        mine = [r for r in rows if r["name"] == name and "ms" in r]
+        top = max([r for r in mine if r.get("on_path")] or mine,
+                  key=lambda r: r["bound_ms"])
         out.append(dict(
             name=name, route="cuda", source=meta["source"],
             sources=meta.get("sources", [meta["source"]]),
@@ -640,18 +759,53 @@ def phase_predict(model, model32, dev, edge: int):
     return failures, res["launches"]
 
 
+@contextmanager
+def _ball_trace(keep_masks: bool = False):
+    """Inside the block, record for every slot the Ball Loss isolates: the
+    ball centres (z, y, x) and the voxel counts of the normal, small and big
+    pseudo-masks, per item; with `keep_masks` the masks themselves. Each
+    record reads from the device, so this wraps the checks and never a timed
+    step."""
+    import torch
+
+    from rsuper_tpu_torch.losses import ball
+
+    trace = []
+    centres_of, isolate = ball._ball_centres, ball.isolate_tumor_batched
+
+    def centres(x, diameter, cfg):
+        c = centres_of(x, diameter, cfg)
+        trace.append({"centres": torch.stack(c, dim=-1).tolist()})
+        return c
+
+    def isolated(x, diameter, volume, cfg):
+        masks = isolate(x, diameter, volume, cfg)
+        trace[-1]["voxels"] = torch.stack(
+            [m.sum(dim=(1, 2, 3)) for m in masks], dim=-1).tolist()
+        if keep_masks:
+            trace[-1]["masks"] = masks
+        return masks
+
+    ball._ball_centres, ball.isolate_tumor_batched = centres, isolated
+    try:
+        yield trace
+    finally:
+        ball._ball_centres, ball.isolate_tumor_batched = centres_of, isolate
+
+
 def _train_losses_and_grads(state, batch, lmap, cfg):
     """One forward and backward from `state` (no update): every loss term as
-    a float and every parameter's gradient."""
+    a float, every parameter's gradient, and the Ball Loss's trace."""
     from rsuper_tpu_torch.train import loss_fn
 
     state.model.zero_grad(set_to_none=True)
-    overall, losses = loss_fn(state.model, batch, lmap, cfg)
+    with _ball_trace() as trace:
+        overall, losses = loss_fn(state.model, batch, lmap, cfg)
     overall.backward()
     grads = {k: p.grad.detach().clone()
              for k, p in state.model.named_parameters()}
     state.model.zero_grad(set_to_none=True)
-    return {k: float(v.detach()) for k, v in losses.items()}, grads
+    return {k: float(v.detach()) for k, v in losses.items()}, grads, trace
 
 
 def _kernels_vs_plain(dev, margs, batch, lmap, cfg):
@@ -669,7 +823,17 @@ def _kernels_vs_plain(dev, margs, batch, lmap, cfg):
     rounding. The gradient norms of all runs are recorded beside it: at full
     depth the bf16 norm itself moves by a factor of two from one such
     rounding, and the shallower depths show the kernels' distance growing
-    with the noise, below it."""
+    with the noise, below it.
+
+    The Ball Loss puts its ball at the argmax of a convolution of the
+    sigmoid output, which is discontinuous in the logits: every run's ball
+    centres and pseudo-mask voxel counts are recorded. The same nudged runs
+    are the witness for its two terms. In float32, where the plain run's
+    trace stays as it is under the nudge, the ball terms are held like the
+    other terms (1e-4 relative); where the witness itself moves, the line
+    says so and they are held at the witness's own spread times
+    BF16_NOISE_FACTOR. In bf16 they are held at BF16_NOISE_FACTOR times the
+    largest of the bf16 noise and the three witnesses' spreads."""
     import torch
 
     from rsuper_tpu_torch import bench_train
@@ -702,20 +866,35 @@ def _kernels_vs_plain(dev, margs, batch, lmap, cfg):
     nudged16 = []
     for seed in (3, 4, 5):
         b = {**batch, "image": nudge(seed, 2.0 ** -8).to(batch["image"].dtype)}
-        nudged16.append(run(state, b, plain=True)[1])
+        nudged16.append(run(state, b, plain=True))
     del state
     torch.cuda.synchronize()
     agree = {"model_args": {k: list(v) if isinstance(v, tuple) else v
                             for k, v in margs.items()}, "losses": {}}
+    agree["ball_trace"] = dict(
+        float32=got32[2], float32_plain=ref32[2],
+        float32_plain_nudged=nudged[2], bfloat16=got16[2],
+        bfloat16_plain=ref16[2],
+        bfloat16_plain_nudged=[n[2] for n in nudged16])
+    witness_moved = ref32[2] != nudged[2]
     for k, r in ref32[0].items():
         noise = abs(ref16[0][k] - r)
         d32, d16 = abs(got32[0][k] - r), abs(got16[0][k] - ref16[0][k])
+        tol32 = 1e-4 * abs(r)
+        if k.startswith("ball_loss"):
+            if witness_moved:
+                tol32 = BF16_NOISE_FACTOR * abs(nudged[0][k] - r)
+            noise = max(noise, *(abs(n[0][k] - ref16[0][k])
+                                 for n in nudged16))
         tol16 = max(BF16_NOISE_FACTOR * noise, TOL["bfloat16"] * abs(r))
         ok = (all(math.isfinite(v) for v in (got32[0][k], got16[0][k]))
-              and d32 <= 1e-4 * abs(r) and d16 <= tol16)
+              and d32 <= tol32 and d16 <= tol16)
         agree["losses"][k] = dict(
-            float32=got32[0][k], float32_plain=r, bfloat16=got16[0][k],
-            bfloat16_plain=ref16[0][k], bf16_tol=tol16, ok=ok)
+            float32=got32[0][k], float32_plain=r, float32_tol=tol32,
+            bfloat16=got16[0][k], bfloat16_plain=ref16[0][k],
+            bf16_tol=tol16, ok=ok)
+        if k.startswith("ball_loss"):
+            agree["losses"][k]["float32_witness_moved"] = witness_moved
         if not ok:
             fails.append(f"loss {k}: {agree['losses'][k]}")
     rho = _grad_rel_l2(nudged[1], ref32[1])
@@ -741,7 +920,7 @@ def _kernels_vs_plain(dev, margs, batch, lmap, cfg):
         fails.append(f"float32 gradients: {len(bad)} parameters over the "
                      f"bound, e.g. {bad[:5]}")
     noise = _grad_rel_l2(ref16[1], ref32[1])
-    witness = [_grad_rel_l2(g, ref16[1]) for g in nudged16]
+    witness = [_grad_rel_l2(n[1], ref16[1]) for n in nudged16]
     rel16 = _grad_rel_l2(got16[1], ref16[1])
     tol16 = BF16_NOISE_FACTOR * max(noise, *witness)
     finite16 = all(bool(torch.isfinite(g).all()) for g in got16[1].values())
@@ -753,7 +932,7 @@ def _kernels_vs_plain(dev, margs, batch, lmap, cfg):
     agree["grad_norms"] = dict(
         float32=_grad_norm(got32[1]), float32_plain=_grad_norm(ref32[1]),
         bfloat16=_grad_norm(got16[1]), bfloat16_plain=_grad_norm(ref16[1]),
-        bfloat16_plain_nudged=[_grad_norm(g) for g in nudged16])
+        bfloat16_plain_nudged=[_grad_norm(n[1]) for n in nudged16])
     if not (finite16 and rel16 <= tol16):
         fails.append(f"bf16 gradients: {agree['bfloat16']}")
     torch.cuda.empty_cache()
@@ -774,23 +953,102 @@ def _grad_rel_l2(got, ref):
     return (num / den).item()
 
 
+def _ball_loss_on_identical_logits(state, batch, lmap, cfg):
+    """The Ball Loss of the same logits through the top-N kernel and through
+    its plain version: nothing else differs, so ball centres, pseudo-masks
+    and loss values must be equal (losses to 1e-6 relative: the same
+    operations on the same masks)."""
+    import torch
+
+    from rsuper_tpu_torch.losses import ball_loss
+    from rsuper_tpu_torch.ops.dispatch import plain_on_device
+
+    with torch.no_grad():
+        logits = state.model(batch["image"])["segmentation"][0]
+
+    def run():
+        with _ball_trace(keep_masks=True) as trace:
+            losses = ball_loss(logits, batch["label"], batch["unk"],
+                               batch["segment_mask"], batch["volumes"],
+                               batch["diameters"], lmap, cfg.ball_config())
+        return {k: float(v) for k, v in losses.items()}, trace
+
+    got, trace = run()
+    with plain_on_device():
+        ref, ref_trace = run()
+    mismatches = sum(int((a != b).sum().item())
+                     for t, r in zip(trace, ref_trace)
+                     for a, b in zip(t.pop("masks"), r.pop("masks")))
+    ok = (len(trace) > 0 and trace == ref_trace and mismatches == 0
+          and all(math.isfinite(v) and abs(v - ref[k]) <= 1e-6 * abs(ref[k])
+                  for k, v in got.items()))
+    return dict(losses=got, losses_plain=ref, slots=trace,
+                slots_plain=ref_trace, mask_voxels_that_differ=mismatches,
+                ok=ok)
+
+
+def _single_volume_path(state, batch, lmap, cfg, counted):
+    """The path of the single-volume kernel: on the masked volume of slot 0
+    that the Ball Loss of the final logits hands its batched selection, the
+    public ``topn_masks_multi`` of item 0 must give the batched kernel's
+    three masks. Returns (result, launches of topn_threshold_multi)."""
+    import torch
+
+    from rsuper_tpu_torch.losses import ball, ball_loss
+    from rsuper_tpu_torch.ops import selection
+
+    calls = []
+    batched = ball.topn_masks_multi_batched
+
+    def recording(x, ns, *, iters):
+        masks = batched(x, ns, iters=iters)
+        calls.append((x, ns, iters, masks))
+        return masks
+
+    ball.topn_masks_multi_batched = recording
+    try:
+        with torch.no_grad():
+            logits = state.model(batch["image"])["segmentation"][0]
+            ball_loss(logits, batch["label"], batch["unk"],
+                      batch["segment_mask"], batch["volumes"],
+                      batch["diameters"], lmap, cfg.ball_config())
+    finally:
+        ball.topn_masks_multi_batched = batched
+    x, ns, iters, masks = calls[0]
+    counted["topn_threshold_multi"].launches = 0
+    got = selection.topn_masks_multi(x[0], ns[0], iters=iters)
+    launches = counted["topn_threshold_multi"].launches
+    differ = int((got != masks[0]).sum().item())
+    res = dict(targets=ns[0].tolist(), voxels=got.sum(dim=(1, 2, 3)).tolist(),
+               positive_voxels=int((x[0] > 0).sum().item()),
+               mask_voxels_that_differ=differ, launches=launches,
+               ok=differ == 0 and launches == 1)
+    return res, launches
+
+
 def phase_train(dev, steps: int):
-    """The training step on bench.py's synthetic 96³ batch: (a) kernels
-    against the plain versions from the same state, float32 and bf16; (b)
-    1 warm-up and `steps` timed steps with launch counts, peak memory, a
-    split of one step and a profile; (c) finite, falling loss; (d) remat."""
+    """The training step on bench.py's synthetic 96³ batch with the full
+    R-Super losses: (a) the Ball Loss on identical logits, kernel against
+    plain, and the whole step's kernels against the plain versions from the
+    same state, float32 and bf16; (b) 1 warm-up and `steps` timed steps with
+    launch counts, peak memory, host reads, a split of one step and a
+    profile; (c) finite, falling loss; (d) remat; (e) the single-volume
+    top-N kernel on the path's own volume; (f) the loss="dice" step."""
     import torch
 
     from rsuper_tpu_torch import bench_train
     from rsuper_tpu_torch.losses import (LesionChannelMap, LossConfig,
-                                         calculate_loss)
+                                         calculate_loss, dispatcher)
+    from rsuper_tpu_torch.losses.ball import host_reads
     from rsuper_tpu_torch.train import build_train_step
 
     lmap = LesionChannelMap.from_classes(bench_train.CLASSES)
-    cfg = LossConfig(loss="dice")
+    cfg = LossConfig()  # loss="ball_dice_last"
     batch = bench_train.synthetic_batch(WINDOW, 1, device=dev)
+    live_slots = int((batch["volumes"] > 0).sum(dim=1).max())
     failures, res = [], {"size": WINDOW, "batch": 1, "loss": cfg.loss,
-                         "classes": len(bench_train.CLASSES)}
+                         "classes": len(bench_train.CLASSES),
+                         "live_slots": live_slots}
     counted = wrappers()
 
     # (a) kernels against the plain versions, no update in between: at full
@@ -803,6 +1061,12 @@ def phase_train(dev, steps: int):
         res[f"kernels_vs_plain_{key}"] = agree
         failures += [f"train {key}: {f}" for f in fails]
     state = bench_train.build_state(dev, False, MODEL_ARGS)
+    res["ball_loss_on_identical_logits"] = _ball_loss_on_identical_logits(
+        state, batch, lmap, cfg)
+    if not res["ball_loss_on_identical_logits"]["ok"]:
+        failures.append("train: the Ball Loss through the top-N kernel "
+                        "differs from its plain version on identical "
+                        f"logits: {res['ball_loss_on_identical_logits']}")
 
     # (b) warm-up, then the timed steps: the training path
     step = build_train_step(lmap, cfg)
@@ -812,6 +1076,7 @@ def phase_train(dev, steps: int):
     torch.cuda.reset_peak_memory_stats()
     for w in counted.values():
         w.launches = 0
+    reads = host_reads()
     t0 = time.time()
     for _ in range(steps):
         state, losses = step(state, batch)
@@ -822,6 +1087,7 @@ def phase_train(dev, steps: int):
     history = [float(v) for v in history]
     res.update(steps=steps, ms_per_step=elapsed / steps * 1e3,
                patches_per_s=steps / elapsed,
+               host_reads_per_step=(host_reads() - reads) / steps,
                launches=launches,
                launches_per_step={k: n / steps for k, n in launches.items()},
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -830,7 +1096,8 @@ def phase_train(dev, steps: int):
     expect = {"conv3x3x3_cf": 1, "in_relu_conv3x3x3_cf": 14,
               "depthwise_conv3x3x3": 58, "conv3x3x3_cf_dgrad": 14,
               "conv3x3x3_cf_wgrad": 1, "in_relu_conv3x3x3_cf_wgrad": 14,
-              "depthwise_conv3x3x3_bwd": 58}
+              "depthwise_conv3x3x3_bwd": 58,
+              "topn_threshold_multi_batched": live_slots}
     for k, n in expect.items():
         if launches[k] != n * steps:
             failures.append(f"train: {k} launched {launches[k]} times in "
@@ -840,6 +1107,10 @@ def phase_train(dev, steps: int):
         failures.append(f"train: non-finite loss {history}")
     elif not history[-1] < history[0]:
         failures.append(f"train: loss did not fall: {history}")
+    for k in ("ball_loss_bce", "ball_loss_dice"):
+        if not math.isfinite(res["last_losses"].get(k, math.nan)):
+            failures.append(f"train: {k} missing or not finite: "
+                            f"{res['last_losses']}")
 
     # one step split into its parts: by CUDA events (which read the host's
     # launch time where the device waits for the host), and by the profiler
@@ -847,15 +1118,26 @@ def phase_train(dev, steps: int):
     # time inside it)
     model = state.model
     parts = ("forward", "loss", "backward", "optimizer")
+    inner = ("ball_loss",)  # inside "loss": the Ball Loss's own forward
 
     def split_step(span):
+        ball_loss = dispatcher.ball_loss
+
+        def spanned(*args, **kwargs):
+            with span("ball_loss"):
+                return ball_loss(*args, **kwargs)
+
         model.zero_grad(set_to_none=True)
         with span("forward"):
             out = model(batch["image"])
-        with span("loss"):
-            ls = calculate_loss(out, batch["label"], batch["unk"],
-                                batch["segment_mask"], batch["volumes"],
-                                batch["diameters"], lmap, cfg)
+        dispatcher.ball_loss = spanned
+        try:
+            with span("loss"):
+                ls = calculate_loss(out, batch["label"], batch["unk"],
+                                    batch["segment_mask"], batch["volumes"],
+                                    batch["diameters"], lmap, cfg)
+        finally:
+            dispatcher.ball_loss = ball_loss
         with span("backward"):
             ls["overall"].backward()
         with span("optimizer"):
@@ -876,17 +1158,24 @@ def phase_train(dev, steps: int):
         split_step(timed)
     torch.cuda.synchronize()
     res["split_ms"] = {k: sorted(a.elapsed_time(b) for a, b in events[k])[1]
-                       for k in parts}
+                       for k in parts + inner}
     res["profile_step"] = _profile(
-        lambda: split_step(torch.profiler.record_function), spans=parts,
-        between="backward")
+        lambda: split_step(torch.profiler.record_function),
+        spans=parts + inner, between="backward")
     # the profiler slows the host down; the device's kernels take the same
     # time with it, so their sum is also held against the timed steps
     res["device_busy_share_of_timed_step"] = (
         res["profile_step"]["device_busy_ms"] / res["ms_per_step"])
 
+    # (e) the single-volume kernel on the path's own masked volume
+    res["single_volume_path"], launches["topn_threshold_multi"] = \
+        _single_volume_path(state, batch, lmap, cfg, counted)
+    if not res["single_volume_path"]["ok"]:
+        failures.append("train: topn_masks_multi on the path's volume: "
+                        f"{res['single_volume_path']}")
+
     # (d) remat on: same first loss as remat off, and a whole step runs
-    del state
+    del state, model
     torch.cuda.empty_cache()
     state_r = bench_train.build_state(dev, True, MODEL_ARGS)
     torch.cuda.reset_peak_memory_stats()
@@ -896,6 +1185,31 @@ def phase_train(dev, steps: int):
                         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     if not abs(first_r - history[0]) <= 1e-6 * abs(history[0]):
         failures.append(f"train: remat changes the loss: {res['remat']}")
+
+    # (f) the step without the Ball Loss, timed in the same call: what the
+    # Ball Loss costs is the difference
+    del state_r
+    torch.cuda.empty_cache()
+    state_d = bench_train.build_state(dev, False, MODEL_ARGS)
+    step_d = build_train_step(lmap, LossConfig(loss="dice"))
+    state_d, losses_d = step_d(state_d, batch)
+    history_d = [float(losses_d["overall"])]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(DICE_STEPS):
+        state_d, losses_d = step_d(state_d, batch)
+        history_d.append(losses_d["overall"])
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    history_d = [float(v) for v in history_d]
+    busy_d = _profile(lambda: step_d(state_d, batch), top=0)["device_busy_ms"]
+    res["dice_step"] = dict(loss="dice", steps=DICE_STEPS,
+                            ms_per_step=elapsed / DICE_STEPS * 1e3,
+                            patches_per_s=DICE_STEPS / elapsed,
+                            device_busy_ms=busy_d, loss_history=history_d)
+    if not (all(math.isfinite(v) for v in history_d)
+            and history_d[-1] < history_d[0]):
+        failures.append(f"train: the dice step's loss: {history_d}")
     log(json.dumps({"train": res}))
     return failures, launches
 

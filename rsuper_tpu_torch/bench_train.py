@@ -1,18 +1,22 @@
 #!/usr/bin/env python
 """Benchmark of the port's training step on one GPU — counterpart of the JAX
-package's ``bench.py`` with ``RSUPER_BENCH_LOSS=dice``.
+package's ``bench.py``.
 
     python -m rsuper_tpu_torch.bench_train [--size 96] [--batch 1]
-        [--steps 10] [--remat] [--device cpu]
+        [--steps 10] [--remat] [--loss dice] [--device cpu]
 
 Default MedFormer (16 classes, bf16 compute, float32 parameters, seeded
-random weights) on ``bench.py``'s synthetic batch: forward, masked BCE +
-adaptive-Tversky Dice + Volume Loss on both heads (``LossConfig(loss=
-"dice")``), backward, clipping, AdamW and EMA 0.99. One warm-up step, then
+random weights) on ``bench.py``'s synthetic batch: forward, the full R-Super
+losses (``LossConfig()``, ``loss="ball_dice_last"``: masked BCE +
+adaptive-Tversky Dice on both heads, the Ball Loss on the final head, the
+Volume Loss on the auxiliary head), backward, clipping, AdamW and EMA 0.99.
+``--loss dice`` runs the Volume Loss on both heads and no Ball Loss, as
+``bench.py`` does with ``RSUPER_BENCH_LOSS=dice``. One warm-up step, then
 `steps` timed steps; prints one JSON line with ``bench.py``'s shape
-(``metric`` ``train_patches_per_sec_per_gpu_96_dice``, ``value``, ``unit``)
-plus the card's name and power limit. Runs on CUDA unless ``--device cpu`` is
-given; a CPU run names its metric ``..._per_cpu_...``.
+(``metric`` ``train_patches_per_sec_per_gpu_96``, with ``_dice`` appended
+for ``--loss dice``; ``value``; ``unit``) plus the card's name and power
+limit. Runs on CUDA unless ``--device cpu`` is given; a CPU run names its
+metric ``..._per_cpu_...``.
 """
 
 from __future__ import annotations
@@ -89,6 +93,8 @@ def main(argv=None, model_args=None):
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--remat", action="store_true")
+    p.add_argument("--loss", default="ball_dice_last",
+                   help="LossConfig.loss: ball_dice_last (default) or dice")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
@@ -100,7 +106,7 @@ def main(argv=None, model_args=None):
     state = build_state(device, args.remat, model_args)
     batch = synthetic_batch(args.size, args.batch, device=device)
     step = build_train_step(LesionChannelMap.from_classes(CLASSES),
-                            LossConfig(loss="dice"))
+                            LossConfig(loss=args.loss))
 
     def sync():
         if device.type == "cuda":
@@ -116,13 +122,17 @@ def main(argv=None, model_args=None):
     sync()
     elapsed = time.time() - t0
     unit = "gpu" if device.type == "cuda" else "cpu"
+    full = args.loss == "ball_dice_last"
     result = {
-        "metric": f"train_patches_per_sec_per_{unit}_{args.size}_dice",
+        "metric": f"train_patches_per_sec_per_{unit}_{args.size}"
+                  + ("" if full else f"_{args.loss}"),
         "value": args.batch * args.steps / elapsed,
         "unit": f"{args.size}^3 CT patches/s/{unit.upper()} (MedFormer "
-                "fwd+bwd, seg + Volume Loss, AdamW, EMA)",
+                "fwd+bwd, " + ("full R-Super losses" if full
+                               else f"loss={args.loss}") + ", AdamW, EMA)",
         "ms_per_step": elapsed / args.steps * 1e3,
         "steps": args.steps, "batch": args.batch, "remat": args.remat,
+        "loss": args.loss,
         "loss_first": first, "loss_last": last,
         "device": (torch.cuda.get_device_name(0) if device.type == "cuda"
                    else "cpu"),

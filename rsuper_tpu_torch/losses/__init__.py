@@ -1,4 +1,5 @@
-from .ball import BallLossConfig, ball_loss, lesion_masks_cf
+from .ball import (BallLossConfig, ball_loss, isolate_tumor,
+                   lesion_masks_cf)
 from .dispatcher import LossConfig, calculate_loss
 from .lesions import LesionChannelMap
 from .seg import (adaptive_tversky_dice, get_known_voxels,
@@ -12,6 +13,7 @@ __all__ = [
     "dice_based_volume_loss",
     "volume_loss",
     "ball_loss",
+    "isolate_tumor",
     "lesion_masks_cf",
     "BallLossConfig",
     "LesionChannelMap",

@@ -10,10 +10,9 @@ aggregates the segmentation and report losses of every head into one
 * segmentation loss per head = masked BCE + adaptive-Tversky Dice, both
   masked by known voxels = 1 − dilate(unk, 5).
 
-Ported: the segmentation and Volume Loss routes. A configuration that routes
-any head to the Ball Loss, and the ``model_genesis``, ``clip_only`` and
-``classification_branch`` modes, raise ``NotImplementedError``; nothing is
-downgraded to the Volume Loss silently.
+Ported: the segmentation, Volume Loss and Ball Loss routes. The
+``model_genesis``, ``clip_only`` and ``classification_branch`` modes raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ from typing import Any, Dict, Sequence
 
 import torch
 
-from .ball import BallLossConfig, lesion_masks_cf
+from .ball import BallLossConfig, ball_loss, lesion_masks_cf
 from .lesions import LesionChannelMap
 from .seg import (adaptive_tversky_dice, get_known_voxels,
                   masked_bce_with_logits)
@@ -78,7 +77,6 @@ def calculate_loss(model_output: Dict[str, Any], label, unk_voxels,
     Volumetric tensors are channels-last (B, D, H, W, C); `tumor_volumes`
     (B, T); `tumor_diameters` (B, T, 3), read by the Ball Loss only;
     `class_weights` optional (B, C)."""
-    del tumor_diameters
     for name, on in (("model_genesis", model_genesis), ("clip_only", clip_only),
                      ("classification_branch", cfg.classification_branch)):
         if on:
@@ -88,13 +86,6 @@ def calculate_loss(model_output: Dict[str, Any], label, unk_voxels,
     heads: Sequence = result if isinstance(result, (tuple, list)) else [result]
     heads = [h for h in heads if h is not None]
     use_report = cfg.report_volume_loss_basic > 0
-    if use_report:
-        ball_heads = [j for j in range(len(heads)) if _head_uses_ball(cfg, j)]
-        if ball_heads:
-            raise NotImplementedError(
-                f"loss={cfg.loss!r} routes head(s) {ball_heads} to the Ball "
-                "Loss, which is not ported yet; loss='dice' runs the Volume "
-                "Loss route")
 
     if unk_voxels is not None:
         known = get_known_voxels(unk_voxels, dilation=cfg.known_dilation)
@@ -116,13 +107,24 @@ def calculate_loss(model_output: Dict[str, Any], label, unk_voxels,
     for j, logits in enumerate(heads):
         w = cfg.aux_weight[j] if len(heads) > 1 else 1.0
         if use_report:
-            val = volume_loss(logits, chosen_segment_mask, tumor_volumes,
-                              label, unk_voxels, lmap,
-                              tolerance=cfg.volume_loss_tolerance,
-                              class_weights=class_weights, precomputed=pre)
-            losses["dice_volume_loss"] = (
-                losses.get("dice_volume_loss", zero)
-                + w * cfg.report_volume_loss_basic * val)
+            terms: Dict[str, torch.Tensor] = {}
+            uses_ball = _head_uses_ball(cfg, j)
+            if uses_ball:
+                bl = ball_loss(logits, label, unk_voxels, chosen_segment_mask,
+                               tumor_volumes, tumor_diameters, lmap, bc,
+                               class_weights=class_weights, precomputed=pre)
+                terms["ball_loss_bce"] = (bl["ball_loss_bce"]
+                                          * cfg.ball_bce_weight)
+                terms["ball_loss_dice"] = (bl["ball_loss_dice"]
+                                           * cfg.ball_dice_weight)
+            if not uses_ball or "both" in cfg.loss:
+                terms["dice_volume_loss"] = volume_loss(
+                    logits, chosen_segment_mask, tumor_volumes, label,
+                    unk_voxels, lmap, tolerance=cfg.volume_loss_tolerance,
+                    class_weights=class_weights, precomputed=pre)
+            for key, val in terms.items():
+                losses[key] = (losses.get(key, zero)
+                               + w * cfg.report_volume_loss_basic * val)
         seg = masked_bce_with_logits(
             logits, label, known, class_weights=class_weights
         ) + adaptive_tversky_dice(

@@ -20,7 +20,10 @@ Tolerances, as max|Δ| ≤ tol·(1 + max|ref|):
 * gradients of the small MedFormer in float32: per parameter
   ‖Δ‖ ≤ 1e-3·(‖ref‖ + 1e-3·max over parameters of ‖ref‖) (sums in another
   order, forward and backward; the second term gives a scale to gradients
-  that are zero but for rounding, such as a bias in front of a norm).
+  that are zero but for rounding, such as a bias in front of a norm);
+* the top-N bisection kernels: thresholds and masks equal to the plain
+  version's (integer counts, the same float32 arithmetic), and the same from
+  run to run; the closed-form ball counts equal to the inserted balls' sums.
 """
 
 import numpy as np
@@ -28,7 +31,9 @@ import pytest
 import torch
 
 from rsuper_tpu_torch.models import get_model, init_params
-from rsuper_tpu_torch.ops import conv_cf, dispatch, dwconv
+from rsuper_tpu_torch.losses import BallLossConfig
+from rsuper_tpu_torch.losses.ball import isolate_tumor_batched
+from rsuper_tpu_torch.ops import balls, conv_cf, dispatch, dwconv, selection, topn
 
 pytestmark = pytest.mark.cuda
 
@@ -279,3 +284,133 @@ def test_small_medformer_gradients_through_the_kernels_match_plain(dev):
         err = (got[k] - ref[k]).norm().item()
         bound = 1e-3 * (ref[k].norm().item() + 1e-3 * top)
         assert err <= bound, f"{k}: |Δ| {err} > {bound}"
+
+
+# ------------------------------------------------------------ top-N bisection
+TOPN_V = [1, 127, 4099, 32 ** 3, 96 ** 3]
+
+
+def _topn_volume(B, V, seed, dev, kind):
+    """`ball`: uniform values, most voxels exactly 0 (as inside one inserted
+    ball); `dense`: normal values, negatives included."""
+    rng = np.random.default_rng(seed)
+    if kind == "dense":
+        x = rng.normal(size=(B, V))
+    else:
+        x = rng.random((B, V)) * (rng.random((B, V)) < 0.02 + 1.0 / V)
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("V", TOPN_V)
+def test_topn_batched_kernel_equals_plain(dev, V, B, K, dtype):
+    for kind in ("ball", "dense"):
+        x = _topn_volume(B, V, V + B, dev, kind).to(dtype)
+        pos = (x > 0).sum(dim=1).float()
+        ns = torch.stack([torch.clamp(torch.round(pos * f), min=1.0)
+                          for f in (0.5, 0.4, 0.6)[:K]], dim=1)
+        ns[0, 0] = float(V + 7)  # above the positive count: lo stays 0
+        got, ref = _launch_and_plain(topn.topn_threshold_multi_batched, x, ns)
+        torch.cuda.synchronize()
+        assert got.shape == (B, K) and got.dtype == torch.float32
+        assert torch.equal(got, ref), (kind, got, ref)
+        assert torch.equal(topn.topn_threshold_multi_batched(x, ns), got)
+        masks = selection.topn_masks_multi_batched(x, ns)
+        with dispatch.plain_on_device():
+            assert torch.equal(masks,
+                               selection.topn_masks_multi_batched(x, ns))
+
+
+@pytest.mark.parametrize("dtype", DTYPES + [torch.float16], ids=str)
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("V", TOPN_V)
+def test_topn_single_volume_kernel_equals_plain(dev, V, K, dtype):
+    for kind in ("ball", "dense"):
+        x = _topn_volume(1, V, 3 * V, dev, kind)[0].to(dtype)
+        ns = [max(1.0, float(int(V * f))) for f in (0.01, 0.5, 0.002)[:K]]
+        got, ref = _launch_and_plain(topn.topn_threshold_multi, x, ns)
+        torch.cuda.synchronize()
+        assert got.shape == (K,) and torch.equal(got, ref), (kind, got, ref)
+        n = topn.topn_threshold_multi_batched.launches
+        both = topn.topn_threshold_multi_batched(x[None], [ns])
+        assert topn.topn_threshold_multi_batched.launches == n + 1
+        assert torch.equal(both[0], got)  # the B = 1 case of one kernel
+
+
+def test_topn_edge_cases_equal_plain(dev):
+    zero = torch.zeros((2, 5000), device=dev)
+    zero[1, 17] = 0.25
+    neg = -torch.rand((2, 5000), device=dev,
+                      generator=torch.Generator(dev).manual_seed(0)) - 0.5
+    for x, ns in ((zero, [[1.0, 10.0], [1.0, 2.0]]),
+                  (neg, [[1.0, 4000.0], [0.0, -2.0]])):
+        got, ref = _launch_and_plain(topn.topn_threshold_multi_batched, x, ns)
+        assert torch.equal(got, ref)
+    assert not selection.topn_masks_multi_batched(zero, [[1.0], [3.0]])[0].any()
+    x = _topn_volume(1, 4099, 5, dev, "dense")[0]
+    strided = x[::3]  # made contiguous by the wrapper
+    got, ref = _launch_and_plain(topn.topn_threshold_multi, strided, [40.0])
+    assert torch.equal(got, ref)
+    for iters in (0, 5):
+        got = topn.topn_threshold_multi(x, [9.0], iters=iters)
+        with dispatch.plain_on_device():
+            assert torch.equal(got, topn.topn_threshold_multi(x, [9.0],
+                                                              iters=iters))
+    assert not topn.topn_threshold_multi(x, [9.0], iters=0).any()
+
+
+def test_topn_more_targets_and_items_than_one_launch_takes(dev):
+    x = _topn_volume(300, 127, 6, dev, "dense")  # more items than blocks
+    ns = torch.arange(1, 10, device=dev).float().repeat(300, 1) * 9  # K = 9
+    got, ref = _launch_and_plain(topn.topn_threshold_multi_batched, x, ns)
+    assert got.shape == (300, 9) and torch.equal(got, ref)
+    big = _topn_volume(1, 128 ** 3, 7, dev, "ball")[0]  # re-read from L2
+    got, ref = _launch_and_plain(topn.topn_threshold_multi, big,
+                                 [4000.0, 3200.0, 4800.0])
+    assert torch.equal(got, ref)
+
+
+def test_ball_counts_equal_inserted_balls_on_the_card(dev):
+    shape = (24, 26, 28)
+    cz, cy, cx = (torch.tensor(v, device=dev) for v in
+                  ([0, 3, 23, 12], [0, 20, 25, 0], [0, 11, 27, 17]))
+    d = torch.tensor([1.0, 3.0, 8.0, 12.4, 23.0, 40.0, 77.0], device=dev)
+    counts = balls.ball_count_clipped(
+        shape, (cz[:, None], cy[:, None], cx[:, None]), d[None])
+    for i in range(4):
+        stack = balls.insert_ball(
+            shape, (cz[i].expand(7), cy[i].expand(7), cx[i].expand(7)), d)
+        assert torch.equal(counts[i], stack.sum(dim=(1, 2, 3)))
+    wrapped = balls.ball_count_wrapped(shape, d)
+    want = torch.stack([balls.ball_kernel_wrapped(shape, float(v), device=dev
+                                                  ).sum() for v in d])
+    assert torch.equal(wrapped, want)
+    t = torch.arange(0, 70000, device=dev).float()
+    assert torch.equal(balls._floor_sqrt(t),
+                       torch.floor(torch.sqrt(t.double())).float())
+    assert torch.equal(counts.cpu(), balls.ball_count_clipped(
+        shape, (cz[:, None].cpu(), cy[:, None].cpu(), cx[:, None].cpu()),
+        d[None].cpu()))
+
+
+def test_isolate_tumor_through_the_kernel_equals_plain(dev):
+    """Identical input both ways: only the top-N route differs, so the
+    three pseudo-masks must be equal."""
+    g = torch.meshgrid(*[torch.arange(48.0, device=dev)] * 3, indexing="ij")
+    blobs = []
+    for c, s in (((20, 25, 18), 5.0), ((3, 40, 30), 3.0)):
+        d2 = sum((a - v) ** 2 for a, v in zip(g, c))
+        blobs.append(0.9 * torch.exp(-d2 / (2 * s * s)))
+    x = torch.stack(blobs) + 0.01 * _randn((2, 48, 48, 48), 30, dev).abs()
+    dia = torch.tensor([12.0, 7.0], device=dev)
+    vol = torch.tensor([900.0, 200.0], device=dev)
+    cfg = BallLossConfig(max_diameter=64)
+    n = topn.topn_threshold_multi_batched.launches
+    got = isolate_tumor_batched(x, dia, vol, cfg)
+    assert topn.topn_threshold_multi_batched.launches == n + 1
+    with dispatch.plain_on_device():
+        ref = isolate_tumor_batched(x, dia, vol, cfg)
+    for a, b in zip(got, ref):
+        assert a.sum() > 0 and torch.equal(a, b)

@@ -22,7 +22,7 @@ from rsuper_tpu.losses import lesions as jles
 from rsuper_tpu.losses import seg as jseg
 from rsuper_tpu.losses import volume as jvol
 from rsuper_tpu_torch.losses import (BallLossConfig, LesionChannelMap,
-                                     LossConfig, ball_loss, calculate_loss)
+                                     LossConfig, calculate_loss)
 from rsuper_tpu_torch.losses import ball, dispatcher, seg, volume
 
 CLASSES = ["background", "liver", "liver_lesion", "liver_lesion_b",
@@ -320,18 +320,6 @@ def test_loss_config_matches_jax_defaults():
             cfg = LossConfig(loss=loss)
             assert dispatcher._head_uses_ball(cfg, j) == \
                 jdisp._head_uses_ball(jdisp.LossConfig(loss=loss), j)
-
-
-@pytest.mark.parametrize("loss", ["ball_dice_last", "ball_dice", "ball",
-                                  "dynamic_dice", "dll"])
-def test_ball_routes_raise(loss):
-    x = _t(DATA["logits"])
-    args = (_t(DATA["label"]), _t(DATA["unk"]), _t(DATA["segment_mask"]),
-            _t(DATA["volumes"]), _t(DATA["diameters"]), LMAP_T)
-    with pytest.raises(NotImplementedError, match="Ball Loss"):
-        calculate_loss({"segmentation": [x, x]}, *args, LossConfig(loss=loss))
-    with pytest.raises(NotImplementedError, match="Ball Loss"):
-        ball_loss(x, *args)
 
 
 @pytest.mark.parametrize("mode", ["model_genesis", "clip_only",

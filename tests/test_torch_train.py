@@ -394,8 +394,8 @@ def test_synthetic_batch_matches_bench_py():
 
 
 def test_bench_train_prints_its_line_on_the_cpu(capsys):
-    out = bench_train.main(["--device", "cpu", "--size", "32", "--steps", "2"],
-                           model_args=TINY)
+    out = bench_train.main(["--device", "cpu", "--size", "32", "--steps", "2",
+                            "--loss", "dice"], model_args=TINY)
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["metric"] == "train_patches_per_sec_per_cpu_32_dice"
     assert line["value"] > 0 and line["device"] == "cpu"

@@ -11,14 +11,18 @@ model). The port runs its plain PyTorch paths; the JAX model its XLA paths.
 About two minutes at 32³ (the JAX compile dominates).
 
     JAX_PLATFORMS=cpu python tools/compare_default_medformer.py --grad
+        [--loss dice]
 
 compares instead, in float32, the loss terms and every parameter's gradient
-of one training step's loss (``LossConfig(loss="dice")`` on the synthetic
-batch of ``bench_train`` at `--size`, ``remat`` off): the port against
-``jax.value_and_grad`` of the JAX package's ``loss_fn``. It also prints how
-far one float32 rounding of the input image (x·(1 ± 2^-22)) moves the port's
-own gradients: the scale any float32 agreement of this randomly initialised
-model can be held to.
+of one training step's loss (``LossConfig(loss=...)``, by default the full
+``ball_dice_last`` step, on the synthetic batch of ``bench_train`` at
+`--size`, ``remat`` off): the port against ``jax.value_and_grad`` of the JAX
+package's ``loss_fn``. It also prints how far one float32 rounding of the
+input image (x·(1 ± 2^-22)) moves the port's own gradients and loss terms:
+the scale any float32 agreement of this randomly initialised model can be
+held to. With a Ball Loss the ball's centre is an argmax of the model's
+output, so the loss terms need to agree and the gradient distance is read
+beside that witness.
 """
 
 import argparse
@@ -75,11 +79,12 @@ def _compare_grads(args, flat):
         jax.value_and_grad(jax_loss_fn, has_aux=True),
         static_argnums=(1, 3, 4))(params, jmodel, jbatch,
                                   JLesionChannelMap.from_classes(classes),
-                                  JLossConfig(loss="dice"))
+                                  JLossConfig(loss=args.loss))
     model = load_flax_params(
         get_model("medformer", len(classes), {"remat": False},
                   dtype=torch.float32), flat).train()
-    lmap, cfg = LesionChannelMap.from_classes(classes), LossConfig(loss="dice")
+    lmap = LesionChannelMap.from_classes(classes)
+    cfg = LossConfig(loss=args.loss)
 
     def port(b):
         model.zero_grad(set_to_none=True)
@@ -91,8 +96,8 @@ def _compare_grads(args, flat):
     losses, grads = port(batch)
     sign = torch.from_numpy(np.random.default_rng(args.seed + 1).choice(
         [-1.0, 1.0], size=tuple(batch["image"].shape)).astype(np.float32))
-    _, nudged = port({**batch,
-                      "image": batch["image"] * (1 + 2.0 ** -22 * sign)})
+    nudged_losses, nudged = port(
+        {**batch, "image": batch["image"] * (1 + 2.0 ** -22 * sign)})
     want = {k: v.numpy() for k, v in params_from_flax(
         {"/".join(k): np.asarray(v)
          for k, v in flatten_dict(jgrads["params"]).items()}, model).items()}
@@ -101,9 +106,12 @@ def _compare_grads(args, flat):
                         / (np.linalg.norm(w) + 1e-3 * top)), k)
                  for k, w in want.items())
     return {
-        "size": args.size, "seed": args.seed, "parameters": len(want),
+        "size": args.size, "seed": args.seed, "loss": args.loss,
+        "parameters": len(want),
         "losses": {k: dict(port=losses[k], jax=float(v),
-                           rel_err=abs(losses[k] - float(v)) / abs(float(v)))
+                           rel_err=abs(losses[k] - float(v)) / abs(float(v)),
+                           port_one_rounding_of_the_input_rel=abs(
+                               nudged_losses[k] - losses[k]) / abs(losses[k]))
                    for k, v in jlosses.items()},
         "grad_rel_l2_all_port_vs_jax": _rel_l2_all(grads, want),
         "grad_rel_l2_all_port_one_rounding_of_the_input":
@@ -125,6 +133,8 @@ def main(argv=None):
     p.add_argument("--grad", action="store_true",
                    help="compare the training step's loss terms and "
                         "gradients (float32) instead of the forward")
+    p.add_argument("--loss", default="ball_dice_last",
+                   help="LossConfig.loss of the --grad comparison")
     args = p.parse_args(argv)
 
     import jax
