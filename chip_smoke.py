@@ -6,14 +6,20 @@
 Phases, in order (any failure exits non-zero):
 
 1. build   — nvcc builds every kernel of ``rsuper_tpu_torch/csrc`` for
-             sm_90a, one process per source, all at once;
+             sm_90a, one process per source, all at once; what
+             ``-Xptxas -v`` reports for the conv kernels (registers, spills,
+             static shared memory) is printed, one line a source;
 2. kernels — each kernel against its plain PyTorch version at the shapes the
              serving path (forward, window batches of 8) and the training
              step (backward, batch 1) give it, in bf16 and float32, with the
              stated tolerance; times of the kernel, the plain version and
-             the library call, and the kernel's bound. The two top-N
-             bisection kernels at the Ball Loss's shapes: thresholds and
-             masks equal to the plain version's;
+             the library call, and the kernel's bound; for the conv kernels
+             their route (tensor cores or CUDA cores) and achieved TFLOP/s,
+             for the fused forward the same kernel's time without its
+             prologue, and for the bf16 weight gradients the kernel's and
+             the plain version's distance from a float64 sum (recorded, not
+             bounded). The two top-N bisection kernels at the Ball Loss's
+             shapes: thresholds and masks equal to the plain version's;
 3. model   — default-config MedFormer (16 classes, seeded random weights)
              on one 96³ window batch of 2, through the kernels and through
              the plain versions, in float32 and in bf16; forward times at
@@ -58,6 +64,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import sys
 import tempfile
 import time
@@ -237,13 +244,22 @@ def phase_kernels(dev, reps: int):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, failures = [], []
 
-    def case(name, fn, args, ref_args, flops, nbytes, library, dtype, shape):
+    def case(name, fn, args, ref_args, flops, nbytes, library, dtype, shape,
+             route=None, ref64=None, no_prologue=None):
         got = fn(*args)
         with plain_on_device():
             ref = fn(*ref_args)
         torch.cuda.synchronize()
         if not isinstance(got, tuple):
             got, ref = (got,), (ref,)
+        acc = {}
+        if ref64 is not None:  # recorded beside the check, not a bound
+            r64 = ref64()
+            top = r64.abs().max().item()
+            acc = dict(rel_err64=(got[0].double() - r64).abs().max().item() / top,
+                       plain_rel_err64=(ref[0].double() - r64).abs().max().item()
+                       / top)
+            del r64
         err, tol, ok = 0.0, 0.0, True
         for g, r in zip(got, ref):  # each output at its own type's tolerance
             e, mx = _err(g, r)
@@ -252,9 +268,15 @@ def phase_kernels(dev, reps: int):
             if e >= err:
                 err, tol = e, t
         row = dict(name=name, dtype=dtype, shape=list(shape),
-                   max_abs_err=err, tol=tol, ok=ok)
+                   max_abs_err=err, tol=tol, ok=ok, **acc)
+        if route is not None:
+            row["route"] = route
         if dtype == "bfloat16":  # timings in the serving path's type
             row["ms"] = time_ms(lambda: fn(*args), reps)
+            if route is not None:
+                row["tflops"] = flops / row["ms"] / 1e9
+            if no_prologue is not None:  # what the fused prologue costs
+                row["no_prologue_ms"] = time_ms(no_prologue, reps)
             with plain_on_device():
                 row["plain_ms"] = time_ms(lambda: fn(*ref_args), reps)
             row["library_ms"], row["library_call"] = (
@@ -284,14 +306,18 @@ def phase_kernels(dev, reps: int):
                 wn = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous()
                 lib = ("F.conv3d (cuDNN), NCDHW copy of x",
                        lambda xn=xn, wn=wn: F.conv3d(xn, wn, padding=1))
+                alone = None
                 if name == "in_relu_conv3x3x3_cf":
                     # no library call fuses the norm: F.conv3d times the
-                    # conv alone, a yardstick kept out of library_ms
+                    # conv alone, a yardstick kept out of library_ms; so
+                    # does the port's own kernel without the prologue
                     lib = ("F.conv3d (cuDNN) of the conv alone, no norm",
                            lib[1])
                     flops += 3.0 * x.numel()
+                    alone = lambda x=x, w=w: conv_cf.conv3x3x3_cf(x, w)
                 case(name, fn, (x, w), (x, w), flops, nbytes, lib, dname,
-                     (B, D, Ci, H, W, Co))
+                     (B, D, Ci, H, W, Co), conv_cf.conv_route(dtype, Ci),
+                     no_prologue=alone)
                 del x, w
         for (B, D, H, W, C) in DW_SHAPES:
             x = torch.randn((B, D, H, W, C), generator=gen, device=dev
@@ -431,7 +457,8 @@ def backward_cases(case, gen, dev, dtype, dname):
         lib = ("aten.convolution_backward (cuDNN), input gradient only",
                conv_lib(xn, gn, wn, [True, False, False]))
         case("conv3x3x3_cf_dgrad", conv_cf.conv3x3x3_cf_dgrad, (dy, w),
-             (dy, w), flops, nbytes, lib, dname, (B, D, Cg, H, W, Cx))
+             (dy, w), flops, nbytes, lib, dname, (B, D, Cg, H, W, Cx),
+             conv_cf.conv_route(dtype, Cg))
         del dy, w, gn, xn, wn
     for name, shapes in WGRAD_SHAPES.items():
         fused = name.startswith("in_relu")
@@ -452,7 +479,9 @@ def backward_cases(case, gen, dev, dtype, dname):
                 args += (conv_cf._in_stats_cf(x, 1e-4),)
                 flops += 3.0 * x.numel()
             case(name, getattr(conv_cf, name), args, args, flops, nbytes, lib,
-                 dname, (B, D, Ci, H, W, Co))
+                 dname, (B, D, Ci, H, W, Co), conv_cf.conv_route(dtype, Ci),
+                 (lambda args=args: _wgrad64(*args)) if dname == "bfloat16"
+                 else None)
             del x, dy, xn, gn, wn, args
     for (B, D, H, W, C) in DW_BWD_SHAPES:
         x = rand((B, D, H, W, C)).to(dtype)
@@ -469,6 +498,27 @@ def backward_cases(case, gen, dev, dtype, dname):
              (x, w, dy), (x, w, dy), flops, nbytes, lib, dname,
              (B, D, H, W, C))
         del x, dy, w
+
+
+def _wgrad64(x, dy, stats=None):
+    """dw of the SAME 3³ conv summed in float64, from the activation that
+    the kernels and the plain version both use (rounded to x's type): the
+    yardstick of the float32 sums' own error."""
+    import torch
+    import torch.nn.functional as F
+
+    B, D, Ci, H, W = x.shape
+    a = x
+    if stats is not None:
+        st = stats.reshape(B, 2, Ci)
+        a = torch.clamp(x.float() * st[:, 0, None, :, None, None]
+                        + st[:, 1, None, :, None, None], min=0.0).to(x.dtype)
+    ap = F.pad(a.double(), (1, 1, 1, 1, 0, 0, 1, 1))
+    g = dy.double()
+    taps = [torch.einsum("bdihw,bdohw->io",
+                         ap[:, kd:kd + D, :, kh:kh + H, kw:kw + W], g)
+            for kd in range(3) for kh in range(3) for kw in range(3)]
+    return torch.stack(taps).reshape(3, 3, 3, Ci, dy.shape[2])
 
 
 def kernels_line(rows, launches):
@@ -491,6 +541,30 @@ def kernels_line(rows, launches):
             library_ms=(None if name in NO_LIBRARY else top["library_ms"]),
             shape=top["shape"]))
     return {"kernels": out}
+
+
+def ptxas_summary(report: str):
+    """Per kernel of nvcc's ``-Xptxas -v`` report: its (mangled) name,
+    registers a thread, static shared memory, stack and spill bytes."""
+    out = []
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            out.append({"kernel": m.group(1)})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[-1].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[-1]["static_smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def _model_fn(model):
@@ -1232,8 +1306,11 @@ def main() -> int:
     log(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                     "device": torch.cuda.get_device_name(0)}))
     t0 = time.time()
-    names = _build.build_all()
-    log(json.dumps({"build": names, "seconds": time.time() - t0}))
+    reports = _build.build_all()
+    log(json.dumps({"build": sorted(reports), "seconds": time.time() - t0}))
+    for name in ("conv_cf", "conv_cf_wgrad"):
+        log(json.dumps({"ptxas": {"source": f"rsuper_tpu_torch/csrc/{name}.cu",
+                                  "kernels": ptxas_summary(reports[name])}}))
     dev = torch.device("cuda")
     # the plain float32 versions are the yardstick: no TF32 in them
     torch.backends.cudnn.allow_tf32 = False

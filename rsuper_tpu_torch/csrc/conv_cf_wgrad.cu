@@ -20,21 +20,45 @@
 //
 // What bounds it: the same 54 operations per channel pair and voxel as the
 // forward, against one read of x and dy, so the card's arithmetic rate bounds
-// it. This first design runs on the CUDA cores in float32.
+// it (bf16 tensor cores: 989 TFLOP/s).
 //
-// Design: the sum runs over B*D*H*W positions, far more than one block can
-// take, and blocks cannot carry a sum from one to the next as the TPU grid
-// does. So the grid is (spatial split s of S, C_in tile x C_out tile). A
-// block walks the 4x16 output tiles t = s, s+S, ... of the volume; for each
-// it stages the dy tile (32 output channels) and the three depth planes of
-// the a tile with a one-voxel halo (16 input channels, or 4 for the stem) in
-// shared memory, channel innermost. A thread owns one (kd, kh), 4 input and
-// 4 output channels: 3 taps x 4 x 4 float32 accumulators kept in registers
-// over the whole walk. Along a tile row it reads one float4 of dy and one new
-// float4 of a per position (the other two kw columns slide in registers) for
-// 48 multiply-adds. At the end each block writes its accumulators to
-// partial[s]; a second kernel sums the S partials in a fixed order, so dw is
-// the same from run to run (no atomics).
+// The sum runs over B*D*H*W positions, far more than one block can take,
+// and blocks cannot carry a sum from one to the next as the TPU grid does.
+// So the grid is (spatial split s of S, C_in tile x C_out tile): a block
+// walks its share of the output tiles and keeps its sums; at the end it
+// writes them to partial[s], and a second kernel sums the S partials in a
+// fixed order, so dw is the same from run to run (no atomics). Two routes,
+// chosen by the wrapper from (dtype, Ci) alone:
+//
+// route 1, tensor cores (bf16, Ci >= 16): per tap a GEMM with M = 16 input
+// channels, N = 32 output channels, K = positions, on mma.sync.m16n8k16
+// (bf16 in, float32 accumulate). A tile is 8 x 16 outputs of one depth row;
+// tiles are numbered depth innermost and a block takes a contiguous run of
+// them, so it walks down columns of tiles. Shared memory holds a ring of
+// four planes of a (one-voxel halo, channels innermost, padded to 24 bf16)
+// and two dy tiles ([co][h][w], padded). Along a column each tile needs one
+// new plane of a and its own dy tile: both are loaded while the current
+// tile's MMAs run (a through registers, with the prologue applied; dy by
+// cp.async when W % 8 == 0). Each of the 9 warps owns one (kd, kh) and the
+// three kw taps: a tap's A operand is the plane at ring slot (d + kd - 1)
+// read at shifted row addresses (ldmatrix .trans), its B operand the dy
+// tile (ldmatrix), so one staged plane serves nine taps. The MMAs sum one
+// tile (8 k16 steps); each tile's sums are then added in float32 to the
+// thread's own slots in shared memory: MMA accumulation over a whole
+// block's share strayed from a float64 sum much further than float32 sums
+// do (chip_smoke.py records both distances for every bf16 wgrad shape).
+//
+// route 0, CUDA cores (float32, and the stem's Ci = 1): 4x16 output tiles,
+// tile t = s, s+S, ...; for each it stages the dy tile (32 output channels)
+// and the three depth planes of the a tile with a one-voxel halo (16 input
+// channels, or 4 for the stem) in shared memory, channel innermost. A thread
+// owns one (kd, kh), 4 input and 4 output channels: 3 taps x 4 x 4 float32
+// accumulators. Along a tile row it reads one float4 of dy and one new
+// float4 of a per position (the other two kw columns slide in registers)
+// for 48 multiply-adds.
+//
+// The tensor-core prologue rounds a * scale before adding shift, as the
+// plain version does; the CUDA-core route keeps its fused multiply-add.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -224,26 +248,313 @@ void launch_t(const void* x, const void* dy, const float* stats, float* partial,
     launch<T, 16>(x, dy, stats, partial, B, D, Ci, Co, H, W, S, stream);
 }
 
+// ------------------------------------------------------------ tensor cores
+namespace tc {
+
+constexpr int TH = 8, TW = 16;     // outputs of a tile: one k16 step a tile row
+constexpr int TCI = 16, TCO = 32;  // channels of a block: one m16, four n8 fragments
+constexpr int CKP = TCI + 8;       // padded channel stride of a staged voxel of a (48 bytes)
+constexpr int IH = TH + 2, IW = TW + 2;
+constexpr int NP = IH * IW;        // voxels of a staged plane of a
+constexpr int TP = TH * TW;        // outputs of a tile
+constexpr int DYP = TP + 8;        // padded position stride of a staged dy channel (272 bytes)
+constexpr int WARPS = 9;           // one (kd, kh) each
+constexpr int THREADS = 32 * WARPS;
+constexpr int SLOTS = 4;           // ring of a planes: three in use, one being filled
+constexpr int PLANE = NP * CKP;    // bf16 of a staged plane of a
+constexpr int DYBUF = TCO * DYP;   // bf16 of a staged dy tile
+constexpr int NACC = 3 * 4;        // float4 sums of a thread: 3 taps x 4 n-fragments
+static_assert(NP <= THREADS, "one voxel of a plane per thread");
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared; zero-filled when !valid (src is not read then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float bf_lo(unsigned v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf_hi(unsigned v) { return __uint_as_float(v & 0xffff0000u); }
+__device__ __forceinline__ unsigned bf_pack(float lo, float hi) {  // round to nearest even
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+// relu(x * scale + shift), the product rounded before the sum as the plain
+// version rounds it (an fma would round the bf16 activation differently)
+__device__ __forceinline__ float norm_relu(float x, float scale, float shift) {
+  return fmaxf(__fadd_rn(__fmul_rn(x, scale), shift), 0.f);
+}
+
+// Tiles are numbered depth innermost, and block s takes the contiguous run
+// [T s / S, T (s + 1) / S): along a column of tiles the next tile needs one
+// new plane of a (ring slot dd & 3) and its own dy tile, both loaded while
+// the current tile's MMAs run. dy goes by cp.async in its own layout,
+// [co][h][w], when W % 8 == 0 (vec), else through registers.
+template <bool FUSE>
+__global__ void __launch_bounds__(THREADS, 2)
+wgrad_tc_kernel(const unsigned short* __restrict__ x, const unsigned short* __restrict__ dy,
+                const float* __restrict__ stats, float* __restrict__ partial, int B, int D,
+                int Ci, int Co, int H, int W, int tiles_h, int tiles_w, int co_tiles, int S,
+                int vec) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [SLOTS][IH][IW][CKP]
+  __nv_bfloat16* ds = as + SLOTS * PLANE;                           // [2][TCO][DYP]
+  float4* sacc = reinterpret_cast<float4*>(ds + 2 * DYBUF);         // [WARPS][NACC][32]
+  float* sst = reinterpret_cast<float*>(sacc + WARPS * NACC * 32);  // [B][2][TCI]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kd = warp / 3, kh = warp % 3;
+  const int s = blockIdx.x;
+  const int ci0 = (blockIdx.y / co_tiles) * TCI;
+  const int co0 = (blockIdx.y % co_tiles) * TCO;
+  const size_t HW = (size_t)H * W;
+
+  if (FUSE) {  // padded channels get scale = shift = 0, so they stay 0
+    for (int i = tid; i < B * 2 * TCI; i += THREADS) {
+      const int c = i % TCI;
+      sst[i] = ci0 + c < Ci ? stats[(size_t)(i / TCI) * Ci + ci0 + c] : 0.f;
+    }
+    __syncthreads();
+  }
+
+  // The MMAs sum one tile (128 positions) in acc; each tile's acc is then
+  // added in float32 to the thread's own slots in shared memory, so no MMA
+  // accumulator runs over more than 8 k16 steps.
+  float4* mine = sacc + warp * NACC * 32 + lane;
+#pragma unroll
+  for (int k = 0; k < NACC; ++k) mine[k * 32] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // a: one voxel of a plane per thread, 16 channels
+  const int prow = tid / IW, pcol = tid % IW;
+  unsigned xv[TCI];
+  bool xin = false;
+  auto load_plane = [&](int b, int dd, int h0, int w0) {
+    const int hh = h0 + prow - 1, ww = w0 + pcol - 1;
+    xin = tid < NP && dd >= 0 && dd < D && hh >= 0 && hh < H && ww >= 0 && ww < W;
+    const unsigned short* src =
+        x + (xin ? (((size_t)b * D + dd) * Ci + ci0) * HW + (size_t)hh * W + ww : 0);
+#pragma unroll
+    for (int c = 0; c < TCI; ++c)
+      xv[c] = xin && ci0 + c < Ci ? __ldg(src + (size_t)c * HW) : 0u;
+  };
+  auto store_plane = [&](int b, int dd) {
+    if (tid >= NP) return;
+    unsigned v[TCI / 2];
+#pragma unroll
+    for (int j = 0; j < TCI / 2; ++j) {
+      v[j] = xv[2 * j] | (xv[2 * j + 1] << 16);
+      if (FUSE && xin) {
+        const float* sc = sst + b * 2 * TCI;
+        v[j] = bf_pack(norm_relu(bf_lo(v[j]), sc[2 * j], sc[TCI + 2 * j]),
+                       norm_relu(bf_hi(v[j]), sc[2 * j + 1], sc[TCI + 2 * j + 1]));
+      }
+    }
+    uint4* dst = reinterpret_cast<uint4*>(as + (dd & (SLOTS - 1)) * PLANE + tid * CKP);
+    dst[0] = make_uint4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_uint4(v[4], v[5], v[6], v[7]);
+  };
+  // dy of the tile at (b, d, h0, w0) into buf, [co][h][w]
+  auto stage_dy = [&](int b, int d, int h0, int w0, __nv_bfloat16* buf) {
+    if (vec) {  // 16-byte pieces of 8 outputs along W
+      for (int i = tid; i < TCO * TH * (TW / 8); i += THREADS) {
+        const int q = i % (TW / 8), r = (i / (TW / 8)) % TH, c = i / (TW / 8 * TH);
+        const int hh = h0 + r, ww = w0 + q * 8, co = co0 + c;
+        const bool ok = co < Co && hh < H && ww < W;
+        const unsigned short* src =
+            ok ? dy + (((size_t)b * D + d) * Co + co) * HW + (size_t)hh * W + ww : dy;
+        cp_async16(buf + c * DYP + r * TW + q * 8, src, ok);
+      }
+      cp_async_commit();
+    } else {
+      unsigned short* dst = reinterpret_cast<unsigned short*>(buf);
+      for (int i = tid; i < TCO * TP; i += THREADS) {
+        const int p = i % TP, c = i / TP;
+        const int hh = h0 + p / TW, ww = w0 + p % TW, co = co0 + c;
+        dst[c * DYP + p] =
+            co < Co && hh < H && ww < W
+                ? __ldg(dy + (((size_t)b * D + d) * Co + co) * HW + (size_t)hh * W + ww)
+                : (unsigned short)0;
+      }
+    }
+  };
+  // this warp's three taps over the tile at depth d, dy in buf
+  auto compute = [&](int d, const __nv_bfloat16* buf) {
+    const int dd = d + kd - 1;
+    if (dd < 0 || dd >= D) return;  // this warp's plane of a is all zero
+    float acc[3][4][4];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[k][n][q] = 0.f;
+    const __nv_bfloat16* ap = as + (dd & (SLOTS - 1)) * PLANE;
+#pragma unroll 2
+    for (int r = 0; r < TH; ++r) {  // k16 step: the 16 outputs of tile row r
+      unsigned bf[2][4];  // dy: n16 x k16, n-fragments 2j and 2j + 1
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        ldsm_x4(bf[j], buf + (j * 16 + (lane >> 4) * 8 + (lane & 7)) * DYP + r * TW +
+                           ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
+        unsigned a[4];  // a: m16 (channels) x k16 (positions shifted by the tap)
+        ldsm_x4_t(a, ap + ((r + kh) * IW + (lane >> 4) * 8 + (lane & 7) + kw) * CKP +
+                         ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mma_bf16(acc[kw][2 * j], a, bf[j][0], bf[j][1]);
+          mma_bf16(acc[kw][2 * j + 1], a, bf[j][2], bf[j][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        float4 t = mine[(k * 4 + n) * 32];
+        t.x += acc[k][n][0], t.y += acc[k][n][1], t.z += acc[k][n][2], t.w += acc[k][n][3];
+        mine[(k * 4 + n) * 32] = t;
+      }
+  };
+
+  const long long T = (long long)B * D * tiles_h * tiles_w;
+  const long long t0 = T * s / S, t1 = T * (s + 1) / S;
+  int cur = 0;
+  bool fresh = true;
+  for (long long t = t0; t < t1; ++t) {
+    const int d = (int)(t % D);
+    long long col = t / D;
+    const int w0 = (int)(col % tiles_w) * TW;
+    col /= tiles_w;
+    const int h0 = (int)(col % tiles_h) * TH;
+    const int b = (int)(col / tiles_h);
+    if (fresh) {  // a new column: the three planes around d, and dy
+      stage_dy(b, d, h0, w0, ds + cur * DYBUF);
+      for (int k = -1; k <= 1; ++k) {
+        load_plane(b, d + k, h0, w0);
+        store_plane(b, d + k);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    const bool next = t + 1 < t1 && d + 1 < D;  // the next tile is one depth row on
+    if (next) {
+      stage_dy(b, d + 1, h0, w0, ds + (cur ^ 1) * DYBUF);
+      load_plane(b, d + 2, h0, w0);
+    }
+    compute(d, ds + cur * DYBUF);
+    if (next) {
+      store_plane(b, d + 2);
+      cp_async_wait_all();
+      cur ^= 1;
+    }
+    __syncthreads();
+    fresh = !next;
+  }
+
+  float* out = partial + (size_t)s * 27 * Ci * Co;
+#pragma unroll
+  for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float4 t = mine[(kw * 4 + n) * 32];
+      const float v[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int ci = ci0 + (lane >> 2) + (q >> 1) * 8;
+        const int co = co0 + n * 8 + (lane & 3) * 2 + (q & 1);
+        if (ci < Ci && co < Co)
+          out[((size_t)((kd * 3 + kh) * 3 + kw) * Ci + ci) * Co + co] = v[q];
+      }
+    }
+}
+
+template <bool FUSE>
+int launch_fuse(const void* x, const void* dy, const float* stats, float* partial, int B, int D,
+                int Ci, int Co, int H, int W, int S, cudaStream_t stream) {
+  const int tiles_h = (H + TH - 1) / TH;
+  const int tiles_w = (W + TW - 1) / TW;
+  const int ci_tiles = (Ci + TCI - 1) / TCI;
+  const int co_tiles = (Co + TCO - 1) / TCO;
+  const size_t smem = (SLOTS * PLANE + 2 * DYBUF) * sizeof(__nv_bfloat16) +
+                      WARPS * NACC * 32 * sizeof(float4) +
+                      (FUSE ? B * 2 * TCI * sizeof(float) : 0);
+  auto kernel = wgrad_tc_kernel<FUSE>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(S, ci_tiles * co_tiles), THREADS, smem, stream>>>(
+      static_cast<const unsigned short*>(x), static_cast<const unsigned short*>(dy), stats,
+      partial, B, D, Ci, Co, H, W, tiles_h, tiles_w, co_tiles, S, W % 8 == 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. stats may be null (no prologue). S is the
-// number of spatial splits (>= 1); partial holds S * 27 * Ci * Co floats.
-// Returns cudaGetLastError() after the two launches.
+// dtype: 0 = float32, 1 = bfloat16; route: 0 = CUDA cores, 1 = tensor cores
+// (bf16 only). stats may be null (no prologue). S is the number of spatial
+// splits (>= 1); partial holds S * 27 * Ci * Co floats. Returns
+// cudaGetLastError() after the two launches.
 extern "C" int rsuper_conv3_cf_wgrad(const void* x, const void* dy, const void* stats,
                                      void* partial, void* dw, int B, int D, int Ci, int Co,
-                                     int H, int W, int S, int dtype, void* stream) {
+                                     int H, int W, int S, int dtype, int route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sf = static_cast<const float*>(stats);
   float* pf = static_cast<float*>(partial);
   if (S < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
+  int err;
+  if (route == 1) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    err = sf != nullptr
+              ? tc::launch_fuse<true>(x, dy, sf, pf, B, D, Ci, Co, H, W, S, st)
+              : tc::launch_fuse<false>(x, dy, sf, pf, B, D, Ci, Co, H, W, S, st);
+  } else if (route == 0 && dtype == 0) {
     launch_t<float>(x, dy, sf, pf, B, D, Ci, Co, H, W, S, st);
-  else if (dtype == 1)
+    err = static_cast<int>(cudaGetLastError());
+  } else if (route == 0 && dtype == 1) {
     launch_t<__nv_bfloat16>(x, dy, sf, pf, B, D, Ci, Co, H, W, S, st);
-  else
+    err = static_cast<int>(cudaGetLastError());
+  } else {
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (err != cudaSuccess) return err;
   const int n = 27 * Ci * Co;
   sum_partials_kernel<<<(n + 255) / 256, 256, 0, st>>>(pf, static_cast<float*>(dw), n, S);
   return static_cast<int>(cudaGetLastError());

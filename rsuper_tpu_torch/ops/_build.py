@@ -4,12 +4,13 @@ Each ``csrc/<name>.cu`` becomes ``_build/<name>-<hash>.so`` (the hash is of
 the source, so an edited source is rebuilt), with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
-         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
 Nothing is built when the module is imported: ``load(name)`` builds one
 source at its first use, and ``build_all()`` starts one ``nvcc`` for every
-source at once and waits for all of them. The build directory is listed in
-``.gitignore``.
+source at once, waits for all of them and returns what ``-Xptxas -v``
+reported for each kernel (registers, shared memory, spills). The build
+directory is listed in ``.gitignore``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -65,30 +66,32 @@ def _start(name: str):
     return proc, tmp, target
 
 
-def _finish(name: str, job) -> None:
+def _finish(name: str, job) -> str:
+    """Wait for one nvcc; returns its output ("" when nothing was built)."""
     if job is None:
-        return
+        return ""
     proc, tmp, target = job
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, target)
+    return out
 
 
-def build_all() -> List[str]:
-    """Build every source in parallel (one nvcc each); returns the names."""
-    names = sources()
-    jobs = {n: _start(n) for n in names}
-    errors = []
+def build_all() -> Dict[str, str]:
+    """Build every source in parallel (one nvcc each); returns name → nvcc's
+    output, which holds the ``-Xptxas -v`` report of each kernel."""
+    jobs = {n: _start(n) for n in sources()}
+    reports, errors = {}, []
     for n, job in jobs.items():
         try:
-            _finish(n, job)
+            reports[n] = _finish(n, job)
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
-    return names
+    return reports
 
 
 def load(name: str) -> ctypes.CDLL:

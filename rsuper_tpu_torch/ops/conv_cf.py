@@ -16,6 +16,11 @@ the weight gradient the kernel of ``csrc/conv_cf_wgrad.cu``
 autograd differentiates the plain versions; ``_wgrad_plain``,
 ``_dgrad_plain`` and ``_in_relu_bwd`` are the plain versions the backward
 kernels are held against. Every wrapper counts its launches.
+
+Each kernel has two routes, chosen by ``conv_route`` from the operands'
+type and C_in alone: bf16 with C_in ≥ 16 runs on the tensor cores (an
+implicit GEMM on ``mma.sync``, bf16 operands, float32 sums), float32 and the
+stem's C_in = 1 on the CUDA cores in float32.
 """
 
 from __future__ import annotations
@@ -28,6 +33,35 @@ import torch.nn.functional as F
 from . import _build, dispatch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_CODES = {"cuda_core": 0, "tensor_core": 1}
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def conv_route(dtype: torch.dtype, c_in: int) -> str:
+    """The kernel route of a conv, dgrad or wgrad whose input has `c_in`
+    channels: ``"tensor_core"`` for bf16 with C_in ≥ 16 (one k16 step of the
+    MMA), else ``"cuda_core"``. float32 stays off the tensor cores, where it
+    would be TF32 (about three digits); the stem's single channel would fill
+    one sixteenth of each MMA. C_out does not enter: its tail is padded."""
+    return ("tensor_core" if dtype == torch.bfloat16 and c_in >= 16
+            else "cuda_core")
+
+
+def _pack_w(w: torch.Tensor, dtype: torch.dtype, route: str) -> torch.Tensor:
+    """Weights (3, 3, 3, C_in, C_out), or a flipped view of them, as the
+    kernel of `route` reads them. CUDA cores: (27, C_in, C_out) float32
+    rounded to `dtype`. Tensor cores: (27, C_in↑16, C_out↑8) bf16, C_in
+    padded to a multiple of 16 and C_out of 8 with zeros, so that every
+    staged weight row is whole 16-byte pieces. One copy kernel (and a fill
+    where there is padding)."""
+    Ci, Co = w.shape[3], w.shape[4]
+    if route == "cuda_core":
+        return w.to(dtype).float().reshape(27, Ci, Co).contiguous()
+    Cip, Cop = -(-Ci // 16) * 16, -(-Co // 8) * 8
+    new = torch.empty if (Cip, Cop) == (Ci, Co) else torch.zeros
+    wk = new((27, Cip, Cop), dtype=torch.bfloat16, device=w.device)
+    wk.view(3, 3, 3, Cip, Cop)[..., :Ci, :Co].copy_(w)  # strided views too
+    return wk
 
 
 def _in_stats_cf(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -121,27 +155,36 @@ def _launch(x: torch.Tensor, w: torch.Tensor, stats) -> torch.Tensor:
     B, D, Ci, H, W = x.shape
     Co = w.shape[-1]
     x = x.contiguous()
-    wk = w.to(x.dtype).float().reshape(27, Ci, Co).contiguous()
+    route = conv_route(x.dtype, Ci)
+    wk = _pack_w(w, x.dtype, route)
     st = None if stats is None else stats.reshape(B, 2, Ci).contiguous()
     y = torch.empty((B, D, Co, H, W), dtype=x.dtype, device=x.device)
     lib = _build.load("conv_cf")
     fn = lib.rsuper_conv3_cf
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), wk.data_ptr(), None if st is None else st.data_ptr(),
              y.data_ptr(), B, D, Ci, Co, H, W, _DTYPE_CODES[x.dtype],
-             torch.cuda.current_stream(x.device).cuda_stream)
+             _ROUTE_CODES[route], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "conv_cf")
     return y
 
 
-def _wgrad_splits(B: int, D: int, Ci: int, Co: int, H: int, W: int) -> int:
-    """Number of spatial splits of the wgrad kernel's grid: enough blocks to
-    fill the card about four times over (132 SMs), at most one per 4×16
-    output tile. Each split costs one (27, C_in, C_out) float32 partial."""
+def _wgrad_splits(B: int, D: int, Ci: int, Co: int, H: int, W: int,
+                  route: str) -> int:
+    """Number of spatial splits of the wgrad kernel's grid, at most one per
+    output tile. Each split costs one (27, C_in, C_out) float32 partial.
+    Tensor cores: 8×16 tiles and (16 C_in × 32 C_out) channel tiles; the
+    grid is one wave of two blocks on each SM (S × channel tiles ≤ 264), so
+    the partials hold at most 264 × 27 × 16 × 32 floats (14.6 MB). CUDA
+    cores: 4×16 tiles, about four blocks an SM."""
+    if route == "tensor_core":
+        tiles = B * D * -(-H // 8) * -(-W // 16)
+        pairs = -(-Ci // 16) * -(-Co // 32)
+        return max(1, min(tiles, 2 * SMS // pairs))
     tiles = B * D * -(-H // 4) * -(-W // 16)
     pairs = -(-Ci // (4 if Ci <= 4 else 16)) * -(-Co // 32)
-    return max(1, min(tiles, -(-4 * 132 // pairs)))
+    return max(1, min(tiles, -(-4 * SMS // pairs)))
 
 
 def _launch_wgrad(x: torch.Tensor, dy: torch.Tensor, stats) -> torch.Tensor:
@@ -151,16 +194,17 @@ def _launch_wgrad(x: torch.Tensor, dy: torch.Tensor, stats) -> torch.Tensor:
     Co = dy.shape[2]
     x, dy = x.contiguous(), dy.contiguous()
     st = None if stats is None else stats.reshape(B, 2, Ci).contiguous()
-    S = _wgrad_splits(B, D, Ci, Co, H, W)
+    route = conv_route(x.dtype, Ci)
+    S = _wgrad_splits(B, D, Ci, Co, H, W, route)
     partial = torch.empty((S, 27, Ci, Co), dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, 3, Ci, Co), dtype=torch.float32, device=x.device)
     lib = _build.load("conv_cf_wgrad")
     fn = lib.rsuper_conv3_cf_wgrad
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), dy.data_ptr(), None if st is None else st.data_ptr(),
              partial.data_ptr(), dw.data_ptr(), B, D, Ci, Co, H, W, S,
-             _DTYPE_CODES[x.dtype],
+             _DTYPE_CODES[x.dtype], _ROUTE_CODES[route],
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "conv_cf_wgrad")
     return dw

@@ -17,6 +17,9 @@ Tolerances, as max|Δ| ≤ tol·(1 + max|ref|):
   40 layers (as ``tests/test_torch_medformer.py``);
 * weight gradients in float32: 1e-4 as above (a sum over every voxel, in
   another order); in bf16 the Functions round dw to bf16, 2e-2;
+* the tensor-core route (bf16, C_in ≥ 16) at the bf16 tolerances above: its
+  products of bf16 operands are exact in float32, only the order of the
+  float32 sums differs, and dw stays float32 at 1e-4;
 * gradients of the small MedFormer in float32: per parameter
   ‖Δ‖ ≤ 1e-3·(‖ref‖ + 1e-3·max over parameters of ‖ref‖) (sums in another
   order, forward and backward; the second term gives a scale to gradients
@@ -45,6 +48,14 @@ DTYPES = [torch.float32, torch.bfloat16]
 CONV_CASES = [(1, 4, 1, 6, 8, 4), (2, 3, 5, 5, 7, 6), (1, 1, 3, 4, 9, 5),
               (1, 4, 3, 6, 6, 8), (2, 5, 7, 20, 37, 70),
               (1, 3, 32, 17, 33, 64)]
+# (B, D, C_in, H, W, C_out) in bf16 on the tensor-core route: C_in that
+# leaves a partial 16-channel chunk, C_out that leaves a partial tile of each
+# width the kernel picks (32, 64, 96, 128), H and W that leave partial
+# 8- or 16-row and 16-column tiles, one-deep and two-deep volumes
+TC_CASES = [(1, 3, 16, 17, 33, 24), (2, 5, 40, 20, 37, 70),
+            (1, 1, 32, 9, 16, 96), (1, 4, 48, 12, 20, 96),
+            (2, 2, 24, 10, 18, 120), (1, 3, 64, 8, 16, 40),
+            (1, 2, 16, 5, 7, 200)]
 # (B, D, H, W, C): C that allows 16-byte accesses and C that does not
 DW_CASES = [(1, 3, 4, 5, 3), (2, 4, 6, 4, 8), (1, 1, 2, 7, 20),
             (1, 5, 9, 11, 128), (2, 3, 6, 6, 320)]
@@ -177,6 +188,47 @@ def test_conv_backward_kernels_match_plain(dev, case, dtype):
     got, ref = _launch_and_plain(conv_cf.in_relu_conv3x3x3_cf_wgrad, x, dy,
                                  stats)
     _assert_close(got, ref, TOL[torch.float32])
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=str)
+def test_tensor_core_conv_kernels_match_plain(dev, case):
+    """Forward, fused forward, dgrad, wgrad and fused wgrad on the
+    tensor-core route against their plain versions; dw twice, bit-equal."""
+    B, D, Ci, H, W, Co = case
+    bf = torch.bfloat16
+    assert conv_cf.conv_route(bf, Ci) == conv_cf.conv_route(bf, Co) \
+        == "tensor_core"
+    x = (_randn((B, D, Ci, H, W), 40, dev, 2.0) + 0.5).to(bf)
+    w = _randn((3, 3, 3, Ci, Co), 41, dev, 1.0 / np.sqrt(27 * Ci))
+    dy = _randn((B, D, Co, H, W), 42, dev).to(bf)
+    stats = conv_cf._in_stats_cf(x, 1e-4)
+    for fn in (conv_cf.conv3x3x3_cf, conv_cf.in_relu_conv3x3x3_cf):
+        got, ref = _launch_and_plain(fn, x, w)
+        assert got.dtype == bf and got.shape == (B, D, Co, H, W)
+        _assert_close(got, ref, TOL[bf])
+    got, ref = _launch_and_plain(conv_cf.conv3x3x3_cf_dgrad, dy, w)
+    assert got.dtype == bf and got.shape == x.shape
+    _assert_close(got, ref, TOL[bf])
+    for fn, args in ((conv_cf.conv3x3x3_cf_wgrad, (x, dy)),
+                     (conv_cf.in_relu_conv3x3x3_cf_wgrad, (x, dy, stats))):
+        got, ref = _launch_and_plain(fn, *args)
+        assert got.dtype == torch.float32 and got.shape == w.shape
+        _assert_close(got, ref, TOL[torch.float32])
+        assert torch.equal(got, fn(*args))  # partial sums, no atomics
+
+
+@pytest.mark.parametrize("name", ["conv3x3x3_cf", "in_relu_conv3x3x3_cf"])
+def test_tensor_core_functions_backward_matches_autograd_of_plain(dev, name):
+    B, D, Ci, H, W, Co = (1, 3, 32, 12, 20, 48)
+    fn = getattr(conv_cf, name)
+    x = (_randn((B, D, Ci, H, W), 43, dev, 2.0) + 0.5).bfloat16()
+    w = _randn((3, 3, 3, Ci, Co), 44, dev, 1.0 / np.sqrt(27 * Ci))
+    dy = _randn((B, D, Co, H, W), 45, dev).bfloat16()
+    dx, dw = _grads(fn, x, w, dy)
+    with dispatch.plain_on_device():
+        rx, rw = _grads(fn, x, w, dy)
+    _assert_close(dx, rx, TOL[torch.bfloat16])
+    _assert_close(dw, rw, TOL[torch.bfloat16])
 
 
 def _grads(fn, x, w, dy):
