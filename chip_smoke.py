@@ -7,8 +7,9 @@ Phases, in order (any failure exits non-zero):
 
 1. build   — nvcc builds every kernel of ``rsuper_tpu_torch/csrc`` for
              sm_90a, one process per source, all at once; what
-             ``-Xptxas -v`` reports for the conv kernels (registers, spills,
-             static shared memory) is printed, one line a source;
+             ``-Xptxas -v`` reports for the conv and depthwise kernels
+             (registers, spills, static shared memory) is printed, one line
+             a source;
 2. kernels — each kernel against its plain PyTorch version at the shapes the
              serving path (forward, window batches of 8) and the training
              step (backward, batch 1) give it, in bf16 and float32, with the
@@ -18,7 +19,12 @@ Phases, in order (any failure exits non-zero):
              for the fused forward the same kernel's time without its
              prologue, and for the bf16 weight gradients the kernel's and
              the plain version's distance from a float64 sum (recorded, not
-             bounded). The two top-N bisection kernels at the Ball Loss's
+             bounded); for the depthwise kernels (forward also at the
+             training step's batch of 1) the device time of one call alone
+             (``device_ms``: a CUDA graph of the call replayed) and the
+             device operations one call launches (``kernels_per_call``,
+             torch.profiler; for the backward also through the autograd
+             Function). The two top-N bisection kernels at the Ball Loss's
              shapes: thresholds and masks equal to the plain version's;
 3. model   — default-config MedFormer (16 classes, seeded random weights)
              on one 96³ window batch of 2, through the kernels and through
@@ -94,6 +100,8 @@ PROB_TOL = 3e-3
 WINDOW = 96  # edge of the sliding window, as the serving path runs it
 VOLUME = 256  # edge of the synthetic phantom, voxels of 1 mm (125 windows)
 REPS = 3  # timed calls per measurement, after one warm-up call
+DEVICE_REPS = 20  # graph replays of a device_ms measurement
+DEVICE_OPS_CALLS = 5  # profiled calls of a kernels_per_call count
 TRAIN_STEPS = 10  # timed training steps, after one warm-up step
 # training step, kernels vs plain versions. float32: losses 1e-4 relative;
 # per parameter ‖Δg‖ ≤ tol·(‖g_ref‖ + TRAIN_FLOOR·max‖g_ref‖) with tol the
@@ -133,6 +141,56 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """The device time of one call alone: the call is captured once in a
+    CUDA graph (after two warm-up calls on the capturing stream) and the
+    graph replayed `reps` times between two events, so the host's launch
+    path is not timed. The kernels' ctypes launches go to the current
+    stream, which is the capturing one inside the capture."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / reps
+
+
+def device_ops(fn, calls: int = DEVICE_OPS_CALLS) -> float:
+    """The device operations (kernels, and copies or fills if any) that one
+    call launches: counted by torch.profiler over `calls` calls after one
+    warm-up call, divided by `calls` (the profiler now and then loses one
+    event of a window, which a single call would read as 0)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type != DeviceType.CPU
+               and not e.is_user_annotation) / calls
+
+
 def bound_ms(flops: float, nbytes: float, dtype: str):
     t_ops = flops / PEAK_FLOPS[dtype]
     t_mem = nbytes / HBM_BYTES_PER_S
@@ -169,6 +227,9 @@ WGRAD_SHAPES = {
                                    (2, 48, 64, 48, 48, 64)],
 }
 DW_BWD_SHAPES = [(1,) + s[1:] for s in DW_SHAPES] + [(2, 24, 24, 24, 512)]
+# the depthwise forward at the serving path's window batches of 8 and at the
+# training step's batch of 1
+DW_FWD_SHAPES = DW_SHAPES + DW_BWD_SHAPES[:-1]
 # top-N bisection, float32 as the Ball Loss calls it: (B, V, K) for the
 # batched kernel, the first being the training step's shape; (V, K) for the
 # single volume
@@ -197,11 +258,8 @@ KERNELS = {
     "in_relu_conv3x3x3_cf_wgrad": dict(
         source="rsuper_tpu_torch/csrc/conv_cf_wgrad.cu",
         replaces="rsuper_tpu/ops/conv_cf.py:1169"),
-    "depthwise_conv3x3x3_bwd": dict(  # two sources: dw, and dx by the
-        # forward's stencil on flipped taps
+    "depthwise_conv3x3x3_bwd": dict(  # dx and dw in one kernel
         source="rsuper_tpu_torch/csrc/dwconv_bwd.cu",
-        sources=["rsuper_tpu_torch/csrc/dwconv.cu",
-                 "rsuper_tpu_torch/csrc/dwconv_bwd.cu"],
         replaces="rsuper_tpu/ops/dwconv.py:229"),
     "topn_threshold_multi": dict(
         source="rsuper_tpu_torch/csrc/topn.cu",
@@ -245,7 +303,8 @@ def phase_kernels(dev, reps: int):
     rows, failures = [], []
 
     def case(name, fn, args, ref_args, flops, nbytes, library, dtype, shape,
-             route=None, ref64=None, no_prologue=None):
+             route=None, ref64=None, no_prologue=None, device=False,
+             function=None):
         got = fn(*args)
         with plain_on_device():
             ref = fn(*ref_args)
@@ -271,8 +330,15 @@ def phase_kernels(dev, reps: int):
                    max_abs_err=err, tol=tol, ok=ok, **acc)
         if route is not None:
             row["route"] = route
+        if device:  # device operations of one call (and of the Function's
+            # backward, where it is given), in both types
+            row["kernels_per_call"] = device_ops(lambda: fn(*args))
+            if function is not None:
+                row["function_kernels_per_call"] = device_ops(function)
         if dtype == "bfloat16":  # timings in the serving path's type
             row["ms"] = time_ms(lambda: fn(*args), reps)
+            if device:  # the device work alone, without the host's path
+                row["device_ms"] = graph_ms(lambda: fn(*args), DEVICE_REPS)
             if route is not None:
                 row["tflops"] = flops / row["ms"] / 1e9
             if no_prologue is not None:  # what the fused prologue costs
@@ -319,7 +385,7 @@ def phase_kernels(dev, reps: int):
                      (B, D, Ci, H, W, Co), conv_cf.conv_route(dtype, Ci),
                      no_prologue=alone)
                 del x, w
-        for (B, D, H, W, C) in DW_SHAPES:
+        for (B, D, H, W, C) in DW_FWD_SHAPES:
             x = torch.randn((B, D, H, W, C), generator=gen, device=dev
                             ).to(dtype)
             w = torch.randn((3, 3, 3, 1, C), generator=gen, device=dev) / 27
@@ -331,7 +397,8 @@ def phase_kernels(dev, reps: int):
                    lambda xn=xn, wn=wn, C=C: F.conv3d(xn, wn, padding=1,
                                                       groups=C))
             case("depthwise_conv3x3x3", dwconv.depthwise_conv3x3x3, (x, w),
-                 (x, w), flops, nbytes, lib, dname, (B, D, H, W, C))
+                 (x, w), flops, nbytes, lib, dname, (B, D, H, W, C),
+                 device=True)
             del x, w
         backward_cases(case, gen, dev, dtype, dname)
     topn_cases(rows, failures, dev)
@@ -346,11 +413,12 @@ def topn_cases(rows, failures, dev):
     with targets of the order the training batch gives), a dense normal
     volume (negatives), the ball volume with its last item all zero, and the
     ball volume with a target above the positive count. The bound is the larger of the volume read
-    once and iters·K + 1 compares a value; no one PyTorch call returns the
-    bisection's threshold, so ``library_ms`` is null. ``kthvalue_ms`` times
-    ``torch.kthvalue`` for the same targets: an exact select, which gives
-    the same mask up to the bisection's resolution but not the same
-    threshold."""
+    once and iters·K + 1 compares a value. ``library_ms`` times one
+    ``torch.topk`` of every item's volume for the largest target n: the
+    n-th value it returns is the threshold the bisection approximates.
+    ``kthvalue_ms`` times ``torch.kthvalue`` for each target: an exact
+    select, which gives the same mask up to the bisection's resolution but
+    not the same threshold."""
     import torch
 
     from rsuper_tpu_torch.ops import selection, topn
@@ -405,7 +473,12 @@ def topn_cases(rows, failures, dev):
         with plain_on_device():
             row["plain_ms"] = time_ms(lambda: fn(*a, iters=TOPN_ITERS),
                                       TOPN_REPS)
-        row["library_ms"], row["library_call"] = None, None
+        # the largest n values of each item in one call: the n-th of them is
+        # the threshold the bisection approximates
+        top_n = int(ns.max().clamp(1, V).item())
+        row["library_ms"] = time_ms(
+            lambda: torch.topk(a[0], top_n, dim=-1), TOPN_REPS)
+        row["library_call"] = "torch.topk over the volume, n = max target"
         ks = (V - ns + 1).clamp(1, V).long().tolist()
         row["kthvalue_ms"] = time_ms(
             lambda: [torch.kthvalue(x[b], k) for b in range(B)
@@ -494,10 +567,15 @@ def backward_cases(case, gen, dev, dtype, dname):
         lib = ("aten.convolution_backward groups=C (cuDNN), input and weight "
                "gradients, channels_last_3d views",
                conv_lib(xn, gn, wn, [True, True, False], groups=C))
+        xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+        y = dwconv.depthwise_conv3x3x3(xg, wg)  # the Function's backward:
+        # dx and dw (rounded to x's type, cast to w's) from dy
         case("depthwise_conv3x3x3_bwd", dwconv.depthwise_conv3x3x3_bwd,
              (x, w, dy), (x, w, dy), flops, nbytes, lib, dname,
-             (B, D, H, W, C))
-        del x, dy, w
+             (B, D, H, W, C), device=True,
+             function=lambda: torch.autograd.grad(y, (xg, wg), dy,
+                                                  retain_graph=True))
+        del x, dy, w, xg, wg, y
 
 
 def _wgrad64(x, dy, stats=None):
@@ -540,6 +618,8 @@ def kernels_line(rows, launches):
             bound_by=top["bound_by"],
             library_ms=(None if name in NO_LIBRARY else top["library_ms"]),
             shape=top["shape"]))
+        if "device_ms" in top:
+            out[-1]["device_ms"] = top["device_ms"]
     return {"kernels": out}
 
 
@@ -647,7 +727,9 @@ def phase_model(model, model32, dev, reps: int):
 
 def _profile(fn, top: int = 25, spans=(), between=None):
     """Device time of one call by kernel (torch.profiler), the busy share of
-    the call's wall time, and the `top` kernels by device time. For every
+    the call's wall time, the number of device operations, the depthwise
+    kernels' device time and launches (kernel names holding ``dw3``), and
+    the `top` kernels by device time. For every
     name in `spans` (in the order they run) that `fn` marks with
     ``torch.profiler.record_function``: the stretch of the device's timeline
     from its first kernel to its last, and the kernel time inside it. A
@@ -679,8 +761,12 @@ def _profile(fn, top: int = 25, spans=(), between=None):
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    dw = [r for r in rows if "dw3" in r[2]]  # the depthwise kernels
     res = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                device_busy_share=busy_ms / wall_ms if wall_ms else None,
+               device_ops=sum(r[1] for r in rows),
+               depthwise=dict(ms=sum(r[0] for r in dw),
+                              kernels=sum(r[1] for r in dw)),
                top=[dict(ms=ms, calls=n, name=k[:90])
                     for ms, n, k in rows[:top]])
     if spans:
@@ -1308,7 +1394,7 @@ def main() -> int:
     t0 = time.time()
     reports = _build.build_all()
     log(json.dumps({"build": sorted(reports), "seconds": time.time() - t0}))
-    for name in ("conv_cf", "conv_cf_wgrad"):
+    for name in ("conv_cf", "conv_cf_wgrad", "dwconv", "dwconv_bwd"):
         log(json.dumps({"ptxas": {"source": f"rsuper_tpu_torch/csrc/{name}.cu",
                                   "kernels": ptxas_summary(reports[name])}}))
     dev = torch.device("cuda")

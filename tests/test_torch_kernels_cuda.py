@@ -29,6 +29,8 @@ Tolerances, as max|Δ| ≤ tol·(1 + max|ref|):
   run to run; the closed-form ball counts equal to the inserted balls' sums.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -56,9 +58,13 @@ TC_CASES = [(1, 3, 16, 17, 33, 24), (2, 5, 40, 20, 37, 70),
             (1, 1, 32, 9, 16, 96), (1, 4, 48, 12, 20, 96),
             (2, 2, 24, 10, 18, 120), (1, 3, 64, 8, 16, 40),
             (1, 2, 16, 5, 7, 200)]
-# (B, D, H, W, C): C that allows 16-byte accesses and C that does not
+# (B, D, H, W, C): C that allows 16-byte copies and C that does not; planes
+# that cut a tile (``dwconv._dw_plan``: rows of 8 and strips of 6 at most)
+# and depths cut into runs of 2–4, with C that leaves a partial chunk of 64
+# bf16 or 32 float channels
 DW_CASES = [(1, 3, 4, 5, 3), (2, 4, 6, 4, 8), (1, 1, 2, 7, 20),
-            (1, 5, 9, 11, 128), (2, 3, 6, 6, 320)]
+            (1, 5, 9, 11, 128), (2, 3, 6, 6, 320), (1, 20, 17, 13, 80),
+            (2, 11, 26, 19, 136), (1, 16, 33, 31, 200)]
 TINY = dict(base_chan=4, chan_num=(8, 16, 32, 40, 32, 16, 8, 4),
             conv_num=(2, 0, 0, 0, 0, 0, 2, 2),
             trans_num=(0, 1, 2, 1, 1, 1, 0, 0),
@@ -290,6 +296,76 @@ def test_depthwise_backward_kernels_match_plain(dev, case, dtype):
         px, pw = _grads(dwconv.depthwise_conv3x3x3, x, w, dyp)
     _assert_close(gx, px, TOL[dtype])
     _assert_close(gw, pw, TOL[dtype])
+
+
+def _device_ops(fn):
+    """Device operations (kernels, copies, fills) one call of fn launches,
+    after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type != DeviceType.CPU and not e.is_user_annotation]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", [(1, 12, 12, 12, 256), (2, 11, 26, 19, 136),
+                                  (1, 3, 4, 5, 3)], ids=str)
+def test_depthwise_calls_launch_one_kernel(dev, case, dtype):
+    """A forward call is one device kernel; a backward call, public or
+    through the autograd Function with its rounded dw, is one too (two at
+    most). The Function's dw is the public dw rounded to x's type."""
+    x = _randn(case, 29, dev).to(dtype)
+    w = _randn((3, 3, 3, 1, case[-1]), 30, dev, 0.2)
+    dy = _randn(case, 31, dev).to(dtype)
+    ops = _device_ops(lambda: dwconv.depthwise_conv3x3x3(x, w))
+    assert len(ops) == 1 and "dw3_fwd_kernel" in ops[0], ops
+    ops = _device_ops(lambda: dwconv.depthwise_conv3x3x3_bwd(x, w, dy))
+    assert len(ops) == 1 and "dw3_bwd_kernel" in ops[0], ops
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = dwconv.depthwise_conv3x3x3(xg, wg)
+    ops = _device_ops(lambda: torch.autograd.grad(y, (xg, wg), dy,
+                                                  retain_graph=True))
+    assert 1 <= len(ops) <= 2, ops
+    gx, gw = torch.autograd.grad(y, (xg, wg), dy)
+    dx, dw = dwconv.depthwise_conv3x3x3_bwd(x, w, dy)
+    assert torch.equal(gx, dx)
+    assert torch.equal(gw.reshape(27, -1), dw.to(dtype).float())
+
+
+def test_depthwise_kernels_launch_from_a_fresh_thread(dev):
+    """Autograd runs the backward from its own threads: both kernels launch
+    from a thread that has not touched the card yet (they encode their TMA
+    tensor maps with cuTensorMapEncodeTiled, which needs the card's context
+    current in the calling thread) and give what they give in the main
+    thread."""
+    shape = (1, 5, 9, 11, 128)
+    x = _randn(shape, 32, dev).to(torch.bfloat16)
+    w = _randn((3, 3, 3, 1, shape[-1]), 33, dev, 0.2)
+    dy = _randn(shape, 34, dev).to(torch.bfloat16)
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(dwconv.depthwise_conv3x3x3(x, w))
+            got.extend(dwconv.depthwise_conv3x3x3_bwd(x, w, dy))
+        except Exception as e:  # re-raised in the test's thread
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert not errors, errors
+    ref = [dwconv.depthwise_conv3x3x3(x, w),
+           *dwconv.depthwise_conv3x3x3_bwd(x, w, dy)]
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
 
 
 def test_depthwise_backward_on_a_misaligned_tensor(dev):

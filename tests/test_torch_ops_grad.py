@@ -249,12 +249,10 @@ def test_backward_wrappers_check_their_operands():
 
 
 def test_wgrad_grid_sizes():
-    """The number of partial sums the wgrad kernels are given: at least one,
-    at most one per tile (conv) or per four rows (depthwise). The CUDA-core
-    route's counts; the tensor-core route's are in test_torch_conv_routes."""
+    """The number of partial sums the conv wgrad kernels are given: at
+    least one, at most one per tile. The CUDA-core route's counts; the
+    tensor-core route's are in test_torch_conv_routes, the depthwise
+    kernels' grid in test_torch_dw_plan."""
     assert conv_cf._wgrad_splits(1, 1, 3, 5, 4, 9, "cuda_core") == 1
     assert conv_cf._wgrad_splits(1, 96, 32, 32, 96, 96, "cuda_core") == 264
     assert conv_cf._wgrad_splits(1, 48, 192, 128, 48, 48, "cuda_core") == 11
-    assert dwconv._dw_groups(1, 1, 2, 20, 1) == 1
-    assert dwconv._dw_groups(1, 48, 48, 256, 8) == 528
-    assert dwconv._dw_groups(1, 6, 6, 2048, 8) == 9

@@ -1,28 +1,37 @@
 #!/usr/bin/env python3
-"""Time variants of a conv kernel source on the card, at the production
-bf16 shapes of ``chip_smoke.py``, against the plain version.
+"""Time variants of a conv or depthwise kernel source on the card, at the
+production bf16 shapes of ``chip_smoke.py``, against the plain version.
 
     python tools/conv_variants.py tools/conv_variants_prologue.json
+    python tools/conv_variants.py tools/conv_variants_depthwise.json
 
 (``conv_variants_prologue.json``: the shipped fused forward against its
 first tensor-core version and against each without the prologue's
 arithmetic, the folded ReLU and the taller TN = 64 tile taken one at a
-time.)
+time. ``conv_variants_depthwise.json``: the shipped depthwise kernels
+against the forward without its multiply-adds (the staging and stores
+alone) and without staging after the first planes (the arithmetic alone),
+and against other ring depths and the backward's depth-run target.)
 
 The JSON lists variants: ``{"name": ..., "source": "conv_cf", "subs":
-[[old, new], ...], "only": [function names]}``. Each variant is the source
-``rsuper_tpu_torch/csrc/<source>.cu`` with every ``old`` text replaced by
-``new`` (each must occur), built with ``_build.NVCC_FLAGS`` into the
-ignored ``rsuper_tpu_torch/_build/variants/``, all builds at once. Then, for
-each variant in turn, the wrappers of ``ops/conv_cf.py`` load it in place of
-the shipped build and each function of ``only`` (``in_relu_conv3x3x3_cf``,
-``conv3x3x3_cf`` at the fused forward's shapes, ``conv3x3x3_cf_dgrad``) is
-timed on the same seeded inputs for every variant. Prints one JSON line per
-variant with its ``-Xptxas -v`` registers and spill stores, then one per
-(variant, function, shape): ms, TFLOP/s, and whether the result is within
-the bf16 tolerance of the plain version (a variant that changes what the
-kernel computes is timed all the same, and says so). Needs the card and
-nvcc; an experiment tool, nothing on the main path uses it.
+[[old, new], ...], "only": [function names], "set": {name: value}}``. Each
+variant is the source ``rsuper_tpu_torch/csrc/<source>.cu`` with every
+``old`` text replaced by ``new`` (each must occur), built with
+``_build.NVCC_FLAGS`` into the ignored ``rsuper_tpu_torch/_build/variants/``,
+all builds at once. Then, for each variant in turn, the wrappers of
+``ops/conv_cf.py`` and ``ops/dwconv.py`` load it in place of the shipped
+build, the module constants of ``ops/dwconv.py`` named in ``set`` take
+their values (the tile plan is recomputed), and each function of ``only``
+(``in_relu_conv3x3x3_cf``, ``conv3x3x3_cf`` at the fused forward's shapes,
+``conv3x3x3_cf_dgrad``; ``depthwise_conv3x3x3`` at the forward's B = 8 and
+B = 1 shapes, ``depthwise_conv3x3x3_bwd``) is timed on the same seeded
+inputs for every variant. Prints one JSON line per variant with its
+``-Xptxas -v`` registers and spill stores, then one per (variant, function,
+shape): ms (and for the depthwise functions ``device_ms``, a CUDA graph of
+the call replayed), TFLOP/s, and whether the result is within the bf16
+tolerance of the plain version (a variant that changes what the kernel
+computes is timed all the same, and says so). Needs the card and nvcc; an
+experiment tool, nothing on the main path uses it.
 """
 
 import ctypes
@@ -37,14 +46,17 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
-from rsuper_tpu_torch.ops import _build, conv_cf, dispatch  # noqa: E402
+from rsuper_tpu_torch.ops import _build, conv_cf, dispatch, dwconv  # noqa: E402
 from rsuper_tpu_torch.utils.device import card_line  # noqa: E402
 
 SHAPES = {
     "in_relu_conv3x3x3_cf": cs.CONV_SHAPES["in_relu_conv3x3x3_cf"],
     "conv3x3x3_cf": cs.CONV_SHAPES["in_relu_conv3x3x3_cf"],
     "conv3x3x3_cf_dgrad": cs.DGRAD_SHAPES,
+    "depthwise_conv3x3x3": cs.DW_FWD_SHAPES,
+    "depthwise_conv3x3x3_bwd": cs.DW_BWD_SHAPES,
 }
+DW = ("depthwise_conv3x3x3", "depthwise_conv3x3x3_bwd")
 
 
 def build(variants):
@@ -71,9 +83,37 @@ def build(variants):
             continue
         libs[name] = ctypes.CDLL(str(so))
         regs = [(k["kernel"], k.get("registers"), k.get("spill_stores"))
-                for k in cs.ptxas_summary(out) if "tc_kernel" in k["kernel"]]
+                for k in cs.ptxas_summary(out)
+                if "tc_kernel" in k["kernel"] or "dw3" in k["kernel"]]
         print(json.dumps({"variant": name, "ptxas": regs}), flush=True)
     return libs
+
+
+def depthwise_case(name, k, shape, gen, dev):
+    """One depthwise function at one shape, bf16: against the plain version
+    (dx and dw for the backward), ms and device_ms."""
+    bf = torch.bfloat16
+    x = torch.randn(shape, generator=gen, device=dev).to(bf)
+    w = torch.randn((3, 3, 3, 1, shape[-1]), generator=gen, device=dev) / 27
+    args = (x, w)
+    if k.endswith("_bwd"):
+        args += (torch.randn(shape, generator=gen, device=dev).to(bf),)
+    fn = getattr(dwconv, k)
+    got = fn(*args)
+    with dispatch.plain_on_device():
+        ref = fn(*args)
+    got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+    ok, errs = True, []
+    for g, r in zip(got, ref):
+        err, mx = cs._err(g, r)
+        errs.append(err)
+        ok = ok and err <= cs.TOL[str(g.dtype).split(".")[-1]] * (1 + mx)
+    print(json.dumps({"v": name, "k": k, "shape": list(shape),
+                      "ms": cs.time_ms(lambda: fn(*args), 5),
+                      "device_ms": cs.graph_ms(lambda: fn(*args), 20),
+                      "ok": ok, "max_abs_err": errs}), flush=True)
+    del got, ref, args
+    torch.cuda.empty_cache()
 
 
 def main(argv):
@@ -91,8 +131,17 @@ def main(argv):
             lib = libs[v["name"]]
             _build.load = (lambda n, lib=lib, src=v["source"]:
                            lib if n == src else shipped(n))
+            dwconv._FNS.clear()
+            saved = {a: getattr(dwconv, a) for a in v.get("set", {})}
+            for a, val in v.get("set", {}).items():
+                setattr(dwconv, a, val)
+            dwconv._dw_plan.cache_clear()
             gen.manual_seed(0)  # every variant sees the same inputs
             for k in v.get("only", list(SHAPES)):
+                if k in DW:
+                    for shape in SHAPES[k]:
+                        depthwise_case(v["name"], k, shape, gen, dev)
+                    continue
                 fn = getattr(conv_cf, k)
                 for (B, D, Ci, H, W, Co) in SHAPES[k]:
                     a = torch.randn((B, D, Ci, H, W), generator=gen, device=dev).to(bf)
@@ -113,8 +162,12 @@ def main(argv):
                           flush=True)
                     del got, ref, a, w
                     torch.cuda.empty_cache()
+            for a, val in saved.items():
+                setattr(dwconv, a, val)
     finally:
         _build.load = shipped
+        dwconv._FNS.clear()
+        dwconv._dw_plan.cache_clear()
     print(card_line(), flush=True)
 
 
