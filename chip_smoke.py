@@ -20,11 +20,12 @@ Phases, in order (any failure exits non-zero):
              prologue, and for the bf16 weight gradients the kernel's and
              the plain version's distance from a float64 sum (recorded, not
              bounded); for the depthwise kernels (forward also at the
-             training step's batch of 1) the device time of one call alone
+             training step's batch of 1) and the stem's forward and weight
+             gradient (route ``"stem"``) the device time of one call alone
              (``device_ms``: a CUDA graph of the call replayed) and the
-             device operations one call launches (``kernels_per_call``,
-             torch.profiler; for the backward also through the autograd
-             Function). The two top-N bisection kernels at the Ball Loss's
+             device operations one call launches (``kernels_per_call``:
+             the nodes of a CUDA graph of the call; for the depthwise
+             backward also through the autograd Function). The two top-N bisection kernels at the Ball Loss's
              shapes: thresholds and masks equal to the plain version's;
 3. model   — default-config MedFormer (16 classes, seeded random weights)
              on one 96³ window batch of 2, through the kernels and through
@@ -101,7 +102,6 @@ WINDOW = 96  # edge of the sliding window, as the serving path runs it
 VOLUME = 256  # edge of the synthetic phantom, voxels of 1 mm (125 windows)
 REPS = 3  # timed calls per measurement, after one warm-up call
 DEVICE_REPS = 20  # graph replays of a device_ms measurement
-DEVICE_OPS_CALLS = 5  # profiled calls of a kernels_per_call count
 TRAIN_STEPS = 10  # timed training steps, after one warm-up step
 # training step, kernels vs plain versions. float32: losses 1e-4 relative;
 # per parameter ‖Δg‖ ≤ tol·(‖g_ref‖ + TRAIN_FLOOR·max‖g_ref‖) with tol the
@@ -171,24 +171,14 @@ def graph_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_ops(fn, calls: int = DEVICE_OPS_CALLS) -> float:
+def device_ops(fn) -> int:
     """The device operations (kernels, and copies or fills if any) that one
-    call launches: counted by torch.profiler over `calls` calls after one
-    warm-up call, divided by `calls` (the profiler now and then loses one
-    event of a window, which a single call would read as 0)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    call launches: the nodes of a CUDA graph of the call
+    (``rsuper_tpu_torch.utils.device.graph_ops``). A torch.profiler window
+    of the same calls now and then recorded no device event at all."""
+    from rsuper_tpu_torch.utils.device import graph_ops
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type != DeviceType.CPU
-               and not e.is_user_annotation) / calls
+    return len(graph_ops(fn))
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str):
@@ -201,7 +191,8 @@ def bound_ms(flops: float, nbytes: float, dtype: str):
 # ------------------------------------------------------------ kernel cases
 # (name, route source, TPU kernel it replaces, shapes at 96³ windows, batch 8)
 CONV_SHAPES = {  # (B, D, Ci, H, W, Co)
-    "conv3x3x3_cf": [(8, 96, 1, 96, 96, 32)],
+    # the stem: the serving path's window batch of 8, the training step's 1
+    "conv3x3x3_cf": [(8, 96, 1, 96, 96, 32), (1, 96, 1, 96, 96, 32)],
     "in_relu_conv3x3x3_cf": [(8, 96, 32, 96, 96, 32),
                              (8, 96, 96, 96, 96, 64),
                              (8, 48, 64, 48, 48, 64),
@@ -331,10 +322,12 @@ def phase_kernels(dev, reps: int):
         if route is not None:
             row["route"] = route
         if device:  # device operations of one call (and of the Function's
-            # backward, where it is given), in both types
+            # backward, where it is given as (forward and backward, forward
+            # alone): a graph captures the backward on the forward's stream)
             row["kernels_per_call"] = device_ops(lambda: fn(*args))
             if function is not None:
-                row["function_kernels_per_call"] = device_ops(function)
+                row["function_kernels_per_call"] = (device_ops(function[0])
+                                                    - device_ops(function[1]))
         if dtype == "bfloat16":  # timings in the serving path's type
             row["ms"] = time_ms(lambda: fn(*args), reps)
             if device:  # the device work alone, without the host's path
@@ -383,7 +376,7 @@ def phase_kernels(dev, reps: int):
                     alone = lambda x=x, w=w: conv_cf.conv3x3x3_cf(x, w)
                 case(name, fn, (x, w), (x, w), flops, nbytes, lib, dname,
                      (B, D, Ci, H, W, Co), conv_cf.conv_route(dtype, Ci),
-                     no_prologue=alone)
+                     no_prologue=alone, device=Ci == 1)
                 del x, w
         for (B, D, H, W, C) in DW_FWD_SHAPES:
             x = torch.randn((B, D, H, W, C), generator=gen, device=dev
@@ -554,7 +547,7 @@ def backward_cases(case, gen, dev, dtype, dname):
             case(name, getattr(conv_cf, name), args, args, flops, nbytes, lib,
                  dname, (B, D, Ci, H, W, Co), conv_cf.conv_route(dtype, Ci),
                  (lambda args=args: _wgrad64(*args)) if dname == "bfloat16"
-                 else None)
+                 else None, device=Ci == 1)
             del x, dy, xn, gn, wn, args
     for (B, D, H, W, C) in DW_BWD_SHAPES:
         x = rand((B, D, H, W, C)).to(dtype)
@@ -568,14 +561,18 @@ def backward_cases(case, gen, dev, dtype, dname):
                "gradients, channels_last_3d views",
                conv_lib(xn, gn, wn, [True, True, False], groups=C))
         xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
-        y = dwconv.depthwise_conv3x3x3(xg, wg)  # the Function's backward:
-        # dx and dw (rounded to x's type, cast to w's) from dy
+
+        def forward(xg=xg, wg=wg):
+            return dwconv.depthwise_conv3x3x3(xg, wg)
+
+        def function(xg=xg, wg=wg, dy=dy):  # the Function's backward: dx
+            # and dw (rounded to x's type, cast to w's) from dy
+            return torch.autograd.grad(forward(xg, wg), (xg, wg), dy)
+
         case("depthwise_conv3x3x3_bwd", dwconv.depthwise_conv3x3x3_bwd,
              (x, w, dy), (x, w, dy), flops, nbytes, lib, dname,
-             (B, D, H, W, C), device=True,
-             function=lambda: torch.autograd.grad(y, (xg, wg), dy,
-                                                  retain_graph=True))
-        del x, dy, w, xg, wg, y
+             (B, D, H, W, C), device=True, function=(function, forward))
+        del x, dy, w, xg, wg
 
 
 def _wgrad64(x, dy, stats=None):
@@ -620,6 +617,10 @@ def kernels_line(rows, launches):
             shape=top["shape"]))
         if "device_ms" in top:
             out[-1]["device_ms"] = top["device_ms"]
+        if "kernels_per_call" in top:
+            out[-1]["kernels_per_call"] = top["kernels_per_call"]
+        if "route" in top:  # the conv kernels' own route at that shape
+            out[-1]["conv_route"] = top["route"]
     return {"kernels": out}
 
 
@@ -728,8 +729,9 @@ def phase_model(model, model32, dev, reps: int):
 def _profile(fn, top: int = 25, spans=(), between=None):
     """Device time of one call by kernel (torch.profiler), the busy share of
     the call's wall time, the number of device operations, the depthwise
-    kernels' device time and launches (kernel names holding ``dw3``), and
-    the `top` kernels by device time. For every
+    kernels' device time and launches (kernel names holding ``dw3``), those
+    of the stem's forward and weight gradient kernels (``stem_fwd``,
+    ``stem_wgrad``), and the `top` kernels by device time. For every
     name in `spans` (in the order they run) that `fn` marks with
     ``torch.profiler.record_function``: the stretch of the device's timeline
     from its first kernel to its last, and the kernel time inside it. A
@@ -767,6 +769,9 @@ def _profile(fn, top: int = 25, spans=(), between=None):
                device_ops=sum(r[1] for r in rows),
                depthwise=dict(ms=sum(r[0] for r in dw),
                               kernels=sum(r[1] for r in dw)),
+               stem={k: dict(ms=sum(r[0] for r in rows if k in r[2]),
+                             kernels=sum(r[1] for r in rows if k in r[2]))
+                     for k in ("stem_fwd", "stem_wgrad")},
                top=[dict(ms=ms, calls=n, name=k[:90])
                     for ms, n, k in rows[:top]])
     if spans:

@@ -10,15 +10,18 @@
 //   x     (B, D, Ci, H, W)   float or bf16
 //   w     route 0: (27, Ci, Co) float32, already rounded to x's type
 //         route 1: (27, Cip, Cop) bf16, Ci padded to 16 and Co to 8 with 0
+//         route 2: (27, Co) bf16 (Ci = 1)
 //   stats (B, 2, Ci)         float32: [:, 0] = 1/sigma, [:, 1] = -mu/sigma
 //   y     (B, D, Co, H, W)   x's type
 //
 // What bounds it: 54 operations per input-output channel pair and voxel.
 // At the production shapes (Ci, Co = 32..192) the work is several hundred
 // operations per byte moved, so the card's arithmetic rate bounds it (bf16
-// tensor cores: 989 TFLOP/s), not its memory.
+// tensor cores: 989 TFLOP/s), not its memory. The stem (Ci = 1, Co = 32)
+// does 54 operations per output element it writes: its bf16 output bounds
+// it (3.35 TB/s).
 //
-// Two routes, chosen by the wrapper from (dtype, Ci) alone:
+// Three routes, chosen by the wrapper from (dtype, Ci) alone:
 //
 // route 1, tensor cores (bf16, Ci >= 16): an implicit GEMM with M = output
 // voxels, N = Co, K = 27 taps x Ci, on mma.sync.m16n8k16 (bf16 in, float32
@@ -35,7 +38,21 @@
 // all 27 taps accumulate in float32; the output is rounded once to bf16 on
 // store through shared memory, with masked tails.
 //
-// route 0, CUDA cores (float32, and the stem's Ci = 1): one block per
+// route 2, the stem (bf16, Ci = 1; the JAX package's form "f",
+// _fwd_kernel_f): all 27 taps in one contraction, y (Co x positions) =
+// W (Co x 32 taps, padded with zero weights) x patch (32 x positions), two
+// k16 steps of mma.sync. A block owns 8 x 32 outputs and 32 output channels
+// over a run of depths, and keeps its weights in registers as A fragments.
+// It marches in depth through a ring of four staged input planes (zero
+// outside the volume), so each plane is staged once and serves three output
+// depths. A plane is staged at the three kw shifts, so that a B fragment (8
+// consecutive positions of 8 taps) is one ldmatrix .trans of 16-byte rows
+// (a single copy read as bf16 values and packed ran slower and spilled more).
+// The output tile is rounded once to bf16, staged in shared memory and
+// stored as 16-byte vectors along W (storing the C fragments' bf16 pairs
+// directly took three times as long); tails in H, W and Co are masked.
+//
+// route 0, CUDA cores (float32, and bf16 with 2 <= Ci <= 15): one block per
 // (batch, depth row, 16x16 output tile, tile of Co). For each chunk of 4
 // input channels it stages the three depth rows of the input tile plus a
 // one-voxel halo (as float, with the prologue applied) and the matching
@@ -519,16 +536,211 @@ int launch(const void* x, const void* w, const float* stats, void* y, int B, int
 
 }  // namespace tc
 
+// ------------------------------------------------------- the stem (Ci = 1)
+namespace stem {
+
+constexpr int TH = 8;            // output tile rows: one warp a row
+constexpr int TW = 32;           // output tile columns: four n8 fragments a warp
+constexpr int TCO = 32;          // output channels of a block: two m16 fragments
+constexpr int THREADS = 32 * TH;
+constexpr int IH = TH + 2;       // staged rows of a plane (one-row halo)
+constexpr int HALO = IH * (TW + 2);  // voxels of a plane with its halo
+constexpr int PER = (HALO + THREADS - 1) / THREADS;
+constexpr int RS = TW + 8;       // row stride of a staged copy: 80 bytes, 16-byte aligned
+constexpr int COPY = IH * RS;    // bf16 of one staged copy of a plane
+constexpr int PLANE = 3 * COPY;  // the plane at the three kw shifts
+constexpr int SLOTS = 4;         // ring: three planes in use, one being filled
+constexpr int YS = TH * TW + 8;  // padded co stride of the staged output tile (528 bytes)
+
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  tc::mma_bf16(c, a, b0, b1);  // stem MMA
+}
+
+// relu(x * scale + shift) of one bf16 value, rounded to bf16, the product
+// rounded before the sum as the plain version rounds it
+__device__ __forceinline__ unsigned short norm_relu(unsigned short v, float scale,
+                                                    float shift) {
+  const float f = fmaxf(__fadd_rn(__fmul_rn(__uint_as_float((unsigned)v << 16), scale), shift),
+                        0.f);
+  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+}
+
+// A block owns TH x TW outputs of a run of depths [d0, d1) and TCO output
+// channels. Per depth a warp computes its tile row: y (TCO x 32 positions) =
+// A (TCO x 32 taps, the weights in registers) x B (32 taps x 32 positions),
+// two k16 steps of mma.sync on each of 2 x 4 (m16, n8) fragments. B is read
+// from a ring of staged input planes: tap (kd, kh, kw) of position (r, p)
+// is plane d + kd - 1, copy kw, row r + kh, column p. Taps 27..31 read a
+// zeroed 16-byte block (their weights are zero too).
+template <bool FUSE>
+__global__ void __launch_bounds__(THREADS, 3)
+stem_fwd_kernel(const unsigned short* __restrict__ x, const unsigned short* __restrict__ w,
+                const float* __restrict__ stats, __nv_bfloat16* __restrict__ y, int D, int Co,
+                int H, int W, int tiles_w, int co_tiles, int run) {
+  __shared__ __align__(16) unsigned short ring[SLOTS * PLANE];
+  __shared__ __align__(16) __nv_bfloat16 ys[2][TCO * YS];
+  __shared__ __align__(16) unsigned short zero[8];
+
+  const int tid = threadIdx.x, lane = tid & 31, r = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int h0 = (blockIdx.x / tiles_w) * TH, w0 = (blockIdx.x % tiles_w) * TW;
+  const int d0 = blockIdx.y * run, d1 = min(D, d0 + run);
+  const int b = blockIdx.z / co_tiles, n0 = (blockIdx.z % co_tiles) * TCO;
+  const size_t HW = (size_t)H * W;
+  const unsigned short* xb = x + (size_t)b * D * HW;
+  const float scale = FUSE ? stats[2 * b] : 0.f, shift = FUSE ? stats[2 * b + 1] : 0.f;
+  if (tid < 8) zero[tid] = 0;
+
+  // A: w (27, Co) bf16 as (co, tap), zero past tap 26 and past Co
+  auto wv = [&](int co, int k) -> unsigned {
+    return co < Co && k < 27 ? (unsigned)__ldg(w + (size_t)k * Co + co) : 0u;
+  };
+  unsigned a[2][2][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int co = n0 + 16 * mi + g, k = 16 * s + 2 * t;
+      a[mi][s][0] = wv(co, k) | wv(co, k + 1) << 16;
+      a[mi][s][1] = wv(co + 8, k) | wv(co + 8, k + 1) << 16;
+      a[mi][s][2] = wv(co, k + 8) | wv(co, k + 9) << 16;
+      a[mi][s][3] = wv(co + 8, k + 8) | wv(co + 8, k + 9) << 16;
+    }
+
+  // a plane with its halo: one voxel (or none) a thread and step, zero
+  // outside the volume, the prologue applied to in-volume values
+  unsigned short xr[PER];
+  auto load = [&](int dd) {
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int p = tid + q * THREADS;
+      const int hh = h0 - 1 + p / (TW + 2), ww = w0 - 1 + p % (TW + 2);
+      const bool ok =
+          p < HALO && dd >= 0 && dd < D && hh >= 0 && hh < H && ww >= 0 && ww < W;
+      unsigned short v = ok ? __ldg(xb + (size_t)dd * HW + (size_t)hh * W + ww) : 0;
+      if (FUSE && ok) v = norm_relu(v, scale, shift);
+      xr[q] = v;
+    }
+  };
+  auto store = [&](int dd) {
+    unsigned short* pl = ring + (dd & (SLOTS - 1)) * PLANE;
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int p = tid + q * THREADS;
+      if (p >= HALO) continue;
+      const int row = p / (TW + 2), c = p % (TW + 2);
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw)  // copy kw holds column c at c - kw
+        if (c - kw >= 0 && c - kw < TW) pl[kw * COPY + row * RS + c - kw] = xr[q];
+    }
+  };
+
+  for (int k = -1; k <= 1; ++k) {
+    load(d0 + k);
+    store(d0 + k);
+  }
+  __syncthreads();
+
+  const int my_tap = (lane >> 3) * 8 + (lane & 7);
+  int buf = 0;
+  for (int d = d0; d < d1; ++d) {
+    const bool more = d + 1 < d1;  // depth d + 1 needs plane d + 2
+    if (more) load(d + 2);
+
+    // this lane's ldmatrix row: tap 8 (lane / 8) + lane % 8 at the tile
+    // row's first position; taps 27..31 read the zeroed block
+    const unsigned short* bp = zero;
+    int step = 0;
+    if (my_tap < 27) {
+      const int kd = my_tap / 9, kh = my_tap / 3 % 3, kw = my_tap % 3;
+      bp = ring + ((d + kd - 1) & (SLOTS - 1)) * PLANE + kw * COPY + (r + kh) * RS;
+      step = 8;
+    }
+#pragma unroll 1
+    for (int jh = 0; jh < 2; ++jh) {  // n8 fragments 2 jh, 2 jh + 1: half the sums live
+      float acc[2][2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mi][jj][q] = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {  // n8 fragment j: positions 8j .. 8j + 7
+        const int j = 2 * jh + jj;
+        unsigned bb[4];  // b0, b1 of k16 step 0, then of step 1
+        tc::ldsm_x4_t(bb, bp + j * step);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma(acc[mi][jj], a[mi][0], bb[0], bb[1]);
+          mma(acc[mi][jj], a[mi][1], bb[2], bb[3]);
+        }
+      }
+      // round once to bf16, stage the tile as [co][row][column]
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int hq = 0; hq < 2; ++hq) {
+            const int co = 16 * mi + g + 8 * hq, p = 8 * (2 * jh + jj) + 2 * t;
+            *reinterpret_cast<__nv_bfloat162*>(&ys[buf][co * YS + r * TW + p]) =
+                __floats2bfloat162_rn(acc[mi][jj][2 * hq], acc[mi][jj][2 * hq + 1]);
+          }
+    }
+    if (more) store(d + 2);  // slot (d + 2) & 3 was last read at depth d - 1
+    __syncthreads();
+    // 16-byte pieces of 8 outputs along W
+    const size_t yd = ((size_t)b * D + d) * Co;
+    for (int i = tid; i < TCO * TH * (TW / 8); i += THREADS) {
+      const int q = i % (TW / 8), rr = i / (TW / 8) % TH, c = i / (TW / 8 * TH);
+      const int h = h0 + rr, ww = w0 + 8 * q, co = n0 + c;
+      if (co >= Co || h >= H || ww >= W) continue;
+      const __nv_bfloat16* src = &ys[buf][c * YS + rr * TW + 8 * q];
+      __nv_bfloat16* dst = y + (yd + co) * HW + (size_t)h * W + ww;
+      if (W % 8 == 0) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int e = 0; e < 8 && ww + e < W; ++e) dst[e] = src[e];
+      }
+    }
+    buf ^= 1;  // the other buffer was last read before this depth's barrier
+  }
+}
+
+template <bool FUSE>
+int launch_fuse(const void* x, const void* w, const float* stats, void* y, int B, int D, int Co,
+                int H, int W, int run, cudaStream_t stream) {
+  if (run < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
+  const int co_tiles = (Co + TCO - 1) / TCO;
+  const dim3 grid(tiles_h * tiles_w, (D + run - 1) / run, B * co_tiles);
+  stem_fwd_kernel<FUSE><<<grid, THREADS, 0, stream>>>(
+      static_cast<const unsigned short*>(x), static_cast<const unsigned short*>(w), stats,
+      static_cast<__nv_bfloat16*>(y), D, Co, H, W, tiles_w, co_tiles, run);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace stem
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; route: 0 = CUDA cores (w float32
-// (27, Ci, Co)), 1 = tensor cores (bf16 only; w bf16 (27, Cip, Cop)). stats
-// may be null (no prologue). Returns cudaGetLastError() after the launch.
+// (27, Ci, Co)), 1 = tensor cores (bf16 only; w bf16 (27, Cip, Cop)), 2 =
+// the stem (bf16, Ci = 1; w bf16 (27, Co); run = depths a block marches
+// through). stats may be null (no prologue). Returns cudaGetLastError()
+// after the launch.
 extern "C" int rsuper_conv3_cf(const void* x, const void* w, const void* stats, void* y,
-                               int B, int D, int Ci, int Co, int H, int W, int dtype,
+                               int B, int D, int Ci, int Co, int H, int W, int run, int dtype,
                                int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* st = static_cast<const float*>(stats);
+  if (route == 2) {
+    if (dtype != 1 || Ci != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return st != nullptr ? stem::launch_fuse<true>(x, w, st, y, B, D, Co, H, W, run, s)
+                         : stem::launch_fuse<false>(x, w, st, y, B, D, Co, H, W, run, s);
+  }
   if (route == 1) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     return tc::launch(x, w, st, y, B, D, Ci, Co, H, W, s);

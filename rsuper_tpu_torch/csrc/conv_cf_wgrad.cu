@@ -10,6 +10,8 @@
 //   dy      (B, D, Co, H, W)   x's type
 //   stats   (B, 2, Ci)         float32 or null: [:, 0] = 1/sigma, [:, 1] = -mu/sigma
 //   partial (S, 27, Ci, Co)    float32 scratch, every element written
+//                              (the stem: (S + ceil(S/16), 27, Co))
+//   counter                    int32, the stem's arrival counters
 //   dw      (27, Ci, Co)       float32
 //
 //   dw[kd,kh,kw,ci,co] = sum over b,d,h,w of
@@ -20,15 +22,17 @@
 //
 // What bounds it: the same 54 operations per channel pair and voxel as the
 // forward, against one read of x and dy, so the card's arithmetic rate bounds
-// it (bf16 tensor cores: 989 TFLOP/s).
+// it (bf16 tensor cores: 989 TFLOP/s). The stem (Ci = 1) does 54 operations
+// per element of dy it reads: its reading of dy bounds it (3.35 TB/s).
 //
 // The sum runs over B*D*H*W positions, far more than one block can take,
 // and blocks cannot carry a sum from one to the next as the TPU grid does.
 // So the grid is (spatial split s of S, C_in tile x C_out tile): a block
 // walks its share of the output tiles and keeps its sums; at the end it
 // writes them to partial[s], and a second kernel sums the S partials in a
-// fixed order, so dw is the same from run to run (no atomics). Two routes,
-// chosen by the wrapper from (dtype, Ci) alone:
+// fixed order, so dw is the same from run to run (no atomics); the stem's
+// route sums them in the same launch. Three routes, chosen by the wrapper
+// from (dtype, Ci) alone:
 //
 // route 1, tensor cores (bf16, Ci >= 16): per tap a GEMM with M = 16 input
 // channels, N = 32 output channels, K = positions, on mma.sync.m16n8k16
@@ -48,7 +52,19 @@
 // block's share strayed from a float64 sum much further than float32 sums
 // do (chip_smoke.py records both distances for every bf16 wgrad shape).
 //
-// route 0, CUDA cores (float32, and the stem's Ci = 1): 4x16 output tiles,
+// route 2, the stem (bf16, Ci = 1; the JAX package's form "f",
+// _wgrad_kernel_f): dwT (Co x 32 taps) += dy (Co x positions) x patch
+// (positions x 32 taps), taps 27..31 zero, on mma.sync. Blocks march down
+// columns of 8 x 32 output tiles through a ring of input planes staged at
+// the three kw shifts (one plane a tile) and two dy tiles, the next loaded
+// by cp.async during the current tile's MMAs (a third tile in flight
+// measured no faster); both operands go to the MMA by ldmatrix. Each
+// tile row's MMA sums (two k16 steps) are added to float32 sums in
+// registers. One launch: each block writes a (27, Co) partial, and integer
+// arrival counters pick the last block of each group of 16, then the last
+// group summer, to sum them in index order (as dwconv_bwd.cu does).
+//
+// route 0, CUDA cores (float32, and bf16 with 2 <= Ci <= 15): 4x16 output tiles,
 // tile t = s, s+S, ...; for each it stages the dy tile (32 output channels)
 // and the three depth planes of the a tile with a one-voxel halo (16 input
 // channels, or 4 for the stem) in shared memory, channel innermost. A thread
@@ -526,19 +542,319 @@ int launch_fuse(const void* x, const void* dy, const float* stats, float* partia
 
 }  // namespace tc
 
+// ------------------------------------------------------- the stem (Ci = 1)
+namespace stem {
+
+constexpr int TH = 8, TW = 32;   // outputs of a tile: a warp a row, two k16 steps a row
+constexpr int TCO = 32;          // output channels of a block: two m16 fragments
+constexpr int THREADS = 32 * TH;
+constexpr int IH = TH + 2;       // staged rows of a plane (one-row halo)
+constexpr int HALO = IH * (TW + 2);
+constexpr int PER = (HALO + THREADS - 1) / THREADS;
+constexpr int RS = TW + 8;       // row stride of a staged copy: 80 bytes, 16-byte aligned
+constexpr int COPY = IH * RS;
+constexpr int PLANE = 3 * COPY;  // the plane at the three kw shifts
+constexpr int SLOTS = 4;         // ring: three planes in use, one being filled
+constexpr int DYP = TH * TW + 8; // padded position stride of a staged dy channel (528 bytes)
+constexpr int DYBUF = TCO * DYP;
+constexpr int DYS = 2;           // dy tiles: one in use, one in flight
+constexpr int NSUM = 2 * 4 * 4;  // float32 sums of a thread: 2 m16 x 4 n8 fragments
+constexpr int GROUP = 16;        // partials summed a group at a time (ops/conv_cf.py: STEM_GROUP)
+static_assert(THREADS * NSUM * sizeof(float) <= DYS * DYBUF * sizeof(__nv_bfloat16),
+              "the warps' sums fit in the dy buffers");
+
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  tc::mma_bf16(c, a, b0, b1);  // stem MMA
+}
+
+__device__ __forceinline__ unsigned short norm_relu(unsigned short v, float scale,
+                                                    float shift) {
+  const float f = fmaxf(__fadd_rn(__fmul_rn(__uint_as_float((unsigned)v << 16), scale), shift),
+                        0.f);
+  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+}
+
+// out[tap][co] (27 x Co, the block's TCO columns) = rows[0] + rows[1] + ...
+// + rows[n - 1], each row 27 x Co, summed in that order
+__device__ __forceinline__ void sum_rows(const float* rows, int n, float* out, int n0,
+                                         int Co) {
+  const size_t row = (size_t)27 * Co;
+  for (int e = threadIdx.x; e < 27 * TCO; e += THREADS) {
+    const int co = n0 + e % TCO;
+    if (co >= Co) continue;
+    const size_t i = (size_t)(e / TCO) * Co + co;
+    float acc = 0.f;
+    for (int k = 0; k < n; ++k) acc += __ldcg(rows + k * row + i);
+    out[i] = acc;
+  }
+}
+
+// dwᵀ[co][tap] = sum over positions of dy[co][pos] * patch[pos][tap]: per
+// tile a warp takes its tile row, M = TCO channels (A: the staged dy tile by
+// ldmatrix), N = 32 taps (B: the planes staged at three kw shifts, by
+// ldmatrix, taps 27..31 reading a zeroed block), K = the row's 32 positions.
+// Tiles are numbered depth innermost and block s of a C_out tile takes the
+// contiguous run [T s / S, T (s + 1) / S), so it marches down columns of
+// tiles: the next tile needs one new plane of x and its own dy tile (by
+// cp.async), both loaded during the current tile's MMAs. The warps' sums
+// are added in a fixed
+// order into a (27, Co) partial, and the last block of each group of GROUP,
+// then the last group summer, sum the partials in index order (integer
+// arrival counters, left at zero).
+template <bool FUSE>
+__global__ void __launch_bounds__(THREADS, 2)
+stem_wgrad_kernel(const unsigned short* __restrict__ x, const unsigned short* __restrict__ dy,
+                  const float* __restrict__ stats, float* __restrict__ partial,
+                  int* __restrict__ counter, float* __restrict__ dw, int B, int D, int Co, int H,
+                  int W, int tiles_h, int tiles_w, int vec) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned short* ring = reinterpret_cast<unsigned short*>(smem_raw);  // [SLOTS][3][IH][RS]
+  __nv_bfloat16* ds = reinterpret_cast<__nv_bfloat16*>(ring + SLOTS * PLANE);  // [DYS][TCO][DYP]
+  unsigned short* zero = reinterpret_cast<unsigned short*>(ds + DYS * DYBUF);  // 8 zeros
+  __shared__ int last;
+
+  const int tid = threadIdx.x, lane = tid & 31, r = tid >> 5;
+  const int G = gridDim.x, s = blockIdx.x;
+  const int n0 = blockIdx.y * TCO;
+  const size_t HW = (size_t)H * W;
+  int b = 0, h0 = 0, w0 = 0;  // the current tile's column
+  const unsigned short* xb = x;
+  float scale = 0.f, shift = 0.f;
+  if (tid < 8) zero[tid] = 0;
+
+  unsigned short xr[PER];
+  auto load = [&](int dd) {
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int p = tid + q * THREADS;
+      const int hh = h0 - 1 + p / (TW + 2), ww = w0 - 1 + p % (TW + 2);
+      const bool ok =
+          p < HALO && dd >= 0 && dd < D && hh >= 0 && hh < H && ww >= 0 && ww < W;
+      unsigned short v = ok ? __ldg(xb + (size_t)dd * HW + (size_t)hh * W + ww) : 0;
+      if (FUSE && ok) v = norm_relu(v, scale, shift);
+      xr[q] = v;
+    }
+  };
+  auto store = [&](int dd) {
+    unsigned short* pl = ring + (dd & (SLOTS - 1)) * PLANE;
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int p = tid + q * THREADS;
+      if (p >= HALO) continue;
+      const int row = p / (TW + 2), c = p % (TW + 2);
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw)  // copy kw holds column c at c - kw
+        if (c - kw >= 0 && c - kw < TW) pl[kw * COPY + row * RS + c - kw] = xr[q];
+    }
+  };
+  // dy of depth d into buf, [co][row][column], zero outside the volume
+  auto stage_dy = [&](int d, __nv_bfloat16* buf) {
+    const unsigned short* src0 = dy + ((size_t)b * D + d) * Co * HW;
+    if (vec) {  // 16-byte pieces of 8 outputs along W
+      for (int i = tid; i < TCO * TH * (TW / 8); i += THREADS) {
+        const int q = i % (TW / 8), rr = i / (TW / 8) % TH, c = i / (TW / 8 * TH);
+        const int hh = h0 + rr, ww = w0 + 8 * q, co = n0 + c;
+        const bool ok = co < Co && hh < H && ww < W;
+        tc::cp_async16(buf + c * DYP + rr * TW + 8 * q,
+                       ok ? src0 + (size_t)co * HW + (size_t)hh * W + ww : dy, ok);
+      }
+      tc::cp_async_commit();
+    } else {
+      unsigned short* dst = reinterpret_cast<unsigned short*>(buf);
+      for (int i = tid; i < TCO * TH * TW; i += THREADS) {
+        const int p = i % (TH * TW), c = i / (TH * TW);
+        const int hh = h0 + p / TW, ww = w0 + p % TW, co = n0 + c;
+        dst[c * DYP + p] = co < Co && hh < H && ww < W
+                               ? __ldg(src0 + (size_t)co * HW + (size_t)hh * W + ww)
+                               : (unsigned short)0;
+      }
+    }
+  };
+
+  // this lane's ldmatrix rows: A (dy) row 16 mi + lane % 8 + 8 (lane / 8 % 2),
+  // column 8 (lane / 16); B (patch) tap 16 jj + lane % 8 + 8 (lane / 16),
+  // positions 8 (lane / 8 % 2) on
+  const int a_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * DYP + r * TW + (lane >> 4) * 8;
+  int b_tap[2];
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) b_tap[jj] = 16 * jj + (lane & 7) + (lane >> 4) * 8;
+
+  float sum[NSUM];
+#pragma unroll
+  for (int i = 0; i < NSUM; ++i) sum[i] = 0.f;
+
+  const long long T = (long long)B * tiles_h * tiles_w * D;
+  const long long t1 = T * (s + 1) / G;
+  int cur = 0;  // the dy buffer of depth d
+  bool fresh = true;
+  for (long long t = T * s / G; t < t1; ++t) {
+    const int d = (int)(t % D);
+    const bool more = t + 1 < t1 && d + 1 < D;  // the next tile is one depth on
+    if (fresh) {  // a new column: its three planes around d, and dy
+      long long col = t / D;
+      w0 = (int)(col % tiles_w) * TW;
+      col /= tiles_w;
+      h0 = (int)(col % tiles_h) * TH;
+      b = (int)(col / tiles_h);
+      xb = x + (size_t)b * D * HW;
+      if (FUSE) scale = stats[2 * b], shift = stats[2 * b + 1];
+      stage_dy(d, ds + cur * DYBUF);
+      for (int k = -1; k <= 1; ++k) {
+        load(d + k);
+        store(d + k);
+      }
+      tc::cp_async_wait_all();
+      __syncthreads();
+    }
+    if (more) {  // the next depth's dy and plane fly during this depth's MMAs
+      stage_dy(d + 1, ds + (cur ^ 1) * DYBUF);
+      load(d + 2);
+    }
+    const unsigned short* bp[2];
+    int boff[2];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int k = b_tap[jj];
+      bp[jj] = zero;
+      boff[jj] = 0;
+      if (k < 27) {
+        const int kd = k / 9, kh = k / 3 % 3, kw = k % 3;
+        bp[jj] = ring + ((d + kd - 1) & (SLOTS - 1)) * PLANE + kw * COPY + (r + kh) * RS +
+                 ((lane >> 3) & 1) * 8;
+        boff[jj] = 16;
+      }
+    }
+    const __nv_bfloat16* ap = ds + cur * DYBUF + a_off;
+    float acc[2][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mi][j][q] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < TW / 16; ++ks) {  // k16 step: positions 16 ks .. 16 ks + 15
+      unsigned am[2][4], bm[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) tc::ldsm_x4(am[mi], ap + mi * 16 * DYP + ks * 16);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) tc::ldsm_x4(bm[jj], bp[jj] + ks * boff[jj]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          mma(acc[mi][2 * jj], am[mi], bm[jj][0], bm[jj][1]);
+          mma(acc[mi][2 * jj + 1], am[mi], bm[jj][2], bm[jj][3]);
+        }
+    }
+    // the row's MMA sums join the float32 sums
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sum[(mi * 4 + j) * 4 + q] += acc[mi][j][q];
+    if (more) {
+      store(d + 2);  // slot (d + 2) & 3 was last read at depth d - 1
+      tc::cp_async_wait_all();
+      cur ^= 1;
+    }
+    __syncthreads();
+    fresh = !more;
+  }
+
+  // the warps' sums, added in warp order, into this block's partial
+  float* red = reinterpret_cast<float*>(ds);  // [warp][NSUM][32]
+#pragma unroll
+  for (int i = 0; i < NSUM; ++i) red[(r * NSUM + i) * 32 + lane] = sum[i];
+  __syncthreads();
+  for (int e = tid; e < NSUM * 32; e += THREADS) {
+    const int i = e / 32, ln = e % 32;
+    float v = 0.f;
+#pragma unroll
+    for (int k = 0; k < TH; ++k) v += red[(k * NSUM + i) * 32 + ln];
+    const int mi = i / 16, j = i / 4 % 4, q = i % 4;
+    const int co = n0 + 16 * mi + (ln >> 2) + 8 * (q >> 1);
+    const int tap = 8 * j + 2 * (ln & 3) + (q & 1);
+    if (tap < 27 && co < Co) partial[((size_t)s * 27 + tap) * Co + co] = v;
+  }
+
+  // the G partials of this C_out tile, summed in two fixed-order levels
+  const int NG = (G + GROUP - 1) / GROUP, grp = s / GROUP;
+  int* cnt = counter + (size_t)blockIdx.y * (NG + 1);
+  const size_t row = (size_t)27 * Co;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(cnt + grp, 1) == min(GROUP, G - grp * GROUP) - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (NG == 1) {
+    sum_rows(partial, G, dw, n0, Co);
+    if (tid == 0) cnt[0] = 0;
+    return;
+  }
+  sum_rows(partial + grp * GROUP * row, min(GROUP, G - grp * GROUP), partial + (G + grp) * row,
+           n0, Co);
+  if (tid == 0) cnt[grp] = 0;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(cnt + NG, 1) == NG - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  sum_rows(partial + G * row, NG, dw, n0, Co);
+  if (tid == 0) cnt[NG] = 0;
+}
+
+template <bool FUSE>
+int launch_fuse(const void* x, const void* dy, const float* stats, float* partial, int* counter,
+                float* dw, int B, int D, int Co, int H, int W, int S, cudaStream_t stream) {
+  const int tiles_h = (H + TH - 1) / TH, tiles_w = (W + TW - 1) / TW;
+  if ((long long)S > (long long)B * tiles_h * tiles_w * D)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (SLOTS * PLANE + DYS * DYBUF + 8) * sizeof(unsigned short);
+  auto kernel = stem_wgrad_kernel<FUSE>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(S, (Co + TCO - 1) / TCO), THREADS, smem, stream>>>(
+      static_cast<const unsigned short*>(x), static_cast<const unsigned short*>(dy), stats,
+      partial, counter, dw, B, D, Co, H, W, tiles_h, tiles_w,
+      W % 8 == 0 && reinterpret_cast<size_t>(dy) % 16 == 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace stem
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; route: 0 = CUDA cores, 1 = tensor cores
-// (bf16 only). stats may be null (no prologue). S is the number of spatial
-// splits (>= 1); partial holds S * 27 * Ci * Co floats. Returns
-// cudaGetLastError() after the two launches.
+// (bf16 only), 2 = the stem (bf16, Ci = 1). stats may be null (no
+// prologue). S is the number of spatial splits (>= 1). Routes 0 and 1:
+// partial holds S * 27 * Ci * Co floats, a second kernel sums them, and
+// counter is not read. Route 2: one launch of S blocks a C_out tile (at most
+// one a tile of 8 x 32 outputs of one depth row); partial holds (S +
+// ceil(S/16)) * 27 * Co floats, counter ceil(Co/32) * (ceil(S/16) + 1) ints,
+// zero before the call and after it. Returns cudaGetLastError() after the
+// launches.
 extern "C" int rsuper_conv3_cf_wgrad(const void* x, const void* dy, const void* stats,
-                                     void* partial, void* dw, int B, int D, int Ci, int Co,
-                                     int H, int W, int S, int dtype, int route, void* stream) {
+                                     void* partial, void* counter, void* dw, int B, int D,
+                                     int Ci, int Co, int H, int W, int S, int dtype, int route,
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sf = static_cast<const float*>(stats);
   float* pf = static_cast<float*>(partial);
   if (S < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 2) {
+    if (dtype != 1 || Ci != 1) return static_cast<int>(cudaErrorInvalidValue);
+    int* cnt = static_cast<int*>(counter);
+    float* out = static_cast<float*>(dw);
+    return sf != nullptr
+               ? stem::launch_fuse<true>(x, dy, sf, pf, cnt, out, B, D, Co, H, W, S, st)
+               : stem::launch_fuse<false>(x, dy, sf, pf, cnt, out, B, D, Co, H, W, S, st);
+  }
   int err;
   if (route == 1) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);

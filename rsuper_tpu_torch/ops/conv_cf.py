@@ -17,10 +17,14 @@ autograd differentiates the plain versions; ``_wgrad_plain``,
 ``_dgrad_plain`` and ``_in_relu_bwd`` are the plain versions the backward
 kernels are held against. Every wrapper counts its launches.
 
-Each kernel has two routes, chosen by ``conv_route`` from the operands'
+Each kernel has three routes, chosen by ``conv_route`` from the operands'
 type and C_in alone: bf16 with C_in ≥ 16 runs on the tensor cores (an
-implicit GEMM on ``mma.sync``, bf16 operands, float32 sums), float32 and the
-stem's C_in = 1 on the CUDA cores in float32.
+implicit GEMM on ``mma.sync``, bf16 operands, float32 sums); the bf16 stem,
+C_in = 1, on the tensor cores too, with its 27 taps as one K = 32
+contraction (the JAX package's form "f": a (C_out, 32) × (32, positions)
+product a tile row, forward and weight gradient each one launch a call,
+blocks marching in depth through a ring of staged input planes); float32
+and bf16 with 2 ≤ C_in ≤ 15 on the CUDA cores in float32.
 """
 
 from __future__ import annotations
@@ -33,18 +37,54 @@ import torch.nn.functional as F
 from . import _build, dispatch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ROUTE_CODES = {"cuda_core": 0, "tensor_core": 1}
+_ROUTE_CODES = {"cuda_core": 0, "tensor_core": 1, "stem": 2}
 SMS = 132  # streaming multiprocessors of an H100 SXM
+# the stem route's grids: a block owns STEM_TILE outputs (rows, columns) of
+# one depth row at a time and STEM_CO output channels. The forward's blocks
+# march through runs of depths, cut until the grid has STEM_FWD_FILL blocks;
+# the weight gradient's STEM_WGRAD_FILL blocks (one wave of two an SM) each
+# take an equal share of the tiles
+STEM_TILE = (8, 32)
+STEM_CO = 32
+STEM_FWD_FILL = 8 * SMS
+STEM_WGRAD_FILL = 2 * SMS
+STEM_GROUP = 16  # wgrad partials summed a group at a time: GROUP in csrc/conv_cf_wgrad.cu
 
 
 def conv_route(dtype: torch.dtype, c_in: int) -> str:
     """The kernel route of a conv, dgrad or wgrad whose input has `c_in`
     channels: ``"tensor_core"`` for bf16 with C_in ≥ 16 (one k16 step of the
-    MMA), else ``"cuda_core"``. float32 stays off the tensor cores, where it
-    would be TF32 (about three digits); the stem's single channel would fill
-    one sixteenth of each MMA. C_out does not enter: its tail is padded."""
+    MMA a tap), ``"stem"`` for bf16 with C_in = 1 (all 27 taps in one K = 32
+    contraction, two k16 steps), else ``"cuda_core"``. float32 stays off the tensor cores,
+    where it would be TF32 (about three digits). C_out does not enter: its
+    tail is padded."""
+    if dtype == torch.bfloat16 and c_in == 1:
+        return "stem"
     return ("tensor_core" if dtype == torch.bfloat16 and c_in >= 16
             else "cuda_core")
+
+
+def _stem_tiles(B: int, H: int, W: int) -> int:
+    """Columns of stem tiles: (batch, tile row, tile column)."""
+    th, tw = STEM_TILE
+    return B * -(-H // th) * -(-W // tw)
+
+
+def _stem_fwd_run(B: int, D: int, Co: int, H: int, W: int) -> int:
+    """Depths a block of the stem forward marches through: the runs are cut
+    until the grid (columns × C_out tiles × runs) has STEM_FWD_FILL blocks,
+    never below one depth; the kernel recomputes the grid from the run."""
+    columns = _stem_tiles(B, H, W) * -(-Co // STEM_CO)
+    runs = min(D, max(1, -(-STEM_FWD_FILL // columns)))
+    return -(-D // runs)
+
+
+def _stem_wgrad_splits(B: int, D: int, H: int, W: int) -> int:
+    """Blocks of the stem weight gradient a C_out tile: STEM_WGRAD_FILL, or
+    one a tile (one depth row of one column) where there are fewer. Each
+    writes a (27, C_out) float32 partial; the kernel sums them in
+    ceil(S / STEM_GROUP) groups."""
+    return max(1, min(_stem_tiles(B, H, W) * D, STEM_WGRAD_FILL))
 
 
 def _pack_w(w: torch.Tensor, dtype: torch.dtype, route: str) -> torch.Tensor:
@@ -53,10 +93,17 @@ def _pack_w(w: torch.Tensor, dtype: torch.dtype, route: str) -> torch.Tensor:
     rounded to `dtype`. Tensor cores: (27, C_in↑16, C_out↑8) bf16, C_in
     padded to a multiple of 16 and C_out of 8 with zeros, so that every
     staged weight row is whole 16-byte pieces. One copy kernel (and a fill
-    where there is padding)."""
+    where there is padding). The stem: (27, C_out) bf16, the transpose of
+    the JAX package's ``_prep_w_f`` (taps in (kd, kh, kw) order), one copy
+    kernel; the kernel pads K to 32 and C_out to its tile with zeros as it
+    loads the weights into its registers."""
     Ci, Co = w.shape[3], w.shape[4]
     if route == "cuda_core":
         return w.to(dtype).float().reshape(27, Ci, Co).contiguous()
+    if route == "stem":
+        wk = torch.empty((27, Co), dtype=torch.bfloat16, device=w.device)
+        wk.view(3, 3, 3, 1, Co).copy_(w)  # strided views too
+        return wk
     Cip, Cop = -(-Ci // 16) * 16, -(-Co // 8) * 8
     new = torch.empty if (Cip, Cop) == (Ci, Co) else torch.zeros
     wk = new((27, Cip, Cop), dtype=torch.bfloat16, device=w.device)
@@ -159,12 +206,13 @@ def _launch(x: torch.Tensor, w: torch.Tensor, stats) -> torch.Tensor:
     wk = _pack_w(w, x.dtype, route)
     st = None if stats is None else stats.reshape(B, 2, Ci).contiguous()
     y = torch.empty((B, D, Co, H, W), dtype=x.dtype, device=x.device)
+    run = _stem_fwd_run(B, D, Co, H, W) if route == "stem" else 0
     lib = _build.load("conv_cf")
     fn = lib.rsuper_conv3_cf
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), wk.data_ptr(), None if st is None else st.data_ptr(),
-             y.data_ptr(), B, D, Ci, Co, H, W, _DTYPE_CODES[x.dtype],
+             y.data_ptr(), B, D, Ci, Co, H, W, run, _DTYPE_CODES[x.dtype],
              _ROUTE_CODES[route], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "conv_cf")
     return y
@@ -187,25 +235,54 @@ def _wgrad_splits(B: int, D: int, Ci: int, Co: int, H: int, W: int,
     return max(1, min(tiles, -(-4 * SMS // pairs)))
 
 
+_STEM_WORK: dict = {}
+
+
+def _stem_work(dev: torch.device, stream: int, n_partial: int,
+               n_counter: int):
+    """The stem wgrad's partial sums and arrival counters for a device and
+    stream, kept and grown, not allocated at every call: the counters are
+    zeros when allocated, and the kernel leaves them at zero."""
+    key = (dev.index, stream)
+    partial, counter = _STEM_WORK.get(key, (None, None))
+    if partial is None or partial.numel() < n_partial:
+        partial = torch.empty(n_partial, dtype=torch.float32, device=dev)
+    if counter is None or counter.numel() < n_counter:
+        counter = torch.zeros(max(n_counter, 1024), dtype=torch.int32,
+                              device=dev)
+    _STEM_WORK[key] = partial, counter
+    return partial, counter
+
+
 def _launch_wgrad(x: torch.Tensor, dy: torch.Tensor, stats) -> torch.Tensor:
-    """Run csrc/conv_cf_wgrad.cu on CUDA tensors; allocates dw and the
-    partial sums."""
+    """Run csrc/conv_cf_wgrad.cu on CUDA tensors; allocates dw, and the
+    partial sums on the routes that sum them in a second kernel (the stem's
+    are kept by `_stem_work`)."""
     B, D, Ci, H, W = x.shape
     Co = dy.shape[2]
     x, dy = x.contiguous(), dy.contiguous()
     st = None if stats is None else stats.reshape(B, 2, Ci).contiguous()
     route = conv_route(x.dtype, Ci)
-    S = _wgrad_splits(B, D, Ci, Co, H, W, route)
-    partial = torch.empty((S, 27, Ci, Co), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    counter = None
+    if route == "stem":
+        S = _stem_wgrad_splits(B, D, H, W)
+        groups = -(-S // STEM_GROUP)
+        partial, counter = _stem_work(x.device, stream, (S + groups) * 27 * Co,
+                                      -(-Co // STEM_CO) * (groups + 1))
+    else:
+        S = _wgrad_splits(B, D, Ci, Co, H, W, route)
+        partial = torch.empty((S, 27, Ci, Co), dtype=torch.float32,
+                              device=x.device)
     dw = torch.empty((3, 3, 3, Ci, Co), dtype=torch.float32, device=x.device)
     lib = _build.load("conv_cf_wgrad")
     fn = lib.rsuper_conv3_cf_wgrad
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), dy.data_ptr(), None if st is None else st.data_ptr(),
-             partial.data_ptr(), dw.data_ptr(), B, D, Ci, Co, H, W, S,
-             _DTYPE_CODES[x.dtype], _ROUTE_CODES[route],
-             torch.cuda.current_stream(x.device).cuda_stream)
+             partial.data_ptr(), None if counter is None else counter.data_ptr(),
+             dw.data_ptr(), B, D, Ci, Co, H, W, S,
+             _DTYPE_CODES[x.dtype], _ROUTE_CODES[route], stream)
     _build.check(err, "conv_cf_wgrad")
     return dw
 

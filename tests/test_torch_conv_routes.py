@@ -1,4 +1,4 @@
-"""What surrounds the conv kernels' two routes, on the CPU.
+"""What surrounds the conv kernels' routes, on the CPU.
 
 The kernels themselves run only on the card
 (``tests/test_torch_kernels_cuda.py``, ``-m cuda``). What the wrapper of
@@ -6,6 +6,7 @@ The kernels themselves run only on the card
 and is held here: the route each production shape takes, the bf16 weight
 layout the tensor-core kernel reads (against a numpy re-layout of the
 weights rounded to bf16), and the wgrad kernel's number of spatial splits.
+The stem's own route (bf16, C_in = 1) is held in ``tests/test_torch_stem.py``.
 """
 
 import numpy as np
@@ -38,11 +39,14 @@ def test_production_shapes_take_the_tensor_cores_in_bf16(shape):
 
 @pytest.mark.parametrize("shape", STEM, ids=str)
 def test_the_stem_stays_on_the_cuda_cores(shape):
-    for dtype in (BF16, F32):
-        assert conv_cf.conv_route(dtype, shape[2]) == "cuda_core"
+    """In float32 the stem stays on the CUDA cores; in bf16 it takes its
+    own tensor-core route, the 27 taps as one K = 32 contraction."""
+    assert conv_cf.conv_route(F32, shape[2]) == "cuda_core"
+    assert conv_cf.conv_route(BF16, shape[2]) == "stem"
 
 
 def test_the_route_turns_at_one_k16_step():
+    assert conv_cf.conv_route(BF16, 2) == "cuda_core"
     assert conv_cf.conv_route(BF16, 15) == "cuda_core"
     assert conv_cf.conv_route(BF16, 16) == "tensor_core"
     assert conv_cf.conv_route(torch.float16, 64) == "cuda_core"

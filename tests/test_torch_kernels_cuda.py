@@ -19,7 +19,8 @@ Tolerances, as max|Δ| ≤ tol·(1 + max|ref|):
   another order); in bf16 the Functions round dw to bf16, 2e-2;
 * the tensor-core route (bf16, C_in ≥ 16) at the bf16 tolerances above: its
   products of bf16 operands are exact in float32, only the order of the
-  float32 sums differs, and dw stays float32 at 1e-4;
+  float32 sums differs, and dw stays float32 at 1e-4; the same for the
+  stem's route (bf16, C_in = 1);
 * gradients of the small MedFormer in float32: per parameter
   ‖Δ‖ ≤ 1e-3·(‖ref‖ + 1e-3·max over parameters of ‖ref‖) (sums in another
   order, forward and backward; the second term gives a scale to gradients
@@ -39,6 +40,7 @@ from rsuper_tpu_torch.models import get_model, init_params
 from rsuper_tpu_torch.losses import BallLossConfig
 from rsuper_tpu_torch.losses.ball import isolate_tumor_batched
 from rsuper_tpu_torch.ops import balls, conv_cf, dispatch, dwconv, selection, topn
+from rsuper_tpu_torch.utils.device import graph_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -58,6 +60,14 @@ TC_CASES = [(1, 3, 16, 17, 33, 24), (2, 5, 40, 20, 37, 70),
             (1, 1, 32, 9, 16, 96), (1, 4, 48, 12, 20, 96),
             (2, 2, 24, 10, 18, 120), (1, 3, 64, 8, 16, 40),
             (1, 2, 16, 5, 7, 200)]
+# (B, D, 1, H, W, C_out) in bf16 on the stem's route: the production shapes
+# (the serving window batch of 8, the training step's 1, the wgrad's 2), and
+# tails: one-deep volumes, H and W that leave partial 8-row and 32-column
+# tiles and W that is not a multiple of 8, C_out below, between and above
+# the 32-channel tile
+STEM_CASES = [(8, 96, 1, 96, 96, 32), (1, 96, 1, 96, 96, 32),
+              (2, 96, 1, 96, 96, 32), (1, 1, 1, 9, 17, 32), (2, 5, 1, 20, 37, 7),
+              (2, 3, 1, 17, 33, 48), (1, 4, 1, 13, 70, 32), (2, 1, 1, 6, 40, 3)]
 # (B, D, H, W, C): C that allows 16-byte copies and C that does not; planes
 # that cut a tile (``dwconv._dw_plan``: rows of 8 and strips of 6 at most)
 # and depths cut into runs of 2–4, with C that leaves a partial chunk of 64
@@ -223,6 +233,95 @@ def test_tensor_core_conv_kernels_match_plain(dev, case):
         assert torch.equal(got, fn(*args))  # partial sums, no atomics
 
 
+def _stem_counters_are_zero():
+    return all(int(c.abs().sum()) == 0
+               for _, c in conv_cf._STEM_WORK.values())
+
+
+@pytest.mark.parametrize("case", STEM_CASES, ids=str)
+def test_stem_kernels_match_plain(dev, case):
+    """The stem's forward and weight gradient, plain and with the fused
+    prologue, against their plain versions; dw twice, bit-equal, and the
+    arrival counters back at zero."""
+    B, D, Ci, H, W, Co = case
+    bf = torch.bfloat16
+    assert conv_cf.conv_route(bf, Ci) == "stem"
+    x = (_randn((B, D, Ci, H, W), 50, dev, 2.0) + 0.5).to(bf)
+    w = _randn((3, 3, 3, Ci, Co), 51, dev, 1.0 / np.sqrt(27))
+    dy = _randn((B, D, Co, H, W), 52, dev).to(bf)
+    stats = conv_cf._in_stats_cf(x, 1e-4)
+    for fn in (conv_cf.conv3x3x3_cf, conv_cf.in_relu_conv3x3x3_cf):
+        got, ref = _launch_and_plain(fn, x, w)
+        assert got.dtype == bf and got.shape == (B, D, Co, H, W)
+        _assert_close(got, ref, TOL[bf])
+    for fn, args in ((conv_cf.conv3x3x3_cf_wgrad, (x, dy)),
+                     (conv_cf.in_relu_conv3x3x3_cf_wgrad, (x, dy, stats))):
+        got, ref = _launch_and_plain(fn, *args)
+        assert got.dtype == torch.float32 and got.shape == w.shape
+        _assert_close(got, ref, TOL[torch.float32])
+        assert torch.equal(got, fn(*args))  # fixed-order sums, no atomics
+        torch.cuda.synchronize()
+        assert _stem_counters_are_zero()
+
+
+@pytest.mark.parametrize("case", [(8, 96, 1, 96, 96, 32), (2, 5, 1, 20, 37, 7)],
+                         ids=str)
+def test_stem_calls_launch_one_kernel(dev, case):
+    """A stem forward call is its kernel and the weight pack's one copy; a
+    weight gradient call is one kernel."""
+    B, D, Ci, H, W, Co = case
+    x = _randn((B, D, Ci, H, W), 53, dev).to(torch.bfloat16)
+    w = _randn((3, 3, 3, Ci, Co), 54, dev, 0.2)
+    dy = _randn((B, D, Co, H, W), 55, dev).to(torch.bfloat16)
+    ops = graph_ops(lambda: conv_cf.conv3x3x3_cf(x, w))
+    assert len(ops) <= 2 and sum("stem_fwd_kernel" in o for o in ops) == 1, ops
+    ops = graph_ops(lambda: conv_cf.conv3x3x3_cf_wgrad(x, dy))
+    assert len(ops) == 1 and "stem_wgrad_kernel" in ops[0], ops
+
+
+def test_stem_kernels_launch_from_a_fresh_thread(dev):
+    """Autograd runs the weight gradient from its own thread: both stem
+    kernels launch from a thread that has not touched the card and give
+    what they give in the main thread."""
+    shape = (2, 5, 1, 20, 37, 7)
+    B, D, Ci, H, W, Co = shape
+    x = _randn((B, D, Ci, H, W), 56, dev).to(torch.bfloat16)
+    w = _randn((3, 3, 3, Ci, Co), 57, dev, 0.2)
+    dy = _randn((B, D, Co, H, W), 58, dev).to(torch.bfloat16)
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(conv_cf.conv3x3x3_cf(x, w))
+            got.append(conv_cf.conv3x3x3_cf_wgrad(x, dy))
+        except Exception as e:  # re-raised in the test's thread
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert not errors, errors
+    ref = [conv_cf.conv3x3x3_cf(x, w), conv_cf.conv3x3x3_cf_wgrad(x, dy)]
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_stem_function_backward_matches_autograd_of_plain(dev):
+    """The stem conv's Function: dw (rounded as the JAX package hands it on)
+    from the stem wgrad kernel, no input gradient, against autograd of the
+    plain version."""
+    B, D, Ci, H, W, Co = (1, 6, 1, 12, 40, 32)
+    x = _randn((B, D, Ci, H, W), 59, dev).to(torch.bfloat16)
+    w = _randn((3, 3, 3, Ci, Co), 60, dev, 0.2).requires_grad_()
+    dy = _randn((B, D, Co, H, W), 61, dev).to(torch.bfloat16)
+    n = conv_cf.conv3x3x3_cf_wgrad.launches
+    (dw,) = torch.autograd.grad(conv_cf.conv3x3x3_cf(x, w), (w,), dy)
+    assert conv_cf.conv3x3x3_cf_wgrad.launches == n + 1
+    with dispatch.plain_on_device():
+        (rw,) = torch.autograd.grad(conv_cf.conv3x3x3_cf(x, w), (w,), dy)
+    _assert_close(dw, rw, TOL[torch.bfloat16])
+
+
 @pytest.mark.parametrize("name", ["conv3x3x3_cf", "in_relu_conv3x3x3_cf"])
 def test_tensor_core_functions_backward_matches_autograd_of_plain(dev, name):
     B, D, Ci, H, W, Co = (1, 3, 32, 12, 20, 48)
@@ -298,22 +397,6 @@ def test_depthwise_backward_kernels_match_plain(dev, case, dtype):
     _assert_close(gw, pw, TOL[dtype])
 
 
-def _device_ops(fn):
-    """Device operations (kernels, copies, fills) one call of fn launches,
-    after one warm-up call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type != DeviceType.CPU and not e.is_user_annotation]
-
-
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("case", [(1, 12, 12, 12, 256), (2, 11, 26, 19, 136),
                                   (1, 3, 4, 5, 3)], ids=str)
@@ -324,15 +407,16 @@ def test_depthwise_calls_launch_one_kernel(dev, case, dtype):
     x = _randn(case, 29, dev).to(dtype)
     w = _randn((3, 3, 3, 1, case[-1]), 30, dev, 0.2)
     dy = _randn(case, 31, dev).to(dtype)
-    ops = _device_ops(lambda: dwconv.depthwise_conv3x3x3(x, w))
+    ops = graph_ops(lambda: dwconv.depthwise_conv3x3x3(x, w))
     assert len(ops) == 1 and "dw3_fwd_kernel" in ops[0], ops
-    ops = _device_ops(lambda: dwconv.depthwise_conv3x3x3_bwd(x, w, dy))
+    ops = graph_ops(lambda: dwconv.depthwise_conv3x3x3_bwd(x, w, dy))
     assert len(ops) == 1 and "dw3_bwd_kernel" in ops[0], ops
     xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    fwd = graph_ops(lambda: dwconv.depthwise_conv3x3x3(xg, wg))
+    both = graph_ops(lambda: torch.autograd.grad(
+        dwconv.depthwise_conv3x3x3(xg, wg), (xg, wg), dy))
+    assert 1 <= len(both) - len(fwd) <= 2, both  # the Function's backward
     y = dwconv.depthwise_conv3x3x3(xg, wg)
-    ops = _device_ops(lambda: torch.autograd.grad(y, (xg, wg), dy,
-                                                  retain_graph=True))
-    assert 1 <= len(ops) <= 2, ops
     gx, gw = torch.autograd.grad(y, (xg, wg), dy)
     dx, dw = dwconv.depthwise_conv3x3x3_bwd(x, w, dy)
     assert torch.equal(gx, dx)

@@ -4,6 +4,7 @@ production bf16 shapes of ``chip_smoke.py``, against the plain version.
 
     python tools/conv_variants.py tools/conv_variants_prologue.json
     python tools/conv_variants.py tools/conv_variants_depthwise.json
+    python tools/conv_variants.py tools/conv_variants_stem.json
 
 (``conv_variants_prologue.json``: the shipped fused forward against its
 first tensor-core version and against each without the prologue's
@@ -11,7 +12,11 @@ arithmetic, the folded ReLU and the taller TN = 64 tile taken one at a
 time. ``conv_variants_depthwise.json``: the shipped depthwise kernels
 against the forward without its multiply-adds (the staging and stores
 alone) and without staging after the first planes (the arithmetic alone),
-and against other ring depths and the backward's depth-run target.)
+and against other ring depths and the backward's depth-run target.
+``conv_variants_stem.json``: the stem's shipped forward and weight gradient
+against each without its MMAs, the forward storing its C fragments without
+the shared-memory tile, staging one copy of a plane read as single values
+instead of three kw-shifted copies read by ldmatrix, and other grid fills.)
 
 The JSON lists variants: ``{"name": ..., "source": "conv_cf", "subs":
 [[old, new], ...], "only": [function names], "set": {name: value}}``. Each
@@ -20,12 +25,14 @@ variant is the source ``rsuper_tpu_torch/csrc/<source>.cu`` with every
 ``_build.NVCC_FLAGS`` into the ignored ``rsuper_tpu_torch/_build/variants/``,
 all builds at once. Then, for each variant in turn, the wrappers of
 ``ops/conv_cf.py`` and ``ops/dwconv.py`` load it in place of the shipped
-build, the module constants of ``ops/dwconv.py`` named in ``set`` take
-their values (the tile plan is recomputed), and each function of ``only``
-(``in_relu_conv3x3x3_cf``, ``conv3x3x3_cf`` at the fused forward's shapes,
-``conv3x3x3_cf_dgrad``; ``depthwise_conv3x3x3`` at the forward's B = 8 and
-B = 1 shapes, ``depthwise_conv3x3x3_bwd``) is timed on the same seeded
-inputs for every variant. Prints one JSON line per variant with its
+build, the module constants of ``ops/conv_cf.py`` or ``ops/dwconv.py``
+named in ``set`` take their values (the depthwise tile plan is recomputed),
+and each function of ``only`` (``in_relu_conv3x3x3_cf``, ``conv3x3x3_cf`` at
+the fused forward's shapes, ``conv3x3x3_cf_dgrad``; ``stem_conv3x3x3_cf``
+and ``stem_conv3x3x3_cf_wgrad``, the stem's forward and weight gradient at
+``chip_smoke.py``'s shapes, with ``device_ms``; ``depthwise_conv3x3x3`` at
+the forward's B = 8 and B = 1 shapes, ``depthwise_conv3x3x3_bwd``) is timed
+on the same seeded inputs for every variant. Prints one JSON line per variant with its
 ``-Xptxas -v`` registers and spill stores, then one per (variant, function,
 shape): ms (and for the depthwise functions ``device_ms``, a CUDA graph of
 the call replayed), TFLOP/s, and whether the result is within the bf16
@@ -55,8 +62,11 @@ SHAPES = {
     "conv3x3x3_cf_dgrad": cs.DGRAD_SHAPES,
     "depthwise_conv3x3x3": cs.DW_FWD_SHAPES,
     "depthwise_conv3x3x3_bwd": cs.DW_BWD_SHAPES,
+    "stem_conv3x3x3_cf": cs.CONV_SHAPES["conv3x3x3_cf"],
+    "stem_conv3x3x3_cf_wgrad": cs.WGRAD_SHAPES["conv3x3x3_cf_wgrad"],
 }
 DW = ("depthwise_conv3x3x3", "depthwise_conv3x3x3_bwd")
+STEM = ("stem_conv3x3x3_cf", "stem_conv3x3x3_cf_wgrad")
 
 
 def build(variants):
@@ -84,7 +94,7 @@ def build(variants):
         libs[name] = ctypes.CDLL(str(so))
         regs = [(k["kernel"], k.get("registers"), k.get("spill_stores"))
                 for k in cs.ptxas_summary(out)
-                if "tc_kernel" in k["kernel"] or "dw3" in k["kernel"]]
+                if any(n in k["kernel"] for n in ("tc_kernel", "dw3", "stem_"))]
         print(json.dumps({"variant": name, "ptxas": regs}), flush=True)
     return libs
 
@@ -116,6 +126,38 @@ def depthwise_case(name, k, shape, gen, dev):
     torch.cuda.empty_cache()
 
 
+def stem_case(name, k, shape, gen, dev):
+    """The stem's forward or weight gradient at one (B, D, 1, H, W, C_out)
+    shape, bf16: against the plain version (dw at the float32 tolerance),
+    ms and device_ms."""
+    B, D, Ci, H, W, Co = shape
+    bf = torch.bfloat16
+    x = torch.randn((B, D, Ci, H, W), generator=gen, device=dev).to(bf)
+    if k.endswith("_wgrad"):
+        fn = conv_cf.conv3x3x3_cf_wgrad
+        args = (x, torch.randn((B, D, Co, H, W), generator=gen, device=dev).to(bf))
+    else:
+        fn = conv_cf.conv3x3x3_cf
+        args = (x, torch.randn((3, 3, 3, Ci, Co), generator=gen, device=dev)
+                / math.sqrt(27 * Ci))
+    got = fn(*args)
+    with dispatch.plain_on_device():
+        ref = fn(*args)
+    err, mx = cs._err(got, ref)
+    ok = err <= cs.TOL[str(got.dtype).split(".")[-1]] * (1 + mx)
+    print(json.dumps({"v": name, "k": k, "shape": list(shape),
+                      "ms": cs.time_ms(lambda: fn(*args), 5),
+                      "device_ms": cs.graph_ms(lambda: fn(*args), 20),
+                      "ok": ok, "max_abs_err": err}), flush=True)
+    del got, ref, args
+    torch.cuda.empty_cache()
+
+
+def _module(attr):
+    """The module of ``ops`` whose constant `attr` a variant sets."""
+    return conv_cf if hasattr(conv_cf, attr) else dwconv
+
+
 def main(argv):
     variants = json.loads(Path(argv[0]).read_text())
     libs = build(variants)
@@ -132,15 +174,16 @@ def main(argv):
             _build.load = (lambda n, lib=lib, src=v["source"]:
                            lib if n == src else shipped(n))
             dwconv._FNS.clear()
-            saved = {a: getattr(dwconv, a) for a in v.get("set", {})}
+            saved = {a: getattr(_module(a), a) for a in v.get("set", {})}
             for a, val in v.get("set", {}).items():
-                setattr(dwconv, a, val)
+                setattr(_module(a), a, val)
             dwconv._dw_plan.cache_clear()
             gen.manual_seed(0)  # every variant sees the same inputs
             for k in v.get("only", list(SHAPES)):
-                if k in DW:
+                if k in DW or k in STEM:
                     for shape in SHAPES[k]:
-                        depthwise_case(v["name"], k, shape, gen, dev)
+                        (depthwise_case if k in DW else stem_case)(
+                            v["name"], k, shape, gen, dev)
                     continue
                 fn = getattr(conv_cf, k)
                 for (B, D, Ci, H, W, Co) in SHAPES[k]:
@@ -163,7 +206,7 @@ def main(argv):
                     del got, ref, a, w
                     torch.cuda.empty_cache()
             for a, val in saved.items():
-                setattr(dwconv, a, val)
+                setattr(_module(a), a, val)
     finally:
         _build.load = shipped
         dwconv._FNS.clear()
