@@ -7,7 +7,7 @@ Phases, in order (any failure exits non-zero):
 
 1. build   — nvcc builds every kernel of ``rsuper_tpu_torch/csrc`` for
              sm_90a, one process per source, all at once; what
-             ``-Xptxas -v`` reports for the conv and depthwise kernels
+             ``-Xptxas -v`` reports for the conv, depthwise and top-N kernels
              (registers, spills, static shared memory) is printed, one line
              a source;
 2. kernels — each kernel against its plain PyTorch version at the shapes the
@@ -25,8 +25,11 @@ Phases, in order (any failure exits non-zero):
              (``device_ms``: a CUDA graph of the call replayed) and the
              device operations one call launches (``kernels_per_call``:
              the nodes of a CUDA graph of the call; for the depthwise
-             backward also through the autograd Function). The two top-N bisection kernels at the Ball Loss's
-             shapes: thresholds and masks equal to the plain version's;
+             backward also through the autograd Function). The two top-N
+             bisection kernels at the Ball Loss's shapes (and B = 9 items,
+             more clusters than the card holds at once): thresholds and masks
+             equal to the plain version's, also on a volume of tied values;
+             ``device_ms``, ``kernels_per_call`` and the cluster size;
 3. model   — default-config MedFormer (16 classes, seeded random weights)
              on one 96³ window batch of 2, through the kernels and through
              the plain versions, in float32 and in bf16; forward times at
@@ -222,10 +225,10 @@ DW_BWD_SHAPES = [(1,) + s[1:] for s in DW_SHAPES] + [(2, 24, 24, 24, 512)]
 # training step's batch of 1
 DW_FWD_SHAPES = DW_SHAPES + DW_BWD_SHAPES[:-1]
 # top-N bisection, float32 as the Ball Loss calls it: (B, V, K) for the
-# batched kernel, the first being the training step's shape; (V, K) for the
-# single volume
+# batched kernel, the first being the training step's shape and B = 9 more
+# clusters of 16 than the card holds at once; (V, K) for the single volume
 TOPN_SHAPES = [(1, 96 ** 3, 3), (2, 96 ** 3, 3), (1, 128 ** 3, 3),
-               (2, 4099, 2)]
+               (2, 4099, 2), (9, 96 ** 3, 3)]
 TOPN_SINGLE_SHAPES = [(96 ** 3, 3), (96 ** 3, 1)]
 TOPN_ITERS = 26
 TOPN_REPS = 20  # timed calls of a top-N measurement (well under 1 ms each)
@@ -404,9 +407,13 @@ def topn_cases(rows, failures, dev):
     arithmetic). Inputs per shape: a seeded uniform volume that is positive
     only inside one inserted ball (most voxels exactly 0; the timed one,
     with targets of the order the training batch gives), a dense normal
-    volume (negatives), the ball volume with its last item all zero, and the
-    ball volume with a target above the positive count. The bound is the larger of the volume read
-    once and iters·K + 1 compares a value. ``library_ms`` times one
+    volume (negatives), the ball volume with its last item all zero, the
+    ball volume with a target above the positive count, and the ball volume
+    quantized to 4 positive levels (ties: many mids and counts equal). The
+    bound is the larger of the volume read once and iters·K + 1 compares a
+    value. ``device_ms`` is one call captured in a CUDA graph and replayed,
+    ``kernels_per_call`` the nodes of that graph, ``cluster`` the CTAs an
+    item of the launch (``topn.plan_for``). ``library_ms`` times one
     ``torch.topk`` of every item's volume for the largest target n: the
     n-th value it returns is the threshold the bisection approximates.
     ``kthvalue_ms`` times ``torch.kthvalue`` for each target: an exact
@@ -439,7 +446,8 @@ def topn_cases(rows, failures, dev):
         return [("ball", x, ns),
                 ("dense", torch.randn((B, V), generator=gen, device=dev), ns),
                 ("an_all_zero_item", zero, ns),
-                ("n_above_the_positive_count", x, above)]
+                ("n_above_the_positive_count", x, above),
+                ("ties", torch.ceil(x * 4.0) / 4.0, ns)]
 
     def run(name, fn, mask_fn, B, V, K, single, on_path):
         worst, mismatches = 0.0, 0
@@ -463,6 +471,10 @@ def topn_cases(rows, failures, dev):
                    mask_mismatches=mismatches, tol=0.0, ok=ok,
                    on_path=on_path)
         row["ms"] = time_ms(lambda: fn(*a, iters=TOPN_ITERS), TOPN_REPS)
+        row["device_ms"] = graph_ms(lambda: fn(*a, iters=TOPN_ITERS),
+                                    DEVICE_REPS)
+        row["kernels_per_call"] = device_ops(lambda: fn(*a, iters=TOPN_ITERS))
+        row["cluster"] = topn.plan_for(V, K, x.dtype, x.device, B).cluster
         with plain_on_device():
             row["plain_ms"] = time_ms(lambda: fn(*a, iters=TOPN_ITERS),
                                       TOPN_REPS)
@@ -621,6 +633,8 @@ def kernels_line(rows, launches):
             out[-1]["kernels_per_call"] = top["kernels_per_call"]
         if "route" in top:  # the conv kernels' own route at that shape
             out[-1]["conv_route"] = top["route"]
+        if "cluster" in top:  # the top-N kernel's CTAs an item
+            out[-1]["cluster"] = top["cluster"]
     return {"kernels": out}
 
 
@@ -1399,7 +1413,7 @@ def main() -> int:
     t0 = time.time()
     reports = _build.build_all()
     log(json.dumps({"build": sorted(reports), "seconds": time.time() - t0}))
-    for name in ("conv_cf", "conv_cf_wgrad", "dwconv", "dwconv_bwd"):
+    for name in ("conv_cf", "conv_cf_wgrad", "dwconv", "dwconv_bwd", "topn"):
         log(json.dumps({"ptxas": {"source": f"rsuper_tpu_torch/csrc/{name}.cu",
                                   "kernels": ptxas_summary(reports[name])}}))
     dev = torch.device("cuda")

@@ -26,8 +26,10 @@ Tolerances, as max|Δ| ≤ tol·(1 + max|ref|):
   order, forward and backward; the second term gives a scale to gradients
   that are zero but for rounding, such as a bias in front of a norm);
 * the top-N bisection kernels: thresholds and masks equal to the plain
-  version's (integer counts, the same float32 arithmetic), and the same from
-  run to run; the closed-form ball counts equal to the inserted balls' sums.
+  version's (integer counts, the same float32 arithmetic), also on tied
+  values, beyond the volume a cluster holds and replayed from a CUDA graph,
+  and the same from run to run; one launch for 300 items; the closed-form
+  ball counts equal to the inserted balls' sums.
 """
 
 import threading
@@ -582,6 +584,76 @@ def test_topn_more_targets_and_items_than_one_launch_takes(dev):
     got, ref = _launch_and_plain(topn.topn_threshold_multi, big,
                                  [4000.0, 3200.0, 4800.0])
     assert torch.equal(got, ref)
+
+
+def _ties(B, V, seed, dev):
+    """The ball volume quantized to 4 positive levels: many values tie, so
+    do the counts of neighbouring mids."""
+    return torch.ceil(_topn_volume(B, V, seed, dev, "ball") * 4.0) / 4.0
+
+
+@pytest.mark.parametrize("V", [4099, 96 ** 3])
+def test_topn_kernel_on_tied_values_equals_plain(dev, V):
+    x = _ties(2, V, 11, dev)
+    pos = (x > 0).sum(dim=1, keepdim=True).float()
+    ns = torch.cat([torch.round(pos * 0.3), torch.round(pos * 0.6),
+                    pos, pos + 1.0], dim=1).clamp(min=1.0)  # K = 4
+    got, ref = _launch_and_plain(topn.topn_threshold_multi_batched, x, ns)
+    assert torch.equal(got, ref), (got, ref)
+    # a tie sits exactly on a threshold: the masks take all of its voxels
+    masks = selection.topn_masks_multi_batched(x, ns)
+    with dispatch.plain_on_device():
+        assert torch.equal(masks, selection.topn_masks_multi_batched(x, ns))
+
+
+def test_topn_many_items_take_one_launch(dev):
+    x = _topn_volume(300, 127, 12, dev, "dense")
+    ns = torch.tensor([5.0, 40.0, 90.0], device=dev).repeat(300, 1)
+    got, ref = _launch_and_plain(topn.topn_threshold_multi_batched, x, ns)
+    assert torch.equal(got, ref)
+    ops = graph_ops(lambda: topn.topn_threshold_multi_batched(x, ns))
+    assert len(ops) == 1 and "multisect_kernel" in ops[0], ops
+
+
+@pytest.mark.parametrize("kind", ["ball", "dense"])
+def test_topn_volume_beyond_the_cluster_is_read_again_from_l2(dev, kind):
+    V = 128 ** 3
+    plan = topn.plan_for(V, 3, torch.float32, dev)
+    held = plan.cache_slots * plan.cluster * topn._THREADS * 4
+    assert held < V  # 8.4 MB: part of it stays in L2
+    x = _topn_volume(2, V, 13, dev, kind)
+    pos = (x > 0).sum(dim=1, keepdim=True).float()
+    ns = torch.cat([torch.round(pos * f) for f in (0.01, 0.3, 0.9)], dim=1)
+    got, ref = _launch_and_plain(topn.topn_threshold_multi_batched, x, ns)
+    assert torch.equal(got, ref), (got, ref)
+
+
+@pytest.mark.parametrize("single", [False, True])
+def test_topn_call_captures_in_a_cuda_graph(dev, single):
+    x = _topn_volume(2, 96 ** 3, 14, dev, "ball")
+    ns = torch.tensor([[4000.0, 3200.0, 4800.0], [100.0, 50.0, 9.0]],
+                      device=dev)
+    a = (x[0], ns[0]) if single else (x, ns)
+    fn = (topn.topn_threshold_multi if single
+          else topn.topn_threshold_multi_batched)
+    eager = fn(*a)
+    ops = graph_ops(lambda: fn(*a))
+    assert len(ops) == 1 and "multisect_kernel" in ops[0], ops
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn(*a)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn(*a)
+    for _ in range(3):
+        out.fill_(-1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    with dispatch.plain_on_device():
+        assert torch.equal(eager, fn(*a))
 
 
 def test_ball_counts_equal_inserted_balls_on_the_card(dev):
