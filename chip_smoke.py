@@ -61,7 +61,25 @@ Phases, in order (any failure exits non-zero):
              first; one step with ``remat`` on gives the same loss; the
              public ``topn_masks_multi`` on the path's own masked volume
              equals the batched kernel's masks; 1 + 5 steps of the
-             ``loss="dice"`` step beside it.
+             ``loss="dice"`` step beside it;
+6. augment — the device augmentation of the training CLI at the preset's
+             sizes: a batch of 2 packed records at the 148 × 168 × 168 load
+             size (16 classes) through ``device_augment`` on the card and on
+             the CPU with the same draws; the image within 1e-5·(1+max|ref|),
+             the masks equal but for voxels whose source coordinate lies
+             within 1e-4 of a half (counted); TF32 off on the path; device
+             ms a batch;
+7. train_cli — ``python -m rsuper_tpu_torch.train``'s ``main`` with
+             ``--preset abdomenatlas_ufo/medformer_3d`` (default MedFormer,
+             128³ crops, batch 2, bf16, ``ball_dice_last``) on synthetic
+             CT-Mask and CT-Report cases written through ``preprocess_case``
+             and a per-tumour report CSV: 6 steps with a ``torch.profiler``
+             window over the last and the launch counts set to 0 just before
+             and read just after, then ``--resume`` for 2 more; step counts,
+             finite losses, ``latest`` and ``metrics.jsonl``, the restored
+             optimizer state and every kernel of the step in the profiled
+             window are checked; ms a step, loader, transfer and augment ms,
+             busy share, peak memory and host reads are printed.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. It imports nothing of JAX or of
@@ -752,15 +770,18 @@ def _profile(fn, top: int = 25, spans=(), between=None):
     marked range covers only kernels launched from the marking thread, and
     autograd launches the backward's from its own: that span is named by
     `between` and taken as what lies between its neighbours' ranges, which
-    is exact on one in-order stream."""
+    is exact on one in-order stream. A first call of `fn` is the profiler's
+    warm-up and is dropped: the first device records after the profiler
+    starts can be lost."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()  # the warm-up call ends: recording begins
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
@@ -1393,6 +1414,346 @@ def phase_train(dev, steps: int):
     return failures, launches
 
 
+# ------------------------------------------------------ the training CLI
+AUG_CROP = (128, 128, 128)  # the preset's crop
+AUG_LOAD = (148, 168, 168)  # the crop plus the affine's margin
+AUG_TOL = 1e-5  # image, card vs CPU: max|Δ| ≤ AUG_TOL·(1+max|ref|)
+HALF_EPS = 1e-4  # a label voxel whose source coordinate lies this near a half
+REPORT_CLASSES = ["aorta", "kidney_left", "kidney_right", "liver",
+                  "pancreas_body", "pancreas_head", "pancreas_tail",
+                  "spleen", "stomach"]
+CLI_STEPS, CLI_RESUME_STEPS = 6, 2
+# the kernels the profiled step must show, by a part of their names in the
+# trace: each conv route forward and weight gradient, the depthwise forward
+# and backward, and top-N
+CLI_KERNELS = {
+    "conv_tensor_core": "conv3_tc_kernel", "conv_stem": "stem_fwd_kernel",
+    "wgrad_tensor_core": "wgrad_tc_kernel", "wgrad_stem": "stem_wgrad_kernel",
+    "depthwise_fwd": "dw3_fwd_kernel", "depthwise_bwd": "dw3_bwd_kernel",
+    "topn": "multisect_kernel",
+}
+
+
+def _organs(shape, rng, report: bool):
+    """Boolean organ masks of a synthetic abdomen on a voxel grid of
+    `shape` (ellipsoids in normalised coordinates, jittered by `rng`): the
+    CT-Mask classes with a pancreatic lesion, or the CT-Report classes with
+    the pancreas as head, body and tail."""
+    import numpy as np
+
+    axes = [np.linspace(-1.0, 1.0, n, dtype=np.float32) for n in shape]
+    x, y, z = axes[0][:, None, None], axes[1][None, :, None], axes[2][None, None, :]
+    j = rng.uniform(-0.04, 0.04, 3)
+    body = (x / 0.95) ** 2 + (y / 0.8) ** 2 <= 1.0
+
+    def ell(c, r):
+        return (((x - c[0] - j[0]) / r[0]) ** 2 + ((y - c[1] - j[1]) / r[1]) ** 2
+                + ((z - c[2] - j[2]) / r[2]) ** 2) <= 1.0
+
+    out = {"body": np.broadcast_to(body, shape), "liver": ell((-0.35, -0.1, 0.2), (0.35, 0.4, 0.35)),
+           "spleen": ell((0.45, 0.2, 0.2), (0.15, 0.2, 0.2)),
+           "kidney_left": ell((0.35, 0.45, -0.2), (0.12, 0.12, 0.22)),
+           "kidney_right": ell((-0.35, 0.45, -0.2), (0.12, 0.12, 0.22)),
+           "stomach": ell((0.25, -0.25, 0.35), (0.2, 0.2, 0.2)),
+           "aorta": ell((0.0, 0.3, 0.0), (0.05, 0.05, 0.9))}
+    pancreas = ell((0.05, 0.1, 0.0), (0.35, 0.08, 0.1))
+    if report:
+        out["pancreas_head"] = pancreas & (x < -0.12)
+        out["pancreas_body"] = pancreas & (x >= -0.12) & (x < 0.15)
+        out["pancreas_tail"] = pancreas & (x >= 0.15)
+    else:
+        out["pancreas"] = pancreas
+        out["pancreatic_lesion"] = ell((0.1, 0.1, 0.0), (0.06, 0.05, 0.06))
+    return out
+
+
+def write_cli_cases(root: Path, seed: int = 0):
+    """Two CT-Mask and two CT-Report cases through the port's own
+    ``preprocess_case``: CT phantoms in HU of 152 × 172 × 136 voxels of
+    1 × 1 × 1.25 mm (resampled to 1 mm³: 152 × 172 × 170, no smaller than
+    the 148 × 168 × 168 load size), a NIfTI a labelled organ, the sorted
+    class lists, and the per-tumour report CSV (the columns of
+    ``tests/test_data.py:_report_rows``): a head tumour, a body/tail one and
+    a left-kidney one."""
+    import numpy as np
+
+    from rsuper_tpu_torch.data.nifti import write_nifti
+    from rsuper_tpu_torch.data.preprocess import preprocess_case
+
+    shape, affine = (152, 172, 136), np.diag([1.0, 1.0, 1.25, 1.0])
+    rng = np.random.default_rng(seed)
+    roots = {False: root / "masks", True: root / "reports"}
+    for report, classes in ((False, sorted(CLASSES)),
+                            (True, sorted(REPORT_CLASSES))):
+        roots[report].mkdir(parents=True)
+        (roots[report] / "classes.json").write_text(json.dumps(classes))
+        for k in range(2):
+            cid = f"BDMAP_{'R' if report else 'M'}{k}"
+            organs = _organs(shape, rng, report)
+            ct = np.full(shape, -1000.0, np.float32)
+            ct[organs.pop("body")] = 40.0
+            for hu, name in ((60, "liver"), (45, "spleen"), (30, "stomach"),
+                             (35, "kidney_left"), (35, "kidney_right"),
+                             (200, "aorta")):
+                ct[organs[name]] = hu
+            ct += rng.normal(0.0, 15.0, shape).astype(np.float32)
+            tmp = root / "nii" / cid
+            tmp.mkdir(parents=True)
+            write_nifti(str(tmp / "ct.nii.gz"), ct, affine)
+            paths = {}
+            for name, m in organs.items():
+                paths[name] = str(tmp / f"{name}.nii.gz")
+                write_nifti(paths[name], m.astype(np.uint8), affine)
+            preprocess_case(str(tmp / "ct.nii.gz"), paths,
+                            str(roots[report] / f"{cid}.npz"),
+                            classes=classes, min_size=AUG_LOAD)
+    (root / "reports.csv").write_text(
+        "BDMAP_ID,Standardized Organ,Standardized Location,Tumor Size (mm),"
+        "Unknow Tumor Size,no lesion\n"
+        "BDMAP_R0,pancreas,head,22.0,no,0\n"
+        "BDMAP_R1,pancreas,body / tail,30 x 18,no,0\n"
+        "BDMAP_R1,kidney,left,15,no,0\n")
+    return roots[False], roots[True], root / "reports.csv"
+
+
+def _augment_records(seed: int = 0):
+    """A batch of 2 loader records at the load size with the 16 classes,
+    packed as the loader packs them (``pack_record_cf``)."""
+    import numpy as np
+
+    from rsuper_tpu_torch.data.pipeline import pack_record_cf
+
+    rng = np.random.default_rng(seed)
+    C = len(CLASSES)
+    recs = []
+    for i in range(2):
+        organs = _organs(AUG_LOAD, rng, report=False)
+        organs.pop("body")
+        label = np.zeros((C,) + AUG_LOAD, np.uint8)
+        for name, m in organs.items():
+            if name in CLASSES:
+                label[CLASSES.index(name)] = m
+        unk = np.zeros_like(label)
+        seg = np.zeros_like(label)
+        if i == 1:  # a report record: unknown lesion voxels, a segment
+            les = CLASSES.index("pancreatic_lesion")
+            unk[les] = organs["pancreas"]
+            seg[les] = organs["pancreas"]
+        recs.append(pack_record_cf({
+            "image": rng.normal(size=AUG_LOAD).astype(np.float32),
+            "label": label, "unk": unk, "segment_mask": seg,
+            "volumes": np.zeros(10, np.float32),
+            "diameters": np.zeros((10, 3), np.float32),
+            "apply_affine": np.ones((), np.float32)}))
+    return {k: np.stack([r[k] for r in recs]) for k in recs[0]}
+
+
+def phase_augment(dev):
+    """The device augmentation at the preset's sizes: one batch of 2 records
+    at the 148 × 168 × 168 load size (16 classes) through the port's
+    ``device_augment`` on the card and on the CPU with the same draws (item 0
+    warped with every intensity op on, item 1 centre-cropped with none); the
+    image within AUG_TOL, the masks equal but for voxels whose source
+    coordinate lies within HALF_EPS of a half (counted); TF32 off for the
+    matmuls and cuDNN on this path, and no TF32 kernel in its profile; the
+    augment's device ms a batch (CUDA events), the transfer's, the draws'."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rsuper_tpu_torch.data import augment as aug
+    from rsuper_tpu_torch.data.pipeline import (device_augment, draw_augment,
+                                                to_device)
+    from rsuper_tpu_torch.utils.device import card_line
+
+    failures = []
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        failures.append("augment: TF32 is on for the float32 matmuls or cuDNN")
+    host = _augment_records()
+    C = len(CLASSES)
+
+    def draw():
+        return draw_augment(torch.Generator().manual_seed(0),
+                            torch.Generator(device=dev).manual_seed(0), 2,
+                            AUG_CROP, (0.0,) * 3, (30.0,) * 3, (0.0,) * 3)
+
+    draw()  # the first draw on the device initialises its generator
+    torch.cuda.synchronize()
+    t0 = time.time()
+    draws = draw()
+    draw_ms = (time.time() - t0) * 1e3
+    draws.affine_coin[:] = [0.0, 1.0]  # item 0 warps, item 1 does not
+    draws.coins[0], draws.coins[1] = 0.0, 1.0  # every op on item 0, none on 1
+    cpu_draws = dataclasses.replace(draws, noise=draws.noise.cpu())
+
+    def run(batch, d):
+        return device_augment(batch, d, crop_size=AUG_CROP,
+                              out_dtype=torch.float32, num_classes=C)
+
+    got = run(to_device(host, dev), draws)
+    torch.cuda.synchronize()
+    ref = run(to_device(host, "cpu"), cpu_draws)
+    err = (got["image"].cpu() - ref["image"]).abs().max().item()
+    bound = AUG_TOL * (1 + ref["image"].abs().max().item())
+    if not (torch.isfinite(got["image"]).all() and err <= bound):
+        failures.append(f"augment: image differs from the CPU run by {err} "
+                        f"(bound {bound})")
+    masks = torch.cat([got[k].cpu() for k in ("label", "unk",
+                                              "segment_mask")], -1)
+    rmasks = torch.cat([ref[k] for k in ("label", "unk", "segment_mask")], -1)
+    starts = [(s - c) // 2 for s, c in zip(AUG_LOAD, AUG_CROP)]
+    vox = aug._window_vox(AUG_LOAD, draws.theta[0], AUG_CROP, starts)
+    half = torch.zeros(AUG_CROP, dtype=torch.bool)
+    for v in vox:
+        half |= (v - torch.floor(v) - 0.5).abs() < HALF_EPS
+    diff = (masks != rmasks).any(dim=-1)
+    mism = int(diff.sum())
+    if bool((diff[1]).any()) or bool((diff[0] & ~half).any()):
+        failures.append(f"augment: {mism} mask voxels differ, not all on a "
+                        "half")
+
+    xfer = lambda: to_device(host, dev)  # noqa: E731
+    batch = xfer()
+    prof = _profile(lambda: run(batch, draws), top=1000)
+    names = [r["name"] for r in prof["top"]]
+    tf32 = [n for n in names if "tf32" in n.lower() or "cudnn" in n.lower()]
+    if tf32:
+        failures.append(f"augment: TF32 or cuDNN kernels on the path: {tf32}")
+    res = dict(card=card_line(), load=list(AUG_LOAD), crop=list(AUG_CROP),
+               classes=C, max_abs_err=err, bound=bound,
+               half_boundary_voxels=int(half.sum()), mask_mismatches=mism,
+               device_ms=time_ms(lambda: run(batch, draws), 3),
+               h2d_ms=time_ms(xfer, 3), draw_host_ms=draw_ms,
+               device_busy_ms=prof["device_busy_ms"],
+               device_ops=prof["device_ops"], warped=[True, False])
+    log(json.dumps({"augment": res}))
+    return failures
+
+
+def _trace_kernels(path: Path):
+    """Kernel names, launches and merged busy ms of a Chrome trace."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "kernel"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return [e["name"] for e in events], busy / 1e3
+
+
+def phase_train_cli(dev):
+    """``python -m rsuper_tpu_torch.train``'s ``main`` at the preset's own
+    sizes (default MedFormer, 128³ crops, batch 2, bf16, ball_dice_last) on
+    synthetic cases written through ``preprocess_case``: CLI_STEPS steps
+    with a torch.profiler window over the last, the launch counts set to 0
+    just before and read just after, then ``--resume`` for CLI_RESUME_STEPS
+    more. Fails unless the step counts, finite losses, the checkpoint and
+    metrics files, the restored optimizer state and the kernels in the
+    window are as they must be."""
+    import torch
+
+    from rsuper_tpu_torch.data import native_io
+    from rsuper_tpu_torch.losses.ball import host_reads
+    from rsuper_tpu_torch.train.__main__ import main as train_main
+    from rsuper_tpu_torch.utils.device import card_line
+
+    failures, res = [], {"card": card_line(), "crop": list(AUG_CROP),
+                         "batch": 2, "loss": "ball_dice_last"}
+    counted = wrappers()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.time()
+        masks, reports, csv = write_cli_cases(root)
+        res["write_cases_s"] = time.time() - t0
+        args = ["--preset", "abdomenatlas_ufo/medformer_3d",
+                "--data_root", str(masks), "--report_root", str(reports),
+                "--reports", str(csv), "--cp_path", str(root / "exp"),
+                "--unique_name", "cli", "--iter_per_epoch", "3",
+                "--epochs", "4"]
+        exp = root / "exp" / "cli"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for w in counted.values():
+            w.launches = 0
+        reads = host_reads()
+        t0 = time.time()
+        state = train_main(args + ["--max_steps", str(CLI_STEPS),
+                                   "--profile_steps", "1"])
+        torch.cuda.synchronize()
+        res["run_s"] = time.time() - t0
+        launches = {k: w.launches for k, w in counted.items()}
+        res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res["loader_path"] = native_io.path()
+        if state.step != CLI_STEPS:
+            failures.append(f"train_cli: step {state.step} after the run, "
+                            f"expected {CLI_STEPS}")
+        recs = [json.loads(line) for line in
+                (exp / "metrics.jsonl").read_text().splitlines()]
+        phases = [r for r in recs if "phase/step_ms" in r][-1]
+        losses = {r["step"]: r["train/overall"] for r in recs
+                  if "train/overall" in r}
+        res.update(
+            steps=CLI_STEPS, logged_losses=losses,
+            ms_per_step=phases["phase/iteration_median_ms"],
+            step_call_ms=phases["phase/step_median_ms"],
+            loader_item_ms=phases["phase/loader_item_ms"],
+            loader_worker_ms_per_batch=2 * phases["phase/loader_item_ms"],
+            loader_wait_ms=phases["phase/load_median_ms"],
+            h2d_host_ms=phases["phase/h2d_median_ms"],
+            augment_host_ms=phases["phase/augment_median_ms"],
+            host_reads_per_step=(host_reads() - reads
+                                 + phases["phase/host_read_count"])
+            / CLI_STEPS,
+            launches_per_step={k: n / CLI_STEPS for k, n in launches.items()})
+        if not (exp / "latest").exists():
+            failures.append("train_cli: no latest checkpoint")
+        if not losses or not all(math.isfinite(v) for v in losses.values()):
+            failures.append(f"train_cli: logged losses {losses}")
+        for k in KERNELS:
+            if k != "topn_threshold_multi" and launches[k] <= 0:
+                failures.append(f"train_cli: {k} was not launched")
+        names, busy_ms = _trace_kernels(exp / "trace" / "trace.json")
+        found = {k: sum(part in n for n in names)
+                 for k, part in CLI_KERNELS.items()}
+        res.update(profiled_step_kernels=found,
+                   profiled_step_kernel_records=len(names),
+                   device_busy_ms=busy_ms,
+                   device_busy_share_of_step=busy_ms / res["ms_per_step"])
+        for k, n in found.items():
+            if n <= 0:
+                failures.append(f"train_cli: no {k} kernel in the profiled "
+                                "step")
+
+        state = train_main(args + ["--max_steps", str(CLI_RESUME_STEPS),
+                                   "--resume"])
+        saved = torch.load(exp / "latest", weights_only=True)
+        counts = {float(s["step"]) for s in saved["opt_state"]["state"].values()}
+        total = CLI_STEPS + CLI_RESUME_STEPS
+        res["resumed"] = dict(step=state.step, saved_step=saved["step"],
+                              adam_counts=sorted(counts))
+        if not (state.step == saved["step"] == total
+                and counts == {float(total)}):
+            failures.append(f"train_cli: the resumed run: {res['resumed']}")
+        if "resumed from step 6" not in (exp / "train.log").read_text():
+            failures.append("train_cli: the resumed run did not start from "
+                            "the saved step")
+        recs = [json.loads(line) for line in
+                (exp / "metrics.jsonl").read_text().splitlines()]
+        first = [r for r in recs if "train/overall" in r][-1]
+        if first["step"] != CLI_STEPS + 1 or not math.isfinite(
+                first["train/overall"]):
+            failures.append(f"train_cli: first resumed step {first}")
+    del state
+    torch.cuda.empty_cache()
+    log(json.dumps({"train_cli": res}))
+    return failures
+
+
 def main() -> int:
     import torch
 
@@ -1429,6 +1790,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     fails, train_launches = phase_train(dev, TRAIN_STEPS)
     failures += fails
+    torch.cuda.empty_cache()
+    failures += phase_augment(dev)
+    failures += phase_train_cli(dev)
     # each kernel's count comes from the path it was written for: the
     # forward kernels from the predict phase, the backward ones from the
     # training steps (which launch the forward kernels too)

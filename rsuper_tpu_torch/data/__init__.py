@@ -1,2 +1,3 @@
-"""Host-side volume IO and preprocessing (numpy/scipy), the port's own
-copies of ``rsuper_tpu/data/nifti.py`` and ``rsuper_tpu/data/preprocess.py``."""
+"""The host data layer (numpy/scipy, the native host library where it is
+built) and the device augmentation of the training CLI: the port's own
+copies of the modules of ``rsuper_tpu/data/``."""

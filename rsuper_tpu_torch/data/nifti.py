@@ -1,6 +1,7 @@
 """Minimal NIfTI-1 reader/writer (no nibabel/SimpleITK dependency); the
-port's own copy of ``rsuper_tpu/data/nifti.py`` on its numpy path (the native
-decoder is host code that a later slice may port).
+port's own copy of ``rsuper_tpu/data/nifti.py``. A float32 read decodes the
+payload through the native host library (``data/native_io.py``) where it is
+built, and through numpy otherwise.
 
 The reference leans on SimpleITK / nibabel for all volume IO
 (``rsuper_train/dataset_conversion/abdomenatlas_3d.py``,
@@ -119,15 +120,26 @@ def read_nifti(path: str, dtype=None) -> NiftiImage:
     count = int(np.prod(shape))
     off = max(hdr["vox_offset"], 348)
     slope, inter = hdr["scl_slope"], hdr["scl_inter"]
-    data = np.frombuffer(raw, dtype=np.dtype(np_dtype).newbyteorder("<"),
-                         count=count, offset=off)
-    data = data.reshape(shape, order="F")
-    if slope not in (0.0, 1.0) or inter != 0.0:
-        data = data * (slope if slope != 0 else 1.0) + inter
-    if dtype is not None:
-        data = data.astype(dtype)
-    else:
-        data = np.asarray(data)
+    data = None
+    if dtype is not None and np.dtype(dtype) == np.float32:
+        # native fused decode: payload -> f32 with scl applied, one threaded
+        # pass; None -> the numpy path below
+        from .native_io import nifti_scale_cast_f32
+
+        flat = nifti_scale_cast_f32(raw, off, hdr["datatype"], count,
+                                    slope if slope != 0.0 else 1.0, inter)
+        if flat is not None:
+            data = flat.reshape(shape, order="F")
+    if data is None:
+        data = np.frombuffer(raw, dtype=np.dtype(np_dtype).newbyteorder("<"),
+                             count=count, offset=off)
+        data = data.reshape(shape, order="F")
+        if slope not in (0.0, 1.0) or inter != 0.0:
+            data = data * (slope if slope != 0 else 1.0) + inter
+        if dtype is not None:
+            data = data.astype(dtype)
+        else:
+            data = np.asarray(data)
 
     if hdr["sform_code"] > 0:
         affine = np.eye(4)

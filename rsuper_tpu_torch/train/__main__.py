@@ -1,0 +1,209 @@
+#!/usr/bin/env python
+"""Training CLI of the port — the counterpart of the JAX package's
+``train.py``, on one device:
+
+    python -m rsuper_tpu_torch.train --preset abdomenatlas_ufo/medformer_3d \\
+        --data_root /data/masks_npz --report_root /data/reports_npz \\
+        --reports /data/per_tumor.csv --unique_name run1 [--device cpu]
+
+It reads preprocessed CT-Mask and CT-Report cases (``*.npz`` written by
+``data/preprocess.preprocess_case``, with a sorted ``classes.json`` in each
+root) and the per-tumour report CSV, and trains with ``train/loop.train``.
+It runs on CUDA unless ``--device cpu`` is given. The options the port does
+not have yet (``--k_fold``, ``--pretrained``/``--old_classes``,
+``--clip_pretrain``, ``--zero_opt``, ``--zero_ema``, ``--spatial_shard`` > 1,
+the ``--dist_*`` flags, 2D presets) raise ``NotImplementedError`` naming
+their item of ``ROADMAP.md`` §1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import glob
+import json
+import os
+
+# command-line arguments that are not TrainConfig fields
+_NOT_CONFIG = ("preset", "config", "all_train", "max_steps",
+               "class_weights_csv", "report_only", "mask_only",
+               "profile_steps", "k_fold", "fold", "dist_coordinator",
+               "dist_num_processes", "dist_process_id", "local_device_ids",
+               "device")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[1])
+    p.add_argument("--preset", default="abdomenatlas_ufo/medformer_3d")
+    p.add_argument("--config", default=None,
+                   help="YAML config overriding the preset (needs PyYAML)")
+    p.add_argument("--data_root", default=None, help="mask-dataset npz dir")
+    p.add_argument("--report_root", default=None, help="report-dataset npz dir")
+    p.add_argument("--reports", default=None, help="per-tumor metadata CSV")
+    p.add_argument("--arch", default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--iter_per_epoch", type=int, default=None)
+    p.add_argument("--lr", dest="base_lr", type=float, default=None)
+    p.add_argument("--loss", default=None)
+    p.add_argument("--report_volume_loss_basic", type=float, default=None)
+    p.add_argument("--unique_name", default=None)
+    p.add_argument("--cp_path", default=None)
+    p.add_argument("--num_workers", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--pretrained", default=None)
+    p.add_argument("--old_classes", default=None)
+    p.add_argument("--all_train", action="store_true")
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--class_weights", action="store_true",
+                   help="inverse-prevalence class weighting")
+    p.add_argument("--class_weights_csv", default=None,
+                   help="per-CT metadata CSV with lesion-instance counts")
+    p.add_argument("--report_only", action="store_true",
+                   help="train on CT-Report cases only")
+    p.add_argument("--mask_only", action="store_true",
+                   help="train on CT-Mask cases only")
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="torch.profiler window over N steps (a Chrome trace "
+                        "in <cp_path>/<unique_name>/trace/)")
+    p.add_argument("--clip_pretrain", action="store_true")
+    p.add_argument("--clip_source", default=None)
+    p.add_argument("--k_fold", type=int, default=0)
+    p.add_argument("--fold", type=int, default=0)
+    p.add_argument("--zero_opt", action="store_true")
+    p.add_argument("--zero_ema", action="store_true")
+    p.add_argument("--spatial_shard", type=int, default=None)
+    p.add_argument("--dist_coordinator", default=None)
+    p.add_argument("--dist_num_processes", type=int, default=None)
+    p.add_argument("--dist_process_id", type=int, default=None)
+    p.add_argument("--local_device_ids", default=None)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def _refuse_unported(args) -> None:
+    """Raise for the flags that are not config fields; ``check_config``
+    raises for the fields."""
+    from .loop import unported
+
+    if args.k_fold:
+        raise unported("--k_fold", "validation")
+    for flag in ("dist_coordinator", "dist_num_processes", "dist_process_id",
+                 "local_device_ids"):
+        if getattr(args, flag) is not None:
+            raise unported(f"--{flag}", "multi_gpu")
+
+
+def discover_cases(root):
+    """All preprocessed cases under `root`: (case_id, path) from *.npz."""
+    out = []
+    for path in sorted(glob.glob(os.path.join(root, "*.npz"))):
+        out.append((os.path.splitext(os.path.basename(path))[0], path))
+    return out
+
+
+def load_classes(root):
+    meta = os.path.join(root, "classes.json")
+    if os.path.exists(meta):
+        with open(meta) as f:
+            return tuple(sorted(json.load(f)))
+    raise FileNotFoundError(
+        f"{meta} not found: write the sorted class list used at preprocessing"
+    )
+
+
+def main(argv=None):
+    """Train; returns the final TrainState."""
+    args = parse_args(argv)
+    _refuse_unported(args)
+    import torch
+
+    from ..config import load_config
+    from ..data.class_weights import class_proportions
+    from ..data.dataset import (RSuperDataConfig, RSuperDataset,
+                                build_case_list, split_train_test)
+    from ..data.preprocess import load_case
+    from ..data.reports import clean_reports, load_reports
+    from ..data.table import Table
+    from ..models import get_model, init_params
+    from ..utils.device import resolve_device
+    from .loop import check_config, train
+
+    overrides = {k: v for k, v in vars(args).items()
+                 if k not in _NOT_CONFIG and v is not None}
+    for flag in ("resume", "class_weights", "clip_pretrain", "zero_opt",
+                 "zero_ema"):
+        if not getattr(args, flag):
+            overrides.pop(flag, None)
+    cfg = load_config(args.preset, args.config, overrides)
+    check_config(cfg)
+    device = resolve_device(args.device)
+
+    classes = cfg.classes or load_classes(cfg.data_root)
+    report_classes = cfg.report_classes or (
+        load_classes(cfg.report_root) if cfg.report_root else ()
+    )
+    cfg = dataclasses.replace(cfg, classes=tuple(classes),
+                              report_classes=tuple(report_classes))
+
+    mask_cases = discover_cases(cfg.data_root) if cfg.data_root else []
+    report_cases = discover_cases(cfg.report_root) if cfg.report_root else []
+    report_rows = None
+    if cfg.reports:
+        rows = load_reports(cfg.reports)
+        ids = {c for c, _ in report_cases}
+        rows = rows.filter(rows["BDMAP_ID"].isin(ids))
+        rows, usable, _ = clean_reports(rows, list(cfg.tumor_classes))
+        report_cases = [(c, p) for c, p in report_cases if c in set(usable)]
+        report_rows = rows
+
+    if args.report_only and args.mask_only:
+        raise SystemExit("--report_only and --mask_only are mutually exclusive")
+    if args.report_only:
+        mask_cases = []
+    if args.mask_only:
+        report_cases = []
+    cases = build_case_list(mask_cases, report_cases,
+                            balance=cfg.balance_supervision, seed=cfg.seed)
+    if args.all_train:
+        train_cases, test_cases = cases, []
+    else:
+        train_cases, test_cases = split_train_test(cases, seed=cfg.seed)
+
+    dcfg = RSuperDataConfig(
+        classes=tuple(classes),
+        report_classes=tuple(report_classes),
+        crop_size=tuple(cfg.training_size),
+        tumor_classes=tuple(cfg.tumor_classes),
+    )
+    proportions = None
+    if cfg.class_weights and args.class_weights_csv:
+        lesion_names = [c for c in classes if "lesion" in c]
+        proportions = class_proportions(
+            Table.read_csv(args.class_weights_csv),
+            [c.case_id for c in train_cases], lesion_names,
+        )
+    dataset = RSuperDataset(train_cases, dcfg, report_rows=report_rows,
+                            class_proportions=proportions)
+
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    model = init_params(get_model(cfg.arch, len(classes), dict(cfg.model_args),
+                                  dtype=dtype), seed=cfg.seed)
+
+    class _LazyTestCases:
+        """(image, labels) of the held-out CT-Mask cases, loaded lazily."""
+
+        def __iter__(self):
+            for c in test_cases:
+                if not c.is_report:
+                    yield load_case(c.path, num_classes=len(classes))
+
+    return train(cfg, model, dataset,
+                 test_cases=_LazyTestCases() if test_cases else None,
+                 max_steps=args.max_steps, profile_steps=args.profile_steps,
+                 device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,258 @@
+"""The training loop on one device: epochs × steps with device
+augmentation, the loss-NaN guard, EMA, checkpoints and resume (the port's
+counterpart of ``rsuper_tpu/train/loop.py`` without the mesh).
+
+Each step: ``ChunkedSampler`` indices → ``PrefetchLoader`` (packed records)
+→ the transfer to the device (``pipeline.to_device``) → ``device_augment``
+→ ``build_train_step`` → meters and logging. A resumed run goes on from the
+step it saved, also in the middle of an epoch (where the JAX loop starts
+the epoch again). The model's parameters are
+initialised by the caller. The options of the JAX loop that the port does
+not have yet raise ``NotImplementedError`` naming their item of
+``ROADMAP.md`` §1 before anything runs; so does a run whose planned epochs
+reach a validation (``val_freq``), which is not ported yet.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from ..config import TrainConfig
+from ..data.pipeline import (AugmentDraws, PrefetchLoader, device_augment,
+                             draw_augment, to_device)
+from ..data.sampler import ChunkedSampler
+from ..losses import LesionChannelMap
+from ..utils.device import resolve_device
+from ..utils.logging import MetricsLogger, dump_config, setup_logger
+from ..utils.meters import AverageMeter
+from ..utils.profiling import PhaseTimer, TraceCapture
+from .checkpoint import CheckpointManager
+from .optim import make_optimizer
+from .state import TrainState, create_train_state
+from .step import build_train_step
+
+# the items of ROADMAP.md §1 that hold what the port does not have yet
+ROADMAP = {
+    "validation": "ROADMAP.md §1 item 1 (validation and cross-validation)",
+    "pretrained": "ROADMAP.md §1 item 2 (pretrained loads and class surgery)",
+    "host_augment": "ROADMAP.md §1 item 3 (host augmentation)",
+    "device_prefetch": "ROADMAP.md §1 item 4 (DevicePrefetcher)",
+    "clip": "ROADMAP.md §1 item 5 (OrganBatchSampler and CLIP)",
+    "2d": "ROADMAP.md §1 item 8 (the rest of MedFormer and the 2D path)",
+    "multi_gpu": "ROADMAP.md §1 item 12 (multi-GPU)",
+}
+
+Draws = Callable[[int, int, int], AugmentDraws]
+
+
+def unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: {ROADMAP[item]}")
+
+
+def check_config(cfg: TrainConfig) -> None:
+    """Raise for each option of the JAX loop the port does not have."""
+    for name, item in (("zero_opt", "multi_gpu"), ("zero_ema", "multi_gpu"),
+                       ("host_augment", "host_augment"),
+                       ("clip_pretrain", "clip")):
+        if getattr(cfg, name):
+            raise unported(name, item)
+    if cfg.spatial_shard > 1:
+        raise unported(f"spatial_shard={cfg.spatial_shard}", "multi_gpu")
+    if cfg.device_prefetch > 0:
+        raise unported(f"device_prefetch={cfg.device_prefetch}",
+                       "device_prefetch")
+    if cfg.pretrained or cfg.old_classes:
+        raise unported("pretrained/old_classes", "pretrained")
+    if cfg.is_2d:
+        raise unported("2D training", "2d")
+
+
+def _validating_epochs(cfg: TrainConfig, start_epoch: int,
+                       max_steps: Optional[int]):
+    """The epochs at whose end the JAX loop would validate: those completed
+    before the run ends (the epoch of the `max_steps`-th step returns before
+    its validation)."""
+    end = cfg.epochs
+    if max_steps is not None:
+        end = min(end, start_epoch + (max_steps - 1) // cfg.iter_per_epoch)
+    if not cfg.val_freq:
+        return []
+    return [e for e in range(start_epoch, end) if (e + 1) % cfg.val_freq == 0]
+
+
+def seeded_draws(cfg: TrainConfig, device: torch.device) -> Draws:
+    """The default augmentation draws: batch i of epoch e draws from a CPU
+    generator and a device generator seeded from (seed + 1, e, i), so a
+    resumed run draws what an uninterrupted one draws, also when it resumes
+    in the middle of an epoch."""
+
+    def draws(epoch: int, index: int, batch_size: int) -> AugmentDraws:
+        s = int(np.random.SeedSequence([cfg.seed + 1, epoch, index])
+                .generate_state(1)[0])
+        gen_host = torch.Generator().manual_seed(s)
+        gen_dev = torch.Generator(device=device).manual_seed(s)
+        return draw_augment(gen_host, gen_dev, batch_size,
+                            tuple(cfg.training_size), tuple(cfg.scale),
+                            tuple(cfg.rotate), tuple(cfg.translate))
+
+    return draws
+
+
+def train(
+    cfg: TrainConfig,
+    model: torch.nn.Module,
+    dataset,
+    test_cases: Optional[Iterable] = None,
+    max_steps: Optional[int] = None,
+    profile_steps: int = 0,
+    device="cuda",
+    draws: Optional[Draws] = None,
+) -> TrainState:
+    """Run the training job on `device` (CUDA unless the CPU is asked for);
+    returns the final TrainState. `model` holds its initial parameters.
+    `draws(epoch, index, batch_size)` gives each batch's augmentation draws
+    (default: `seeded_draws`)."""
+    check_config(cfg)
+    device = resolve_device(device)
+    if len(dataset) == 0:
+        raise ValueError("no training cases: check --data_root, "
+                         "--report_root and --reports")
+    exp_dir = f"{cfg.cp_path}/{cfg.unique_name}"
+    logger = setup_logger(exp_dir)
+    metrics_log = MetricsLogger(exp_dir)
+    dump_config(exp_dir, cfg)
+
+    lmap = LesionChannelMap.from_classes(cfg.classes)
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    model = model.to(device).train()
+    opt = make_optimizer(
+        model.parameters(), cfg.optimizer, cfg.base_lr, cfg.warmup_epochs,
+        cfg.epochs, cfg.iter_per_epoch, cfg.weight_decay, cfg.betas,
+        clip_norm=cfg.clip_norm)
+    state = create_train_state(model, opt, ema=cfg.ema)
+
+    ckpt = CheckpointManager(exp_dir, save_every=cfg.save_every)
+    if cfg.resume and ckpt.has("latest"):
+        state = ckpt.restore(state, "latest")
+        logger.info("resumed from step %d", state.step)
+    start_epoch, done = divmod(state.step, cfg.iter_per_epoch)
+    if test_cases is not None:
+        epochs = _validating_epochs(cfg, start_epoch, max_steps)
+        if epochs:
+            raise unported(f"validation at the end of epoch {epochs[0]} "
+                           f"(val_freq={cfg.val_freq})", "validation")
+
+    step_fn = build_train_step(lmap, cfg.loss_config(),
+                               ema_alpha=cfg.ema_alpha,
+                               model_genesis=cfg.model_genesis_pretrain)
+    sampler = ChunkedSampler(
+        len(dataset), cfg.iter_per_epoch * cfg.batch_size,
+        shard=cfg.shard_index, num_shards=cfg.data_shards, seed=cfg.seed,
+    )
+    # the sampler walks its shuffled cycles epoch by epoch: replay the
+    # epochs already trained so a resumed run sees the same indices
+    for e in range(start_epoch):
+        sampler.epoch_indices(e)
+    draws = draws or seeded_draws(cfg, device)
+
+    tracer = None
+    if profile_steps:
+        start = 10 if max_steps is None else max(0, min(
+            10, max_steps - profile_steps))
+        tracer = TraceCapture(f"{exp_dir}/trace", start_step=start,
+                              num_steps=profile_steps)
+    timer = PhaseTimer()
+
+    def log_phases(loader):
+        for s in loader.item_seconds:
+            timer.add("loader_item", s)
+        loader.item_seconds.clear()
+        summary = timer.summary()
+        metrics_log.log(state.step, summary, prefix="phase/")
+        return summary
+
+    total_steps = 0
+    check_every = max(1, cfg.nan_check_every)
+    batches = None
+    try:
+        for epoch in range(start_epoch, cfg.epochs):
+            loader = PrefetchLoader(
+                dataset, cfg.batch_size, sampler.epoch_indices(epoch),
+                num_workers=cfg.num_workers,
+            )
+            batches = iter(loader)
+            # a run resumed in the middle of an epoch loads the batches it
+            # already trained and drops them, so the loader's draws and the
+            # epoch's length stay those of an uninterrupted run
+            first = done if epoch == start_epoch else 0
+            for _ in range(first):
+                next(batches, None)
+            loss_meter = AverageMeter("loss")
+            t_meter = AverageMeter("s/it")
+            t0 = time.time()
+            losses = None
+            for index in range(first, cfg.iter_per_epoch):
+                if tracer is not None:  # the window holds whole iterations
+                    tracer.step(total_steps)
+                with timer.phase("load"):
+                    host = next(batches, None)
+                if host is None:
+                    break
+                with timer.phase("h2d"):
+                    batch = to_device(host, device)
+                with timer.phase("augment"):
+                    batch = device_augment(
+                        batch, draws(epoch, index, cfg.batch_size),
+                        crop_size=tuple(cfg.training_size), out_dtype=dtype,
+                        num_classes=len(cfg.classes))
+                with timer.phase("step"):
+                    state, losses = step_fn(state, batch)
+                total_steps += 1
+                # read the loss only every `check_every` steps: a read waits
+                # for the device
+                if (total_steps % check_every == 0 or total_steps == 1
+                        or total_steps % 50 == 0 or total_steps == max_steps):
+                    with timer.phase("host_read"):
+                        loss = float(losses["overall"])
+                    if not np.isfinite(loss):
+                        raise FloatingPointError(
+                            f"loss is NaN/Inf at step {state.step}: aborting "
+                            "before it poisons further weights (detection "
+                            f"lags up to {check_every - 1} steps by design)")
+                    loss_meter.update(loss)
+                dt = time.time() - t0
+                t_meter.update(dt)
+                timer.add("iteration", dt)
+                t0 = time.time()
+                if total_steps % 50 == 0 or total_steps == 1:
+                    logger.info("epoch %d step %d %s %s", epoch, state.step,
+                                loss_meter, t_meter)
+                    with timer.phase("host_read"):
+                        vals = torch.stack([v.float() for v in
+                                            losses.values()]).cpu().tolist()
+                    metrics_log.log(state.step, dict(zip(losses, vals)),
+                                    prefix="train/")
+                if max_steps is not None and total_steps >= max_steps:
+                    ckpt.save_epoch(state, epoch)
+                    ckpt.wait()
+                    logger.info("stopped at step %d: phases=%s", state.step,
+                                log_phases(loader))
+                    return state
+
+            batches.close()
+            if loss_meter.count == 0 and losses is not None:
+                loss_meter.update(float(losses["overall"]))
+            ckpt.save_epoch(state, epoch)
+            logger.info("epoch %d done: %s phases=%s", epoch, loss_meter,
+                        log_phases(loader))
+        ckpt.wait()
+        return state
+    finally:
+        if batches is not None:
+            batches.close()
+        if tracer is not None:
+            tracer.close()

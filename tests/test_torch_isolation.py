@@ -32,7 +32,14 @@ def _sources():
     assert len(files) > 30  # ops, models, inference, data, losses, train
     names = {f.relative_to(ROOT).as_posix() for f in files}
     for new in ("ops/balls.py", "losses/dispatcher.py", "losses/volume.py",
-                "train/step.py", "train/optim.py", "bench_train.py"):
+                "train/step.py", "train/optim.py", "bench_train.py",
+                "config/config.py", "config/label_names.py",
+                "utils/logging.py", "utils/meters.py", "utils/tb_events.py",
+                "utils/profiling.py", "data/table.py", "data/reports.py",
+                "data/crops.py", "data/preprocess.py", "data/native_io.py",
+                "data/dataset.py", "data/sampler.py", "data/class_weights.py",
+                "ops/shear_warp.py", "data/augment.py", "data/pipeline.py",
+                "train/checkpoint.py", "train/loop.py", "train/__main__.py"):
         assert f"rsuper_tpu_torch/{new}" in names
     return files
 
@@ -110,6 +117,7 @@ def test_resolve_device_needs_cuda_unless_cpu(no_cuda):
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from rsuper_tpu_torch import bench_train
     from rsuper_tpu_torch import predict as cli
+    from rsuper_tpu_torch.train import __main__ as train_cli
     from rsuper_tpu_torch.inference.predict import (predict_folder,
                                                     predict_masks_volume)
     from rsuper_tpu_torch.inference.sliding_window import (
@@ -130,6 +138,7 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
                           str(tmp_path / "o"), "--params_npz", "x.npz",
                           "--classes_json", "c.json"]),
         lambda: bench_train.main(["--size", "32", "--steps", "1"]),
+        lambda: train_cli.main(["--data_root", str(tmp_path)]),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
