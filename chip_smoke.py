@@ -12,8 +12,9 @@ Phases, in order (any failure exits non-zero):
              a source;
 2. kernels — each kernel against its plain PyTorch version at the shapes the
              serving path (forward, window batches of 8) and the training
-             step (backward, batch 1) give it, in bf16 and float32, with the
-             stated tolerance; times of the kernel, the plain version and
+             step (backward, batch 1) give it, and the validation path's
+             forward at 128³ windows in batches of 4, in bf16 and float32,
+             with the stated tolerance; times of the kernel, the plain version and
              the library call, and the kernel's bound; for the conv kernels
              their route (tensor cores or CUDA cores) and achieved TFLOP/s,
              for the fused forward the same kernel's time without its
@@ -79,7 +80,21 @@ Phases, in order (any failure exits non-zero):
              finite losses, ``latest`` and ``metrics.jsonl``, the restored
              optimizer state and every kernel of the step in the profiled
              window are checked; ms a step, loader, transfer and augment ms,
-             busy share, peak memory and host reads are printed.
+             busy share, peak memory and host reads are printed;
+8. validate — on the same synthetic cases: ``validate_cases`` at 128³
+             windows in batches of 4, the seeded model's final head made
+             confident, in bf16 and in float32 through the kernels and the
+             plain versions (probabilities held against the plain versions',
+             the metrics of both, Dice within what the voxels whose
+             threshold differs allow, launches of the forward kernels a
+             case, seconds a case on the device and on the host), the CLI's
+             ``--k_fold 2`` for both folds, the loop's validation every
+             epoch with ``best``, ``--pretrained`` without and with
+             ``--old_classes`` (parameters right after the load held
+             against the donor and the fresh initialisation), host
+             augmentation, and ``device_prefetch`` 2 against 0 (equal
+             batches and first losses, batches intact after their step, ms
+             an iteration of both).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. It imports nothing of JAX or of
@@ -96,7 +111,7 @@ import re
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -119,6 +134,9 @@ MODEL32_TOL, BF16_NOISE_FACTOR = 1e-3, 1.5
 # logits' magnitude of this model (max|logit| ≈ 11, model phase), gives
 # 0.25 · 1e-3 · 12 = 3e-3
 PROB_TOL = 3e-3
+# the same, each side rounded to float16 as validation leaves them: half a
+# float16 spacing each (2^-12 in [0.5, 1))
+PROB16_TOL = PROB_TOL + 2.0 ** -11
 WINDOW = 96  # edge of the sliding window, as the serving path runs it
 VOLUME = 256  # edge of the synthetic phantom, voxels of 1 mm (125 windows)
 REPS = 3  # timed calls per measurement, after one warm-up call
@@ -219,6 +237,20 @@ CONV_SHAPES = {  # (B, D, Ci, H, W, Co)
                              (8, 48, 64, 48, 48, 64),
                              (8, 48, 192, 48, 48, 128)],
 }
+# the validation path: 128³ windows in batches of 4 (the preset's
+# training_size, validate_cases' batch): the stem, the fused forward's
+# largest shape and those it runs most, the depthwise forward's largest
+# and those it runs most (a forward's launches: the stem 1; fused
+# (4,128,32,…,32) 5, (4,64,64,…,64) 7; depthwise (4,16,16,16,256) 15,
+# (4,8,8,8,320) 12, (4,32,32,32,128) 7, (4,64,64,64,256) 1)
+VAL_CONV_SHAPES = {
+    "conv3x3x3_cf": [(4, 128, 1, 128, 128, 32)],
+    "in_relu_conv3x3x3_cf": [(4, 128, 96, 128, 128, 64),
+                             (4, 128, 32, 128, 128, 32),
+                             (4, 64, 64, 64, 64, 64)],
+}
+VAL_DW_SHAPES = [(4, 64, 64, 64, 256), (4, 32, 32, 32, 128),
+                 (4, 16, 16, 16, 256), (4, 8, 8, 8, 320)]
 DW_SHAPES = [  # (B, D, H, W, C)
     (8, 48, 48, 48, 256), (8, 24, 24, 24, 128), (8, 24, 24, 24, 384),
     (8, 24, 24, 24, 512), (8, 12, 12, 12, 256), (8, 12, 12, 12, 576),
@@ -316,7 +348,7 @@ def phase_kernels(dev, reps: int):
 
     def case(name, fn, args, ref_args, flops, nbytes, library, dtype, shape,
              route=None, ref64=None, no_prologue=None, device=False,
-             function=None):
+             function=None, path=None):
         got = fn(*args)
         with plain_on_device():
             ref = fn(*ref_args)
@@ -342,6 +374,8 @@ def phase_kernels(dev, reps: int):
                    max_abs_err=err, tol=tol, ok=ok, **acc)
         if route is not None:
             row["route"] = route
+        if path is not None:  # a shape of another path than the line's
+            row["path"] = path
         if device:  # device operations of one call (and of the Function's
             # backward, where it is given as (forward and backward, forward
             # alone): a graph captures the backward on the forward's stream)
@@ -372,34 +406,41 @@ def phase_kernels(dev, reps: int):
 
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for name, shapes in CONV_SHAPES.items():
+        conv_shapes = [(name, shape, None)
+                       for name, shapes in CONV_SHAPES.items()
+                       for shape in shapes]
+        conv_shapes += [(name, shape, "validate")
+                        for name, shapes in VAL_CONV_SHAPES.items()
+                        for shape in shapes]
+        for name, (B, D, Ci, H, W, Co), path in conv_shapes:
             fn = getattr(conv_cf, name)
-            for (B, D, Ci, H, W, Co) in shapes:
-                x = torch.randn((B, D, Ci, H, W), generator=gen, device=dev
-                                ).to(dtype)
-                w = torch.randn((3, 3, 3, Ci, Co), generator=gen, device=dev
-                                ) / math.sqrt(27 * Ci)
-                flops = 2.0 * B * D * H * W * Ci * Co * 27
-                nbytes = x.numel() * x.element_size() + w.numel() * 4 \
-                    + B * D * Co * H * W * x.element_size()
-                xn = x.permute(0, 2, 1, 3, 4).contiguous()
-                wn = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous()
-                lib = ("F.conv3d (cuDNN), NCDHW copy of x",
-                       lambda xn=xn, wn=wn: F.conv3d(xn, wn, padding=1))
-                alone = None
-                if name == "in_relu_conv3x3x3_cf":
-                    # no library call fuses the norm: F.conv3d times the
-                    # conv alone, a yardstick kept out of library_ms; so
-                    # does the port's own kernel without the prologue
-                    lib = ("F.conv3d (cuDNN) of the conv alone, no norm",
-                           lib[1])
-                    flops += 3.0 * x.numel()
-                    alone = lambda x=x, w=w: conv_cf.conv3x3x3_cf(x, w)
-                case(name, fn, (x, w), (x, w), flops, nbytes, lib, dname,
-                     (B, D, Ci, H, W, Co), conv_cf.conv_route(dtype, Ci),
-                     no_prologue=alone, device=Ci == 1)
-                del x, w
-        for (B, D, H, W, C) in DW_FWD_SHAPES:
+            x = torch.randn((B, D, Ci, H, W), generator=gen, device=dev
+                            ).to(dtype)
+            w = torch.randn((3, 3, 3, Ci, Co), generator=gen, device=dev
+                            ) / math.sqrt(27 * Ci)
+            flops = 2.0 * B * D * H * W * Ci * Co * 27
+            nbytes = x.numel() * x.element_size() + w.numel() * 4 \
+                + B * D * Co * H * W * x.element_size()
+            xn = x.permute(0, 2, 1, 3, 4).contiguous()
+            wn = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous()
+            lib = ("F.conv3d (cuDNN), NCDHW copy of x",
+                   lambda xn=xn, wn=wn: F.conv3d(xn, wn, padding=1))
+            alone = None
+            if name == "in_relu_conv3x3x3_cf":
+                # no library call fuses the norm: F.conv3d times the
+                # conv alone, a yardstick kept out of library_ms; so
+                # does the port's own kernel without the prologue
+                lib = ("F.conv3d (cuDNN) of the conv alone, no norm",
+                       lib[1])
+                flops += 3.0 * x.numel()
+                alone = lambda x=x, w=w: conv_cf.conv3x3x3_cf(x, w)
+            case(name, fn, (x, w), (x, w), flops, nbytes, lib, dname,
+                 (B, D, Ci, H, W, Co), conv_cf.conv_route(dtype, Ci),
+                 no_prologue=alone, device=Ci == 1, path=path)
+            del x, w
+        dw_shapes = ([(s, None) for s in DW_FWD_SHAPES]
+                     + [(s, "validate") for s in VAL_DW_SHAPES])
+        for (B, D, H, W, C), path in dw_shapes:
             x = torch.randn((B, D, H, W, C), generator=gen, device=dev
                             ).to(dtype)
             w = torch.randn((3, 3, 3, 1, C), generator=gen, device=dev) / 27
@@ -412,7 +453,7 @@ def phase_kernels(dev, reps: int):
                                                       groups=C))
             case("depthwise_conv3x3x3", dwconv.depthwise_conv3x3x3, (x, w),
                  (x, w), flops, nbytes, lib, dname, (B, D, H, W, C),
-                 device=True)
+                 device=True, path=path)
             del x, w
         backward_cases(case, gen, dev, dtype, dname)
     topn_cases(rows, failures, dev)
@@ -628,13 +669,15 @@ def _wgrad64(x, dy, stats=None):
 
 def kernels_line(rows, launches):
     """One entry per kernel: its error is the largest over the production
-    shapes in the path's type (the timed rows: bf16, float32 for top-N); its
-    times are those of its heaviest production shape, for top-N those of the
-    training step's shape."""
+    shapes in the path's type (the timed rows: bf16, float32 for top-N), the
+    validation path's included; its times are those of its heaviest shape
+    of the serving or training path, for top-N those of the training step's
+    shape."""
     out = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["name"] == name and "ms" in r]
-        top = max([r for r in mine if r.get("on_path")] or mine,
+        own = [r for r in mine if "path" not in r]
+        top = max([r for r in own if r.get("on_path")] or own,
                   key=lambda r: r["bound_ms"])
         out.append(dict(
             name=name, route="cuda", source=meta["source"],
@@ -1754,6 +1797,551 @@ def phase_train_cli(dev):
     return failures
 
 
+VAL_WINDOW = (128, 128, 128)  # cfg.training_size of the preset
+VAL_BATCH = 4  # validate_cases' window batch
+PRESET = "abdomenatlas_ufo/medformer_3d"
+# the seeded model's final head made confident: the bias of each class the
+# cases hold moves its logits, over one window of the first case, to these
+# many standard deviations from 0 in turn (mostly on, mostly off, all on,
+# all off), so the thresholded masks of the kernels and the plain versions
+# differ at few voxels or none
+HEAD_SIGMAS = (3.0, -3.0, 8.0, -8.0)
+LOOP_STEPS = 3  # steps of the host-augment and prefetch runs
+# the same batches give the same first loss bit for bit; after the first
+# update two runs of the step differ (PyTorch's backward of the trilinear
+# upsampling adds with atomics on the card, and the random bf16 model
+# amplifies it): later losses within 3x the largest relative spread of two
+# inline runs measured on the H100 (1.5e-3)
+LOSS_SPREAD_TOL = 4.5e-3
+
+
+@contextmanager
+def _recorded_probs():
+    """Inside the block, keep each float16 probability volume that
+    ``validate_cases`` thresholds."""
+    from rsuper_tpu_torch.train import validation
+
+    seen, inner = [], validation.sliding_window_inference
+
+    def recording(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        seen.append(out)
+        return out
+
+    validation.sliding_window_inference = recording
+    try:
+        yield seen
+    finally:
+        validation.sliding_window_inference = inner
+
+
+@contextmanager
+def _loop_spy():
+    """Inside the block, count ``device_augment`` calls of the training
+    loop, and keep each step's loss and a checksum of each step's batch,
+    taken before and after the step on the consuming stream, as device
+    tensors (no host read in the loop)."""
+    import torch
+
+    from rsuper_tpu_torch.train import loop
+
+    spy = {"augments": 0, "losses": [], "sums": [], "sums_after": []}
+    build, augment = loop.build_train_step, loop.device_augment
+
+    def counted_augment(*args, **kwargs):
+        spy["augments"] += 1
+        return augment(*args, **kwargs)
+
+    def recording_build(*args, **kwargs):
+        step = build(*args, **kwargs)
+
+        def checksum(batch):
+            return torch.stack([v.float().sum() for _, v in
+                                sorted(batch.items())
+                                if isinstance(v, torch.Tensor)])
+
+        def recorded(state, batch):
+            spy["sums"].append(checksum(batch))
+            state, losses = step(state, batch)
+            spy["losses"].append(losses["overall"].detach().float())
+            spy["sums_after"].append(checksum(batch))
+            return state, losses
+
+        return recorded
+
+    loop.device_augment, loop.build_train_step = counted_augment, \
+        recording_build
+    try:
+        yield spy
+    finally:
+        loop.device_augment, loop.build_train_step = augment, build
+
+
+@contextmanager
+def _captured_warm_start():
+    """Inside the block, keep a copy of the model's parameters right after
+    each ``load_pretrained_params`` of the training loop."""
+    from rsuper_tpu_torch.train import loop
+
+    seen, inner = [], loop.load_pretrained_params
+
+    def capturing(state, *args, **kwargs):
+        out = inner(state, *args, **kwargs)
+        seen.append({k: v.detach().cpu().clone()
+                     for k, v in out.model.state_dict().items()})
+        return out
+
+    loop.load_pretrained_params = capturing
+    try:
+        yield seen
+    finally:
+        loop.load_pretrained_params = inner
+
+
+def _whole_volume_asd_hd95(pred, target):
+    """ASD and HD95 as the JAX package computes them: surfaces and both
+    EDTs over the whole volume, once for each of the two metrics."""
+    import numpy as np
+    from scipy import ndimage as ndi
+
+    def dists():
+        ps = pred & ~ndi.binary_erosion(pred)
+        ts = target & ~ndi.binary_erosion(target)
+        if not ps.any() or not ts.any():
+            return np.array([500.0]), np.array([500.0])
+        return (ndi.distance_transform_edt(~ts)[ps],
+                ndi.distance_transform_edt(~ps)[ts])
+
+    a = dists()
+    asd = float(min((a[0].mean() + a[1].mean()) / 2.0, 500.0))
+    b = dists()
+    hd = float(min(max(np.percentile(b[0], 95), np.percentile(b[1], 95)),
+                   500.0))
+    return asd, hd
+
+
+def _metrics_log(exp: Path):
+    return [json.loads(line) for line in
+            (exp / "metrics.jsonl").read_text().splitlines()]
+
+
+def _confident_heads(model, model32, cases):
+    """Set the final head's bias of both models so that, over one 128³
+    window of the first case, the logits of the i-th class the cases hold
+    sit HEAD_SIGMAS[i % 4] standard deviations from 0. Returns the
+    (class index, sigmas) pairs."""
+    import torch
+
+    from rsuper_tpu_torch.train import validation
+
+    image = cases[0][0]
+    starts = [(n - w) // 2 for n, w in zip(image.shape, VAL_WINDOW)]
+    win = image[tuple(slice(s, s + w) for s, w in zip(starts, VAL_WINDOW))]
+    x = torch.as_tensor(win, device=model.outc.bias.device)[None, ..., None]
+    with torch.inference_mode():
+        logits = validation.head_fn(model)(x).float().flatten(0, 3)
+    mean, std = logits.mean(0), logits.std(0)
+    present = [c for c in range(len(mean))
+               if any(labels[c].any() for _, labels in cases)]
+    sigmas = [(c, HEAD_SIGMAS[i % len(HEAD_SIGMAS)])
+              for i, c in enumerate(present)]
+    with torch.no_grad():
+        for c, k in sigmas:
+            model.outc.bias[c] += float(k * std[c] - mean[c])
+        model32.outc.bias.copy_(model.outc.bias)
+    return sigmas
+
+
+def _prob_dist(got, ref):
+    """max|Δ| and the relative L2 of two lists of float16 probability
+    volumes, in float32 one case at a time."""
+    import numpy as np
+
+    err = num = den = 0.0
+    for g, r in zip(got, ref):
+        for lo in range(0, g.shape[0], 16):
+            d = (g[lo: lo + 16].astype(np.float32)
+                 - r[lo: lo + 16].astype(np.float32))
+            err = max(err, float(np.abs(d).max()))
+            num += float((d * d).sum())
+            den += float(np.square(r[lo: lo + 16].astype(np.float32)).sum())
+    return dict(max_abs_err=err, rel_l2=(num / den) ** 0.5)
+
+
+def _agreement(cases, classes, a, b, what, failures):
+    """Two ``validate_cases`` runs: the voxels whose thresholded masks
+    differ, a class at a time; each Dice difference within what they allow
+    (k flipped voxels move 2I/(P+T) by at most 3k/(min(P, P') + T)); ASD and
+    HD95 finite, and equal where the masks are."""
+    import numpy as np
+
+    C = len(classes)
+    diff_voxels, bounds = np.zeros(C, np.int64), np.zeros(C)
+    for (_, labels), pa, pb in zip(cases, a["probs"], b["probs"]):
+        ma, mb = pa > 0.5, pb > 0.5
+        for c in range(C):
+            t = labels[c] > 0
+            if not t.any():
+                continue
+            n = int((ma[..., c] != mb[..., c]).sum())
+            diff_voxels[c] += n
+            lo = min(int(ma[..., c].sum()), int(mb[..., c].sum()))
+            bounds[c] += 3.0 * n / (lo + int(t.sum()))
+    bounds /= np.maximum(a["out"]["cases_per_class"], 1)
+    for c in range(C):
+        d = abs(a["out"]["dice"][c] - b["out"]["dice"][c])
+        if d > bounds[c] + 1e-12:
+            failures.append(f"validate: {what} {classes[c]} Dice differs by "
+                            f"{d} > {bounds[c]} ({diff_voxels[c]} voxels)")
+        for m in ("asd", "hd95"):
+            for run in (a, b):
+                v = run["out"][m][c]
+                if not (math.isfinite(v) and 0.0 <= v <= 500.0):
+                    failures.append(f"validate: {what} {classes[c]} {m} {v}")
+            if diff_voxels[c] == 0 and a["out"][m][c] != b["out"][m][c]:
+                failures.append(f"validate: {what} {classes[c]} {m} differs "
+                                "on equal masks")
+    return dict(threshold_diff_voxels=[int(v) for v in diff_voxels],
+                dice_bound=[float(v) for v in bounds],
+                dice_diff=[float(abs(x - y)) for x, y in
+                           zip(a["out"]["dice"], b["out"]["dice"])])
+
+
+def _validate_cases_both(dev, cases, classes, res, failures):
+    """Step 1: ``validate_cases`` of the default MedFormer (seeded, the
+    final head made confident) in bf16 and in float32, each through the
+    kernels and through the plain versions. float32: the probabilities
+    within PROB16_TOL, few voxels whose threshold differs, the metrics
+    agreeing (``_agreement``). bf16: the probabilities within
+    BF16_NOISE_FACTOR times the plain bf16 run's distance from the plain
+    float32 run, the metrics agreeing."""
+    import numpy as np
+    import torch
+
+    from rsuper_tpu_torch.metrics import asd_hd95
+    from rsuper_tpu_torch.ops.dispatch import plain_on_device
+    from rsuper_tpu_torch.train import validation
+    from rsuper_tpu_torch.utils.profiling import PhaseTimer
+
+    C = len(classes)
+    model, model32 = _build_models(dev)
+    sigmas = _confident_heads(model, model32, cases)
+    res["head_sigmas"] = {classes[c]: k for c, k in sigmas}
+    counted = wrappers()
+    runs = {}
+    for name, net, plain in (("kernels", model, False),
+                             ("plain", model, True),
+                             ("kernels32", model32, False),
+                             ("plain32", model32, True)):
+        timer = PhaseTimer()
+        for w in counted.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        with _recorded_probs() as probs, (plain_on_device() if plain
+                                          else nullcontext()):
+            out = validation.validate_cases(
+                validation.head_fn(net), cases, C, window=VAL_WINDOW,
+                batch=VAL_BATCH, device=dev, timer=timer)
+        runs[name] = dict(out=out, probs=probs, phases=timer.summary(),
+                          launches={k: counted[k].launches / len(cases)
+                                    for k in SERVING_KERNELS})
+    k, p = runs["kernels"], runs["plain"]
+    k32, p32 = runs["kernels32"], runs["plain32"]
+    res["launches_per_case"] = k["launches"]
+    for kname, n in k["launches"].items():
+        if n <= 0:
+            failures.append(f"validate: {kname} was not launched")
+    for name, run in runs.items():
+        res[f"{name}_case_s"] = dict(
+            window_device_s=run["phases"]["val_window_ms"] / 1e3,
+            metrics_host_s=run["phases"]["val_metrics_ms"] / 1e3)
+        res[f"{name}_metrics"] = {m: [float(v) for v in run["out"][m]]
+                                  for m in ("dice", "asd", "hd95")}
+    for run in runs.values():
+        for pr in run["probs"]:
+            if not (np.isfinite(pr).all() and pr.min() >= 0
+                    and pr.max() <= 1):
+                failures.append("validate: probabilities outside [0, 1]")
+
+    d32 = _prob_dist(k32["probs"], p32["probs"])
+    res["probs32_vs_plain"] = dict(d32, tol=PROB16_TOL)
+    if not d32["max_abs_err"] <= PROB16_TOL:
+        failures.append(f"validate: float32 probabilities vs plain {d32}")
+    res["float32"] = _agreement(cases, classes, k32, p32, "float32",
+                                failures)
+    # no more voxels cross the threshold than lie within PROB16_TOL of it
+    near = sum(int((np.abs(pr.astype(np.float32) - 0.5) <= PROB16_TOL).sum())
+               for pr in p32["probs"])
+    res["float32"]["voxels_near_threshold"] = near
+    if sum(res["float32"]["threshold_diff_voxels"]) > near:
+        failures.append(f"validate: float32 masks differ at more voxels "
+                        f"than lie near the threshold ({near})")
+
+    bf16 = _prob_dist(k["probs"], p["probs"])
+    noise = _prob_dist(p["probs"], p32["probs"])
+    bf16["tol_max"] = BF16_NOISE_FACTOR * noise["max_abs_err"]
+    bf16["tol_rel_l2"] = BF16_NOISE_FACTOR * noise["rel_l2"]
+    res["probs_bf16_vs_plain"] = dict(bf16, bf16_noise=noise)
+    if not (bf16["max_abs_err"] <= bf16["tol_max"]
+            and bf16["rel_l2"] <= bf16["tol_rel_l2"]):
+        failures.append(f"validate: bf16 probabilities vs plain "
+                        f"{res['probs_bf16_vs_plain']}")
+    res["bfloat16"] = _agreement(cases, classes, k, p, "bf16", failures)
+    res["cases_per_class"] = [int(v) for v in k["out"]["cases_per_class"]]
+
+    # the port's metrics against the whole-volume formulation, on the
+    # first case's mostly-on and mostly-off classes
+    image, labels = cases[0]
+    pred = k["probs"][0] > 0.5
+    whole = {}
+    for c, _ in sigmas[:2]:
+        t0 = time.perf_counter()
+        ours = asd_hd95(pred[..., c], labels[c] > 0)
+        t1 = time.perf_counter()
+        theirs = _whole_volume_asd_hd95(pred[..., c], labels[c] > 0)
+        whole[classes[c]] = dict(port_s=t1 - t0,
+                                 whole_volume_s=time.perf_counter() - t1,
+                                 equal=ours == theirs)
+        if ours != theirs:
+            failures.append(f"validate: {classes[c]} ASD/HD95 {ours} != the "
+                            f"whole-volume {theirs}")
+    res["surface_metrics_host_s"] = whole
+    del model, model32, runs, k, p, k32, p32
+    torch.cuda.empty_cache()
+
+
+def phase_validate(dev):
+    """Validation, cross-validation, warm starts, host augmentation and the
+    prefetcher at the preset's sizes on the synthetic cases of
+    ``write_cli_cases`` (2 CT-Mask, 2 CT-Report; a 2-fold split holds a
+    CT-Mask case in each test fold):
+
+    1. ``validate_cases`` (default MedFormer, bf16, seeded; 128³ windows in
+       batches of 4; the final head made confident, HEAD_SIGMAS) on both
+       CT-Mask cases through the kernels and the plain versions:
+       probabilities in [0, 1] and within BF16_NOISE_FACTOR times the plain
+       bf16 run's distance from the plain float32 run (max and relative
+       L2), Dice within what the voxels whose threshold differs allow, ASD
+       and HD95 finite (equal where the masks are); the same in float32,
+       where the probabilities of both cases lie within
+       PROB16_TOL of the plain versions; launches of rows 1, 2 and 5 a case;
+       seconds a case on the device (the sliding window) and on the host
+       (the metrics); the port's ASD/HD95 against the whole-volume
+       formulation, equal and timed;
+    2. ``main --k_fold 2 --fold 0`` then ``--fold 1`` (2 steps each): both
+       ``fold_results.json`` and the summary, finite;
+    3. ``loop.train`` with ``val_freq = 1`` over 2 epochs of 2 steps on
+       fold 0: ``val/dice_mean`` twice and ``best``;
+    4. ``main --pretrained`` (step 3's directory) for 1 step, without and
+       with ``--old_classes`` (the classes less two, reversed): the
+       parameters right after the load equal the donor's, the surgery's
+       head rows the donor's row of the class in the sorted old list, the
+       other rows the fresh initialisation;
+    5. ``loop.train`` with ``host_augment`` for LOOP_STEPS steps: finite
+       losses, no ``device_augment``; the loader's worker ms an item;
+    6. ``loop.train`` with ``device_prefetch`` 2 and 0 (twice), one loader
+       worker, LOOP_STEPS steps each: equal batches (checksums on the
+       device) and first losses, each batch unchanged by its step (its
+       checksum again after the step, on the consuming stream), later
+       losses within LOSS_SPREAD_TOL; the medians of ms an iteration and of
+       the loop's wait for its batch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rsuper_tpu_torch.data.preprocess import load_case
+    from rsuper_tpu_torch.models import get_model, init_params
+    from rsuper_tpu_torch.train import __main__ as cli
+    from rsuper_tpu_torch.train import loop
+    from rsuper_tpu_torch.utils.device import card_line
+
+    failures, res = [], {"card": card_line(), "window": list(VAL_WINDOW),
+                         "batch": VAL_BATCH}
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        masks, reports, csv = write_cli_cases(root)
+        classes = json.loads((masks / "classes.json").read_text())
+        exp = root / "exp"
+        args = ["--preset", PRESET, "--data_root", str(masks),
+                "--report_root", str(reports), "--reports", str(csv),
+                "--cp_path", str(exp), "--iter_per_epoch", "2",
+                "--epochs", "2"]
+
+        # 1. validate_cases, kernels and plain
+        t0 = time.time()
+        cases = [load_case(str(p), num_classes=len(classes))
+                 for p in sorted(masks.glob("*.npz"))]
+        res["case_shape"] = list(cases[0][0].shape)
+        _validate_cases_both(dev, cases, classes, res, failures)
+        res["step1_s"] = time.time() - t0
+
+        # 2. k-fold: each test fold holds a CT-Mask case
+        t0 = time.time()
+        for fold in (0, 1):
+            fold_args = args + ["--unique_name", "cv", "--k_fold", "2",
+                                "--fold", str(fold)]
+            if all(c.is_report for c in cli.build_run(fold_args).test_cases):
+                failures.append(f"validate: fold {fold} holds no CT-Mask "
+                                "test case")
+            state = cli.main(fold_args + ["--max_steps", "2"])
+            if state.step != 2:
+                failures.append(f"validate: fold {fold} ran {state.step}")
+            fr = exp / f"cv_fold{fold}" / "fold_results.json"
+            vals = json.loads(fr.read_text()) if fr.exists() else {}
+            if not all(len(vals.get(m, ())) == len(classes) and all(
+                    math.isfinite(v) for v in vals[m])
+                    for m in ("dice", "asd", "hd95")):
+                failures.append(f"validate: {fr} missing or not finite")
+        summary = exp / "cv_cross_validation.txt"
+        if not summary.exists():
+            failures.append("validate: no cross-validation summary")
+        else:
+            last = summary.read_text().splitlines()[-1].split()
+            res["cross_validation_mean"] = last[1:]
+            if not all(math.isfinite(float(x.split("±")[0]))
+                       for x in last[1:]):
+                failures.append(f"validate: summary {last}")
+        res["step2_s"] = time.time() - t0
+
+        # 3. the loop's validation every epoch, and best
+        t0 = time.time()
+        run = cli.build_run(args + ["--unique_name", "val", "--k_fold", "2",
+                                    "--fold", "0"])
+        cfg = dataclasses.replace(run.cfg, val_freq=1)
+        state = loop.train(cfg, run.model, run.dataset,
+                           test_cases=run.held_out(), device=dev)
+        donor_dir = exp / "val_fold0"
+        recs = _metrics_log(donor_dir)
+        vals = [r["val/dice_mean"] for r in recs if "val/dice_mean" in r]
+        phases = [r for r in recs if "phase/val_window_ms" in r][-1]
+        res["loop_validation"] = dict(
+            steps=state.step, val_dice_mean=vals,
+            val_window_ms=phases["phase/val_window_ms"],
+            val_metrics_ms=phases["phase/val_metrics_ms"])
+        if not (len(vals) == 2 and all(math.isfinite(v) for v in vals)
+                and (donor_dir / "best").exists() and state.step == 4):
+            failures.append(f"validate: the loop's validation "
+                            f"{res['loop_validation']}")
+        del state, run
+        res["step3_s"] = time.time() - t0
+
+        # 4. warm starts, without and with class surgery
+        t0 = time.time()
+        donor = torch.load(donor_dir / "best", map_location="cpu",
+                           weights_only=True)["params"]
+        old = [c for c in classes if c not in ("colon", "spleen")]
+        warm = args + ["--all_train", "--max_steps", "1", "--pretrained",
+                       str(donor_dir)]
+        with _captured_warm_start() as seen:
+            cli.main(warm + ["--unique_name", "warm"])
+            cli.main(warm + ["--unique_name", "surgery", "--old_classes",
+                             ",".join(reversed(old))])
+        fresh = init_params(get_model("medformer", len(classes),
+                                      dict(cfg.model_args),
+                                      dtype=torch.bfloat16),
+                            seed=cfg.seed).state_dict()
+        heads = [k for k in donor if k.split(".")[0] in ("outc", "aux_out")]
+        bad = [k for k in donor if not torch.equal(seen[0][k], donor[k])]
+        bad += [k for k in donor if k not in heads
+                and not torch.equal(seen[1][k], donor[k])]
+        for key in heads:
+            for j, cls in enumerate(classes):
+                want = (donor[key][old.index(cls)] if cls in old
+                        else fresh[key][j])
+                if not torch.equal(seen[1][key][j], want):
+                    bad.append(f"{key}[{cls}]")
+        res["warm_start"] = dict(tensors=len(donor), heads=heads,
+                                 old_classes=len(old), mismatched=bad)
+        if len(seen) != 2 or bad:
+            failures.append(f"validate: warm starts {res['warm_start']}")
+        res["step4_s"] = time.time() - t0
+
+        # 5. host augmentation
+        t0 = time.time()
+        run = cli.build_run(args + ["--all_train", "--unique_name", "host"])
+        with _loop_spy() as spy:
+            state = loop.train(dataclasses.replace(run.cfg,
+                                                   host_augment=True),
+                               run.model, run.dataset, max_steps=LOOP_STEPS,
+                               device=dev)
+        losses = [float(v) for v in spy["losses"]]
+        ph = [r for r in _metrics_log(exp / "host") if "phase/step_ms" in r][-1]
+        res["host_augment"] = dict(
+            steps=state.step, losses=losses, device_augments=spy["augments"],
+            loader_item_ms=ph["phase/loader_item_ms"],
+            loader_wait_median_ms=ph["phase/load_median_ms"],
+            h2d_host_median_ms=ph["phase/h2d_median_ms"],
+            ms_per_iteration_median=ph["phase/iteration_median_ms"],
+            num_workers=run.cfg.num_workers)
+        if not (state.step == LOOP_STEPS and len(losses) == LOOP_STEPS
+                and all(math.isfinite(v) for v in losses)
+                and spy["augments"] == 0):
+            failures.append(f"validate: host_augment {res['host_augment']}")
+        del state, run
+        res["step5_s"] = time.time() - t0
+
+        # 6. the prefetcher against inline transfers, one loader worker;
+        # inline twice, for the step's own spread between runs
+        t0 = time.time()
+        pf = {}
+        for name, depth in (("prefetch2", 2), ("inline", 0),
+                            ("inline_again", 0)):
+            run = cli.build_run(args + ["--all_train", "--num_workers", "1",
+                                        "--unique_name", name])
+            with _loop_spy() as spy:
+                loop.train(dataclasses.replace(run.cfg,
+                                               device_prefetch=depth),
+                           run.model, run.dataset, max_steps=LOOP_STEPS,
+                           device=dev)
+            ph = [r for r in _metrics_log(exp / name)
+                  if "phase/step_ms" in r][-1]
+            pf[name] = dict(
+                losses=[float(v) for v in spy["losses"]],
+                sums=torch.stack(spy["sums"]).cpu(),
+                sums_after=torch.stack(spy["sums_after"]).cpu(),
+                ms_per_iteration_median=ph["phase/iteration_median_ms"],
+                loop_wait_median_ms=ph["phase/load_median_ms"],
+                feeder_load_median_ms=ph.get("phase/feeder_load_median_ms"),
+                ms_per_iteration_mean=ph["phase/iteration_ms"],
+                loader_item_ms=ph["phase/loader_item_ms"],
+                augments=spy["augments"])
+            del run
+        ref = pf["inline"]
+
+        def rel(a, b):  # the largest relative difference after step 1
+            return max(abs(x - y) / abs(y) for x, y in zip(a[1:], b[1:]))
+
+        out = {n: {k: v for k, v in r.items()
+                   if k not in ("sums", "sums_after")}
+               for n, r in pf.items()}
+        out["equal_batches"] = all(torch.equal(r["sums"], ref["sums"])
+                                   for r in pf.values())
+        out["batches_intact_after_step"] = all(
+            torch.equal(r["sums_after"], r["sums"]) for r in pf.values())
+        out["equal_first_loss"] = len({r["losses"][0]
+                                       for r in pf.values()}) == 1
+        out["later_loss_rel_diff"] = rel(pf["prefetch2"]["losses"],
+                                         ref["losses"])
+        out["inline_later_loss_rel_diff"] = rel(pf["inline_again"]["losses"],
+                                                ref["losses"])
+        res["prefetch"] = out
+        if not (out["equal_batches"] and out["equal_first_loss"]
+                and out["batches_intact_after_step"]
+                and all(len(r["losses"]) == LOOP_STEPS
+                        and all(math.isfinite(v) for v in r["losses"])
+                        for r in pf.values())
+                and out["later_loss_rel_diff"] <= LOSS_SPREAD_TOL
+                and out["inline_later_loss_rel_diff"] <= LOSS_SPREAD_TOL):
+            failures.append(f"validate: prefetch {out}")
+        res["step6_s"] = time.time() - t0
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.time() - t_phase
+    log(json.dumps({"validate": res}))
+    return failures
+
+
 def main() -> int:
     import torch
 
@@ -1793,6 +2381,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     failures += phase_augment(dev)
     failures += phase_train_cli(dev)
+    failures += phase_validate(dev)
     # each kernel's count comes from the path it was written for: the
     # forward kernels from the predict phase, the backward ones from the
     # training steps (which launch the forward kernels too)

@@ -9,7 +9,10 @@ batch goes to the card from pinned memory without blocking the host
 (``to_device``). There the masks ride as 24-bit float words through the
 warp and are unpacked once; the image is warped by the shear-decomposed
 matrix products (``ops/shear_warp.py``), centre-cropped, and put through the
-intensity stack (``device_augment``).
+intensity stack (``device_augment``). In the host-augmentation mode the
+workers augment instead (``PrefetchLoader(transform=)``,
+``host_augment.py``). ``DevicePrefetcher`` moves the transfer and the
+augmentation of the next batches onto a side stream.
 
 JAX draws the augmentation from a key stream that PyTorch cannot reproduce,
 so ``device_augment`` takes its draws as an argument (``AugmentDraws``):
@@ -24,7 +27,8 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Dict, Iterator, List, Sequence
+from typing import (Callable, Dict, Iterable, Iterator, List,
+                    Optional, Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -70,17 +74,15 @@ def _bytes_to_words(packed_u8: torch.Tensor) -> torch.Tensor:
     return torch.stack(words, dim=-1)
 
 
-def pack_record_cf(rec_cf):
-    """Channel-first record (out of ``RSuperDataset.sample``) → packed
-    channels-last transfer record: the 3·C mask channels as one
-    ``np.packbits(..., bitorder='little')`` byte plane, in one pass through
-    the native encoder (``native_io.pack_masks_cl``) where the host library
-    is built (numpy otherwise), and the image as float16."""
+def pack_masks(label: np.ndarray, unk: np.ndarray,
+               seg: np.ndarray) -> np.ndarray:
+    """The three (C, D, H, W) binary stacks → (D, H, W, ceil(3C/8)) bytes in
+    ``np.packbits(..., bitorder='little')`` layout (channel j is bit j % 8 of
+    byte j // 8), in one pass through the native encoder
+    (``native_io.pack_masks_cl``) where the host library is built (numpy
+    otherwise)."""
     from . import native_io
 
-    label = rec_cf.pop("label")
-    unk = rec_cf.pop("unk")
-    seg = rec_cf.pop("segment_mask")
     packed = native_io.pack_masks_cl(label, unk, seg)
     if packed is None:  # no native library: numpy on channel-first stacks
         m = np.concatenate([label, unk, seg], axis=0)
@@ -88,6 +90,15 @@ def pack_record_cf(rec_cf):
             np.packbits(m.astype(np.uint8), axis=0, bitorder="little"), 0, -1
         )
         packed = np.ascontiguousarray(packed)
+    return packed
+
+
+def pack_record_cf(rec_cf):
+    """Channel-first record (out of ``RSuperDataset.sample``) → packed
+    channels-last transfer record: the 3·C mask channels as one byte plane
+    (``pack_masks``) and the image as float16."""
+    packed = pack_masks(rec_cf.pop("label"), rec_cf.pop("unk"),
+                        rec_cf.pop("segment_mask"))
     out = {"masks_packed": packed}
     for k, v in rec_cf.items():
         out[k] = v
@@ -210,8 +221,10 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict:
 
 class PrefetchLoader:
     """Thread-pool loader: samples records with `RSuperDataset.sample`,
-    packs each for the transfer (``pack_record_cf``), stacks them into
-    batches and keeps `PREFETCH` batches ready.
+    packs each for the transfer (``pack_record_cf``) or, with `transform`
+    (``host_augment.make_host_augment``), augments it in the worker with the
+    worker's generator, stacks them into batches and keeps `PREFETCH`
+    batches ready.
 
     Each worker thread draws from its own ``np.random.default_rng(seed ·
     10007 + worker)``; which worker takes which item depends on the
@@ -226,12 +239,14 @@ class PrefetchLoader:
         indices: Sequence[int],
         num_workers: int = 4,
         seed: int = 0,
+        transform: Optional[Callable] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.indices = list(indices)
         self.num_workers = max(1, num_workers)
         self.seed = seed
+        self.transform = transform
         self.item_seconds: List[float] = []
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -268,7 +283,10 @@ class PrefetchLoader:
                 bi, idx = job
 
                 def load(i):
-                    return pack_record_cf(self.dataset.sample(i, rng))
+                    rec = self.dataset.sample(i, rng)
+                    if self.transform is not None:
+                        return self.transform(rec, rng)
+                    return pack_record_cf(rec)
 
                 t0 = time.perf_counter()
                 try:
@@ -315,3 +333,82 @@ class PrefetchLoader:
                 yield {k: np.stack([r[k] for r in recs]) for k in recs[0]}
                 emitted += 1
                 next_batch += 1
+
+
+class DevicePrefetcher:
+    """Overlaps the transfer and the device augmentation of batch N+1 with
+    step N (the counterpart of the JAX package's ``DevicePrefetcher``): a
+    feeder thread takes ``(index, host batch)`` pairs from `batches` and runs
+    ``prepare(index, host)`` (the transfer from pinned memory and the
+    augmentation's launches, with the draws of that index) on a side CUDA
+    stream, and records an event after it. The consuming stream waits on
+    the event, and ``record_stream`` keeps the caching allocator from
+    reusing a batch's memory before the consumer's work on it is done.
+    At most `depth` prepared batches wait beside the one being consumed.
+    An error of the feeder is raised in the consuming thread. On the CPU
+    the feeder prepares the batches without streams.
+
+    The feeder closes `batches` when it stops; closing this iterator stops
+    the feeder and waits for it."""
+
+    def __init__(self, batches: Iterable[Tuple[int, Dict]],
+                 prepare: Callable[[int, Dict], Dict], device,
+                 depth: int = 2):
+        self.batches = batches
+        self.prepare = prepare
+        self.device = torch.device(device)
+        self.depth = max(1, depth)
+
+    def _feed(self, out: "queue.Queue", slots: threading.Semaphore,
+              stop: threading.Event) -> None:
+        cuda = self.device.type == "cuda"
+        stream = torch.cuda.Stream(self.device) if cuda else None
+        try:
+            for index, host in self.batches:
+                while not slots.acquire(timeout=0.1):
+                    if stop.is_set():
+                        return
+                if stop.is_set():
+                    return
+                if cuda:
+                    with torch.cuda.stream(stream):
+                        batch = self.prepare(index, host)
+                        event = torch.cuda.Event()
+                        event.record(stream)
+                else:
+                    batch, event = self.prepare(index, host), None
+                out.put((batch, event))
+        except Exception as e:  # raised again in the consuming thread
+            out.put(e)
+        finally:
+            close = getattr(self.batches, "close", None)
+            if close is not None:
+                close()
+            out.put(None)
+
+    def __iter__(self) -> Iterator[Dict]:
+        out: "queue.Queue" = queue.Queue()
+        slots = threading.Semaphore(self.depth)
+        stop = threading.Event()
+        feeder = threading.Thread(target=self._feed, args=(out, slots, stop),
+                                  daemon=True)
+        feeder.start()
+        try:
+            while True:
+                item = out.get()
+                if item is None:
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                batch, event = item
+                if event is not None:
+                    current = torch.cuda.current_stream(self.device)
+                    current.wait_event(event)
+                    for v in batch.values():
+                        if isinstance(v, torch.Tensor) and v.is_cuda:
+                            v.record_stream(current)
+                yield batch
+                slots.release()
+        finally:
+            stop.set()
+            feeder.join()

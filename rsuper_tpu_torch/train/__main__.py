@@ -9,11 +9,16 @@
 It reads preprocessed CT-Mask and CT-Report cases (``*.npz`` written by
 ``data/preprocess.preprocess_case``, with a sorted ``classes.json`` in each
 root) and the per-tumour report CSV, and trains with ``train/loop.train``.
-It runs on CUDA unless ``--device cpu`` is given. The options the port does
-not have yet (``--k_fold``, ``--pretrained``/``--old_classes``,
-``--clip_pretrain``, ``--zero_opt``, ``--zero_ema``, ``--spatial_shard`` > 1,
-the ``--dist_*`` flags, 2D presets) raise ``NotImplementedError`` naming
-their item of ``ROADMAP.md`` §1.
+It runs on CUDA unless ``--device cpu`` is given. ``--k_fold K --fold I``
+trains fold I of a K-fold split into ``<cp_path>/<name>_fold<I>/``,
+validates it on the fold's CT-Mask test cases (``fold_results.json``) and
+writes ``<cp_path>/<name>_cross_validation.txt`` once every fold has
+results. ``--pretrained`` warm-starts from a port checkpoint directory (its
+``best``) or a flax ``.npz``, with class surgery of the heads when
+``--old_classes`` names the donor's classes. The options the port does not
+have yet (``--clip_pretrain``, ``--zero_opt``, ``--zero_ema``,
+``--spatial_shard`` > 1, the ``--dist_*`` flags, 2D presets) raise
+``NotImplementedError`` naming their item of ``ROADMAP.md`` §1.
 """
 
 from __future__ import annotations
@@ -23,6 +28,13 @@ import dataclasses
 import glob
 import json
 import os
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:  # the CLI imports torch only once the flags are parsed
+    import torch
+
+    from ..config import TrainConfig
+    from ..data.dataset import RSuperDataset
 
 # command-line arguments that are not TrainConfig fields
 _NOT_CONFIG = ("preset", "config", "all_train", "max_steps",
@@ -87,8 +99,6 @@ def _refuse_unported(args) -> None:
     raises for the fields."""
     from .loop import unported
 
-    if args.k_fold:
-        raise unported("--k_fold", "validation")
     for flag in ("dist_coordinator", "dist_num_processes", "dist_process_id",
                  "local_device_ids"):
         if getattr(args, flag) is not None:
@@ -113,8 +123,48 @@ def load_classes(root):
     )
 
 
-def main(argv=None):
-    """Train; returns the final TrainState."""
+@dataclasses.dataclass
+class Run:
+    """What ``main`` trains: the parsed flags, the config, the initialised
+    model, the training set, the held-out cases, the device, the class
+    list and the experiment's name before a fold's suffix."""
+
+    args: argparse.Namespace
+    cfg: TrainConfig
+    model: torch.nn.Module
+    dataset: RSuperDataset
+    test_cases: list
+    device: torch.device
+    classes: tuple
+    base_name: str
+
+    def held_out(self):
+        """The held-out CT-Mask cases as (image, labels), re-iterable and
+        loaded lazily (CT-Report cases carry no voxel labels); None without
+        held-out cases."""
+        return _HeldOut(self.test_cases, len(self.classes)) \
+            if self.test_cases else None
+
+
+class _HeldOut:
+    """Re-iterable (image, labels) of the CT-Mask cases among `cases`,
+    loaded as they are reached: validation may run every ``val_freq``
+    epochs."""
+
+    def __init__(self, cases, num_classes: int):
+        self.cases, self.num_classes = cases, num_classes
+
+    def __iter__(self):
+        from ..data.preprocess import load_case
+
+        for c in self.cases:
+            if not c.is_report:
+                yield load_case(c.path, num_classes=self.num_classes)
+
+
+def build_run(argv=None) -> Run:
+    """Parse `argv` and build the run: config, cases and their split (a
+    fold's with ``--k_fold``), dataset and the seeded model."""
     args = parse_args(argv)
     _refuse_unported(args)
     import torch
@@ -122,13 +172,14 @@ def main(argv=None):
     from ..config import load_config
     from ..data.class_weights import class_proportions
     from ..data.dataset import (RSuperDataConfig, RSuperDataset,
-                                build_case_list, split_train_test)
-    from ..data.preprocess import load_case
+                                build_case_list, kfold_split,
+                                split_train_test)
     from ..data.reports import clean_reports, load_reports
     from ..data.table import Table
     from ..models import get_model, init_params
     from ..utils.device import resolve_device
-    from .loop import check_config, train
+    from .crossval import fold_dir_name
+    from .loop import check_config
 
     overrides = {k: v for k, v in vars(args).items()
                  if k not in _NOT_CONFIG and v is not None}
@@ -166,8 +217,15 @@ def main(argv=None):
         report_cases = []
     cases = build_case_list(mask_cases, report_cases,
                             balance=cfg.balance_supervision, seed=cfg.seed)
+    base_name = cfg.unique_name
     if args.all_train:
         train_cases, test_cases = cases, []
+    elif args.k_fold:
+        train_cases, test_cases = kfold_split(cases, args.k_fold, args.fold,
+                                              seed=cfg.seed)
+        # fold i trains into <cp_path>/<name>_fold<i>/ (crossval.py contract)
+        cfg = dataclasses.replace(
+            cfg, unique_name=fold_dir_name(base_name, args.fold))
     else:
         train_cases, test_cases = split_train_test(cases, seed=cfg.seed)
 
@@ -190,19 +248,37 @@ def main(argv=None):
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     model = init_params(get_model(cfg.arch, len(classes), dict(cfg.model_args),
                                   dtype=dtype), seed=cfg.seed)
+    return Run(args=args, cfg=cfg, model=model, dataset=dataset,
+               test_cases=test_cases, device=device, classes=tuple(classes),
+               base_name=base_name)
 
-    class _LazyTestCases:
-        """(image, labels) of the held-out CT-Mask cases, loaded lazily."""
 
-        def __iter__(self):
-            for c in test_cases:
-                if not c.is_report:
-                    yield load_case(c.path, num_classes=len(classes))
+def main(argv=None):
+    """Train; with ``--k_fold``, validate the fold and summarise the folds.
+    Returns the final TrainState."""
+    from .crossval import summarize_cross_validation, write_fold_results
+    from .loop import train
+    from .validation import run_validation, validation_model
 
-    return train(cfg, model, dataset,
-                 test_cases=_LazyTestCases() if test_cases else None,
-                 max_steps=args.max_steps, profile_steps=args.profile_steps,
-                 device=device)
+    run = build_run(argv)
+    cfg, args = run.cfg, run.args
+    state = train(cfg, run.model, run.dataset, test_cases=run.held_out(),
+                  max_steps=args.max_steps, profile_steps=args.profile_steps,
+                  device=run.device)
+
+    if args.k_fold and run.test_cases:
+        # the fold's own validation, then the cross-validation summary when
+        # the last fold completes (reference train_ddp.py:751-779)
+        results = run_validation(validation_model(state.model), state, cfg,
+                                 run.held_out(), len(run.classes),
+                                 device=run.device)
+        write_fold_results(f"{cfg.cp_path}/{cfg.unique_name}", args.fold,
+                           args.k_fold, run.classes, results)
+        out = summarize_cross_validation(cfg.cp_path, run.base_name,
+                                         args.k_fold, run.classes)
+        if out:
+            print(f"[crossval] wrote {out}", flush=True)
+    return state
 
 
 if __name__ == "__main__":

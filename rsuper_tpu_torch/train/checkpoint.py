@@ -1,6 +1,6 @@
-"""Checkpoints: latest / every-N / best retention and resume (the port's
-counterpart of ``rsuper_tpu/train/checkpoint.py``, with ``torch.save`` in
-place of orbax).
+"""Checkpoints: latest / every-N / best retention and resume, and warm
+starts from a donor's parameters (the port's counterpart of
+``rsuper_tpu/train/checkpoint.py``, with ``torch.save`` in place of orbax).
 
 A checkpoint ``<dir>/<tag>`` holds the model's, the optimizer's and the EMA
 copy's ``state_dict``s and the step. It is written to a temporary file in
@@ -12,8 +12,11 @@ wait for.
 
 from __future__ import annotations
 
+import json
+import logging
 import os
-from typing import Optional
+import pickle
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -84,3 +87,99 @@ class CheckpointManager:
 
     def has(self, tag: str = "latest") -> bool:
         return os.path.exists(self._path(tag))
+
+
+def parse_class_list(spec: str):
+    """A class list from a YAML/JSON list file or a comma-separated string,
+    SORTED — the reference sorts the old-classes yaml on load
+    (``train_ddp.py:438`` "we will sort them!"). PyYAML is optional: without
+    it a file is read as JSON."""
+    if os.path.exists(spec):
+        with open(spec) as f:
+            text = f.read()
+        try:
+            import yaml
+        except ImportError:
+            classes = json.loads(text)
+        else:
+            try:
+                classes = yaml.safe_load(text)
+            except yaml.YAMLError:
+                classes = json.loads(text)
+        if isinstance(classes, dict):  # tolerate {'classes': [...]} wrappers
+            classes = classes.get("classes")
+        if not isinstance(classes, (list, tuple)):
+            # guessing (e.g. values()[0] of a {name: index} mapping) would
+            # silently yield a wrong class ordering for head surgery
+            raise ValueError(
+                f"{spec}: expected a YAML/JSON list of class names or a "
+                "{'classes': [...]} mapping")
+    else:
+        classes = [c for c in spec.split(",") if c.strip()]
+    return sorted(str(c).strip() for c in classes)
+
+
+def _donor_params(path: str) -> Dict[str, torch.Tensor]:
+    """The donor's parameters as a ``state_dict``: from an ``.npz`` of flax
+    parameters (``tools/export_params_npz.py``), carried across by
+    ``params_from_flax``, or from ``<path>/best``, the best checkpoint of
+    ``CheckpointManager``."""
+    if os.path.isfile(path):
+        import numpy as np
+
+        from ..models.params import params_from_flax
+
+        with np.load(path) as flat:
+            return params_from_flax({k: flat[k] for k in flat.files})
+    payload = torch.load(os.path.join(path, "best"), map_location="cpu",
+                         weights_only=True)
+    return payload["params"]
+
+
+def load_pretrained_params(state: TrainState, path: str,
+                           old_classes: Optional[Sequence[str]] = None,
+                           new_classes: Optional[Sequence[str]] = None
+                           ) -> TrainState:
+    """Non-strict transfer-learning load (reference ``model/utils.py:125-129``)
+    into ``state.model``'s parameters, in place: tensors whose name and shape
+    match are copied; everything else keeps its fresh init, and so does the
+    EMA copy, as in the JAX package (which replaces the parameters alone).
+    The log reports how many tensors transferred (a warning at zero). An
+    unreadable donor logs a warning and leaves `state` as it is.
+
+    With `old_classes` + `new_classes` (reference --update_output_layer
+    --old_classes, ``train_ddp.py:437-438`` → ``update_output_layer_onk``)
+    the output heads are remapped class by class
+    (``models/surgery.update_output_layers``)."""
+    logger = logging.getLogger("rsuper")
+    where = path if os.path.isfile(path) else os.path.join(
+        os.path.abspath(path), "best")
+    try:
+        donor = _donor_params(path)
+    except (OSError, KeyError, TypeError, ValueError, RuntimeError,
+            pickle.UnpicklingError) as e:  # unreadable / not a checkpoint
+        logger.warning("pretrained load failed for %s (%s: %s) — keeping "
+                       "fresh init", where, type(e).__name__, e)
+        return state
+    model = state.model
+    current = model.state_dict()
+    if old_classes:
+        from ..models.surgery import update_output_layers
+
+        new = update_output_layers(current, donor, list(old_classes),
+                                   list(new_classes))
+        logger.info(
+            "pretrained transfer from %s with class surgery: %d old -> %d "
+            "new classes (%d shared)", where, len(old_classes),
+            len(new_classes), len(set(old_classes) & set(new_classes)))
+    else:
+        same = {k for k, v in current.items()
+                if k in donor and donor[k].shape == v.shape}
+        new = {k: donor[k].to(v) if k in same else v
+               for k, v in current.items()}
+        log = logger.warning if not same else logger.info
+        log("pretrained transfer from %s: %d/%d parameter tensors matched "
+            "by name+shape (non-strict)", where, len(same), len(current))
+    with torch.no_grad():
+        model.load_state_dict(new)
+    return state

@@ -1,16 +1,21 @@
-"""The training loop on one device: epochs × steps with device
-augmentation, the loss-NaN guard, EMA, checkpoints and resume (the port's
-counterpart of ``rsuper_tpu/train/loop.py`` without the mesh).
+"""The training loop on one device: epochs × steps with device or host
+augmentation, the loss-NaN guard, EMA, checkpoints, resume, warm starts and
+periodic validation (the port's counterpart of ``rsuper_tpu/train/loop.py``
+without the mesh).
 
-Each step: ``ChunkedSampler`` indices → ``PrefetchLoader`` (packed records)
-→ the transfer to the device (``pipeline.to_device``) → ``device_augment``
-→ ``build_train_step`` → meters and logging. A resumed run goes on from the
-step it saved, also in the middle of an epoch (where the JAX loop starts
-the epoch again). The model's parameters are
-initialised by the caller. The options of the JAX loop that the port does
-not have yet raise ``NotImplementedError`` naming their item of
-``ROADMAP.md`` §1 before anything runs; so does a run whose planned epochs
-reach a validation (``val_freq``), which is not ported yet.
+Each step: ``ChunkedSampler`` indices → ``PrefetchLoader`` (packed records,
+or records augmented in its workers with ``host_augment``) → the transfer to
+the device (``pipeline.to_device``) → ``device_augment`` (or the cast of the
+host-augmented batch) → ``build_train_step`` → meters and logging. With
+``device_prefetch`` > 0 a ``DevicePrefetcher`` runs the transfer and the
+augmentation of the next batches on a side stream while the step runs. A
+resumed run goes on from the step it saved, also in the middle of an epoch
+(where the JAX loop starts the epoch again). The model's parameters are
+initialised by the caller; ``pretrained`` then loads a donor's before
+``resume``. At the end of every ``val_freq``-th epoch the run validates on
+its test cases and keeps the best checkpoint by mean Dice. The options of
+the JAX loop that the port does not have yet raise ``NotImplementedError``
+naming their item of ``ROADMAP.md`` §1 before anything runs.
 """
 
 from __future__ import annotations
@@ -22,28 +27,27 @@ import numpy as np
 import torch
 
 from ..config import TrainConfig
-from ..data.pipeline import (AugmentDraws, PrefetchLoader, device_augment,
-                             draw_augment, to_device)
+from ..data.host_augment import make_host_augment, to_step_dtype
+from ..data.pipeline import (AugmentDraws, DevicePrefetcher, PrefetchLoader,
+                             device_augment, draw_augment, to_device)
 from ..data.sampler import ChunkedSampler
 from ..losses import LesionChannelMap
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger, dump_config, setup_logger
 from ..utils.meters import AverageMeter
 from ..utils.profiling import PhaseTimer, TraceCapture
-from .checkpoint import CheckpointManager
+from .checkpoint import (CheckpointManager, load_pretrained_params,
+                         parse_class_list)
 from .optim import make_optimizer
 from .state import TrainState, create_train_state
 from .step import build_train_step
+from .validation import run_validation, validation_model
 
 # the items of ROADMAP.md §1 that hold what the port does not have yet
 ROADMAP = {
-    "validation": "ROADMAP.md §1 item 1 (validation and cross-validation)",
-    "pretrained": "ROADMAP.md §1 item 2 (pretrained loads and class surgery)",
-    "host_augment": "ROADMAP.md §1 item 3 (host augmentation)",
-    "device_prefetch": "ROADMAP.md §1 item 4 (DevicePrefetcher)",
-    "clip": "ROADMAP.md §1 item 5 (OrganBatchSampler and CLIP)",
-    "2d": "ROADMAP.md §1 item 8 (the rest of MedFormer and the 2D path)",
-    "multi_gpu": "ROADMAP.md §1 item 12 (multi-GPU)",
+    "clip": "ROADMAP.md §1 item 1 (OrganBatchSampler and CLIP)",
+    "2d": "ROADMAP.md §1 item 4 (the rest of MedFormer and the 2D path)",
+    "multi_gpu": "ROADMAP.md §1 item 8 (multi-GPU)",
 }
 
 Draws = Callable[[int, int, int], AugmentDraws]
@@ -56,32 +60,13 @@ def unported(what: str, item: str) -> NotImplementedError:
 def check_config(cfg: TrainConfig) -> None:
     """Raise for each option of the JAX loop the port does not have."""
     for name, item in (("zero_opt", "multi_gpu"), ("zero_ema", "multi_gpu"),
-                       ("host_augment", "host_augment"),
                        ("clip_pretrain", "clip")):
         if getattr(cfg, name):
             raise unported(name, item)
     if cfg.spatial_shard > 1:
         raise unported(f"spatial_shard={cfg.spatial_shard}", "multi_gpu")
-    if cfg.device_prefetch > 0:
-        raise unported(f"device_prefetch={cfg.device_prefetch}",
-                       "device_prefetch")
-    if cfg.pretrained or cfg.old_classes:
-        raise unported("pretrained/old_classes", "pretrained")
     if cfg.is_2d:
         raise unported("2D training", "2d")
-
-
-def _validating_epochs(cfg: TrainConfig, start_epoch: int,
-                       max_steps: Optional[int]):
-    """The epochs at whose end the JAX loop would validate: those completed
-    before the run ends (the epoch of the `max_steps`-th step returns before
-    its validation)."""
-    end = cfg.epochs
-    if max_steps is not None:
-        end = min(end, start_epoch + (max_steps - 1) // cfg.iter_per_epoch)
-    if not cfg.val_freq:
-        return []
-    return [e for e in range(start_epoch, end) if (e + 1) % cfg.val_freq == 0]
 
 
 def seeded_draws(cfg: TrainConfig, device: torch.device) -> Draws:
@@ -114,8 +99,10 @@ def train(
 ) -> TrainState:
     """Run the training job on `device` (CUDA unless the CPU is asked for);
     returns the final TrainState. `model` holds its initial parameters.
-    `draws(epoch, index, batch_size)` gives each batch's augmentation draws
-    (default: `seeded_draws`)."""
+    `test_cases` (re-iterable (image, labels) pairs) are validated at the
+    end of every ``val_freq``-th epoch. `draws(epoch, index, batch_size)`
+    gives each batch's device-augmentation draws (default:
+    `seeded_draws`)."""
     check_config(cfg)
     device = resolve_device(device)
     if len(dataset) == 0:
@@ -136,15 +123,17 @@ def train(
     state = create_train_state(model, opt, ema=cfg.ema)
 
     ckpt = CheckpointManager(exp_dir, save_every=cfg.save_every)
+    if cfg.pretrained:
+        old = parse_class_list(cfg.old_classes) if cfg.old_classes else None
+        state = load_pretrained_params(state, cfg.pretrained,
+                                       old_classes=old,
+                                       new_classes=list(cfg.classes))
+        logger.info("loaded pretrained weights from %s (%s)", cfg.pretrained,
+                    "class surgery" if old else "non-strict")
     if cfg.resume and ckpt.has("latest"):
         state = ckpt.restore(state, "latest")
         logger.info("resumed from step %d", state.step)
     start_epoch, done = divmod(state.step, cfg.iter_per_epoch)
-    if test_cases is not None:
-        epochs = _validating_epochs(cfg, start_epoch, max_steps)
-        if epochs:
-            raise unported(f"validation at the end of epoch {epochs[0]} "
-                           f"(val_freq={cfg.val_freq})", "validation")
 
     step_fn = build_train_step(lmap, cfg.loss_config(),
                                ema_alpha=cfg.ema_alpha,
@@ -158,6 +147,13 @@ def train(
     for e in range(start_epoch):
         sampler.epoch_indices(e)
     draws = draws or seeded_draws(cfg, device)
+    # host augmentation: the loader's workers augment (reference-style), and
+    # the device only casts; else the loader packs and the device augments
+    host_transform = None
+    if cfg.host_augment:
+        host_transform = make_host_augment(
+            tuple(cfg.training_size), scale=tuple(cfg.scale),
+            rotate=tuple(cfg.rotate), translate=tuple(cfg.translate))
 
     tracer = None
     if profile_steps:
@@ -166,6 +162,7 @@ def train(
         tracer = TraceCapture(f"{exp_dir}/trace", start_step=start,
                               num_steps=profile_steps)
     timer = PhaseTimer()
+    val_model = None
 
     def log_phases(loader):
         for s in loader.item_seconds:
@@ -175,14 +172,36 @@ def train(
         metrics_log.log(state.step, summary, prefix="phase/")
         return summary
 
+    def prepare(epoch, index, host):
+        """A host batch on the device, augmented, in the step's type."""
+        with timer.phase("h2d"):
+            batch = to_device(host, device)
+        if host_transform is not None:
+            return to_step_dtype(batch, dtype)
+        with timer.phase("augment"):
+            return device_augment(
+                batch, draws(epoch, index, cfg.batch_size),
+                crop_size=tuple(cfg.training_size), out_dtype=dtype,
+                num_classes=len(cfg.classes))
+
+    def loaded(batches, first, wait):
+        """(index, host batch) of the epoch from `first` on, the wait for
+        the loader timed as phase `wait`."""
+        for index in range(first, cfg.iter_per_epoch):
+            with timer.phase(wait):
+                host = next(batches, None)
+            if host is None:
+                return
+            yield index, host
+
     total_steps = 0
     check_every = max(1, cfg.nan_check_every)
-    batches = None
+    batches = source = None
     try:
         for epoch in range(start_epoch, cfg.epochs):
             loader = PrefetchLoader(
                 dataset, cfg.batch_size, sampler.epoch_indices(epoch),
-                num_workers=cfg.num_workers,
+                num_workers=cfg.num_workers, transform=host_transform,
             )
             batches = iter(loader)
             # a run resumed in the middle of an epoch loads the batches it
@@ -191,24 +210,33 @@ def train(
             first = done if epoch == start_epoch else 0
             for _ in range(first):
                 next(batches, None)
+            # `load` is the loop's wait for the stage before it: the loader
+            # inline (h2d and augment then follow on the loop's thread), the
+            # prefetcher with `device_prefetch`, whose feeder thread waits
+            # for the loader as `feeder_load`
+            prefetching = cfg.device_prefetch > 0
+            if prefetching:
+                source = iter(DevicePrefetcher(
+                    loaded(batches, first, "feeder_load"),
+                    lambda i, h, e=epoch: prepare(e, i, h), device,
+                    depth=cfg.device_prefetch))
+            else:
+                source = (prepare(epoch, i, h)
+                          for i, h in loaded(batches, first, "load"))
             loss_meter = AverageMeter("loss")
             t_meter = AverageMeter("s/it")
             t0 = time.time()
             losses = None
-            for index in range(first, cfg.iter_per_epoch):
+            for _ in range(first, cfg.iter_per_epoch):
                 if tracer is not None:  # the window holds whole iterations
                     tracer.step(total_steps)
-                with timer.phase("load"):
-                    host = next(batches, None)
-                if host is None:
+                if prefetching:
+                    with timer.phase("load"):
+                        batch = next(source, None)
+                else:
+                    batch = next(source, None)
+                if batch is None:
                     break
-                with timer.phase("h2d"):
-                    batch = to_device(host, device)
-                with timer.phase("augment"):
-                    batch = device_augment(
-                        batch, draws(epoch, index, cfg.batch_size),
-                        crop_size=tuple(cfg.training_size), out_dtype=dtype,
-                        num_classes=len(cfg.classes))
                 with timer.phase("step"):
                     state, losses = step_fn(state, batch)
                 total_steps += 1
@@ -243,15 +271,32 @@ def train(
                                 log_phases(loader))
                     return state
 
+            source.close()
             batches.close()
             if loss_meter.count == 0 and losses is not None:
                 loss_meter.update(float(losses["overall"]))
-            ckpt.save_epoch(state, epoch)
+
+            val_metric = None
+            if (test_cases is not None and cfg.val_freq
+                    and (epoch + 1) % cfg.val_freq == 0):
+                if val_model is None:  # one instance for every validation
+                    val_model = validation_model(state.model)
+                results = run_validation(val_model, state, cfg, test_cases,
+                                         len(cfg.classes), device=device,
+                                         timer=timer)
+                val_metric = float(np.mean(results["dice"]))
+                logger.info("epoch %d val dice %.4f", epoch, val_metric)
+                metrics_log.log(state.step, {"dice_mean": val_metric},
+                                prefix="val/")
+
+            ckpt.save_epoch(state, epoch, metric=val_metric)
             logger.info("epoch %d done: %s phases=%s", epoch, loss_meter,
                         log_phases(loader))
         ckpt.wait()
         return state
     finally:
+        if source is not None:  # stops a prefetcher's feeder first
+            source.close()
         if batches is not None:
             batches.close()
         if tracer is not None:

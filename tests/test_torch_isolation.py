@@ -24,7 +24,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "rsuper_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rsuper_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
+             "rsuper_tpu")
 
 
 def _sources():
@@ -39,7 +40,10 @@ def _sources():
                 "data/crops.py", "data/preprocess.py", "data/native_io.py",
                 "data/dataset.py", "data/sampler.py", "data/class_weights.py",
                 "ops/shear_warp.py", "data/augment.py", "data/pipeline.py",
-                "train/checkpoint.py", "train/loop.py", "train/__main__.py"):
+                "train/checkpoint.py", "train/loop.py", "train/__main__.py",
+                "metrics/dice.py", "metrics/surface.py",
+                "train/validation.py", "train/crossval.py",
+                "models/surgery.py", "data/host_augment.py"):
         assert f"rsuper_tpu_torch/{new}" in names
     return files
 

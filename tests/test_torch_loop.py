@@ -23,7 +23,9 @@
   bit for bit; the CLI runs
   end to end with ``--device cpu`` and resumes, without importing pandas or
   PyYAML; every option the port does not have raises
-  ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+  ``NotImplementedError`` naming its ``ROADMAP.md`` item (validation,
+  warm starts, host augmentation and the prefetcher are held in
+  ``tests/test_torch_{validation,pretrained,host_augment}.py``).
 """
 
 import dataclasses
@@ -441,18 +443,15 @@ def test_presets_and_class_lists_match_the_jax_package():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--k_fold", "5"], "item 1 "),
-    (["--pretrained", "ckpt"], "item 2 "),
-    (["--old_classes", "a,b"], "item 2 "),
-    (["--clip_pretrain"], "item 5 "),
-    (["--zero_opt"], "item 12 "),
-    (["--zero_ema"], "item 12 "),
-    (["--spatial_shard", "2"], "item 12 "),
-    (["--dist_coordinator", "localhost:1234"], "item 12 "),
-    (["--dist_num_processes", "2"], "item 12 "),
-    (["--dist_process_id", "0"], "item 12 "),
-    (["--local_device_ids", "0"], "item 12 "),
-    (["--preset", "slices/resunet_2d"], "item 8 "),
+    (["--clip_pretrain"], "item 1 "),
+    (["--zero_opt"], "item 8 "),
+    (["--zero_ema"], "item 8 "),
+    (["--spatial_shard", "2"], "item 8 "),
+    (["--dist_coordinator", "localhost:1234"], "item 8 "),
+    (["--dist_num_processes", "2"], "item 8 "),
+    (["--dist_process_id", "0"], "item 8 "),
+    (["--local_device_ids", "0"], "item 8 "),
+    (["--preset", "slices/resunet_2d"], "item 4 "),
 ])
 def test_unported_cli_options_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
@@ -460,12 +459,9 @@ def test_unported_cli_options_raise(tmp_path, flags, item):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("host_augment", True, "item 3 "),
-    ("device_prefetch", 2, "item 4 "),
-    ("zero_opt", True, "item 12 "),
-    ("spatial_shard", 2, "item 12 "),
-    ("pretrained", "x", "item 2 "),
-    ("clip_pretrain", True, "item 5 "),
+    ("zero_opt", True, "item 8 "),
+    ("spatial_shard", 2, "item 8 "),
+    ("clip_pretrain", True, "item 1 "),
 ])
 def test_unported_config_fields_raise(tmp_path, field, value, item):
     cfg = load_config(PRESET, overrides={field: value})
@@ -478,17 +474,3 @@ def test_an_empty_case_list_raises(tmp_path):
     with pytest.raises(ValueError, match="no training cases"):
         cli.main(["--data_root", str(tmp_path), "--device", "cpu",
                   "--cp_path", str(tmp_path)])
-
-
-def test_validation_raises_before_the_first_step(data, tmp_path):
-    with pytest.raises(NotImplementedError, match="validation.*item 1 "):
-        _train_port(data, tmp_path, test_cases=[], max_steps=5,
-                    cfg={"val_freq": 2})
-    assert not (tmp_path / "test" / "latest").exists()
-    cfg = load_config(PRESET, overrides=dict(OVERRIDES, val_freq=2))
-    assert loop._validating_epochs(cfg, 0, None) == [1]
-    assert loop._validating_epochs(cfg, 0, 2) == []  # returns in epoch 0
-    assert loop._validating_epochs(cfg, 0, 3) == []
-    assert loop._validating_epochs(cfg, 0, 5) == [1]
-    assert loop._validating_epochs(
-        dataclasses.replace(cfg, val_freq=20000), 0, None) == []
