@@ -94,7 +94,20 @@ Phases, in order (any failure exits non-zero):
              against the donor and the fresh initialisation), host
              augmentation, and ``device_prefetch`` 2 against 0 (equal
              batches and first losses, batches intact after their step, ms
-             an iteration of both).
+             an iteration of both);
+9. clip    — CLIP pretraining and the classification branch on the same
+             cases: ``main`` with ``--clip_pretrain --clip_source DIR`` (seeded
+             768-wide report embeddings) for 4 steps, the last profiled, and 2
+             on ``--resume``, the launch counts set to 0 just before and read
+             just after (finite contrastive losses, one crop organ a batch,
+             the resumed batches those of the uninterrupted run, no top-N
+             launch, float32 embeddings at the step; ms an iteration, busy
+             share, device operations against the full CLI step's, peak
+             memory); a CLIP step and a classification step through the
+             kernels against the plain versions (the train phase's rules);
+             2 steps of the preset with the classification branch. The
+             kernels phase also holds the depthwise kernels at the heads'
+             (2,4,4,4,C) shapes.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. It imports nothing of JAX or of
@@ -251,6 +264,11 @@ VAL_CONV_SHAPES = {
 }
 VAL_DW_SHAPES = [(4, 64, 64, 64, 256), (4, 32, 32, 32, 128),
                  (4, 16, 16, 16, 256), (4, 8, 8, 8, 320)]
+# the CLIP and classification heads' extra DownBlockMF on x4 at the
+# preset's 128³ × 2 (8³ × 320 → 4³): the patch merge (8·320 channels), the
+# attention's input projection (160), its output projection (4 heads × 32)
+# and the MBConv feed-forward's depthwise (4 × 160); forward and backward
+CLIP_DW_SHAPES = [(2, 4, 4, 4, c) for c in (2560, 640, 160, 128)]
 DW_SHAPES = [  # (B, D, H, W, C)
     (8, 48, 48, 48, 256), (8, 24, 24, 24, 128), (8, 24, 24, 24, 384),
     (8, 24, 24, 24, 512), (8, 12, 12, 12, 256), (8, 12, 12, 12, 576),
@@ -439,7 +457,8 @@ def phase_kernels(dev, reps: int):
                  no_prologue=alone, device=Ci == 1, path=path)
             del x, w
         dw_shapes = ([(s, None) for s in DW_FWD_SHAPES]
-                     + [(s, "validate") for s in VAL_DW_SHAPES])
+                     + [(s, "validate") for s in VAL_DW_SHAPES]
+                     + [(s, "clip") for s in CLIP_DW_SHAPES])
         for (B, D, H, W, C), path in dw_shapes:
             x = torch.randn((B, D, H, W, C), generator=gen, device=dev
                             ).to(dtype)
@@ -620,7 +639,8 @@ def backward_cases(case, gen, dev, dtype, dname):
                  (lambda args=args: _wgrad64(*args)) if dname == "bfloat16"
                  else None, device=Ci == 1)
             del x, dy, xn, gn, wn, args
-    for (B, D, H, W, C) in DW_BWD_SHAPES:
+    for (B, D, H, W, C), path in ([(s, None) for s in DW_BWD_SHAPES]
+                                  + [(s, "clip") for s in CLIP_DW_SHAPES]):
         x = rand((B, D, H, W, C)).to(dtype)
         dy = rand((B, D, H, W, C)).to(dtype)
         w = rand((3, 3, 3, 1, C)) / 27
@@ -642,7 +662,8 @@ def backward_cases(case, gen, dev, dtype, dname):
 
         case("depthwise_conv3x3x3_bwd", dwconv.depthwise_conv3x3x3_bwd,
              (x, w, dy), (x, w, dy), flops, nbytes, lib, dname,
-             (B, D, H, W, C), device=True, function=(function, forward))
+             (B, D, H, W, C), device=True, function=(function, forward),
+             path=path)
         del x, dy, w, xg, wg
 
 
@@ -1036,24 +1057,27 @@ def _ball_trace(keep_masks: bool = False):
         ball._ball_centres, ball.isolate_tumor_batched = centres_of, isolate
 
 
-def _train_losses_and_grads(state, batch, lmap, cfg):
+def _train_losses_and_grads(state, batch, lmap, cfg, clip_only=False):
     """One forward and backward from `state` (no update): every loss term as
-    a float, every parameter's gradient, and the Ball Loss's trace."""
+    a float, the gradient of every parameter the loss reaches, and the Ball
+    Loss's trace."""
     from rsuper_tpu_torch.train import loss_fn
 
     state.model.zero_grad(set_to_none=True)
     with _ball_trace() as trace:
-        overall, losses = loss_fn(state.model, batch, lmap, cfg)
+        overall, losses = loss_fn(state.model, batch, lmap, cfg,
+                                  clip_only=clip_only)
     overall.backward()
     grads = {k: p.grad.detach().clone()
-             for k, p in state.model.named_parameters()}
+             for k, p in state.model.named_parameters() if p.grad is not None}
     state.model.zero_grad(set_to_none=True)
     return {k: float(v.detach()) for k, v in losses.items()}, grads, trace
 
 
-def _kernels_vs_plain(dev, margs, batch, lmap, cfg):
+def _kernels_vs_plain(dev, margs, batch, lmap, cfg, clip_only=False):
     """Losses and gradients of one forward and backward through the kernels
-    against the plain versions, from the same seeded state.
+    against the plain versions, from the same seeded state (with
+    `clip_only`, the CLIP step: the encoder and its head).
 
     With random weights the model amplifies rounding: one float32 rounding
     of the input image (x·(1 ± 2^-22)) moves the plain float32 gradients by
@@ -1083,10 +1107,8 @@ def _kernels_vs_plain(dev, margs, batch, lmap, cfg):
     from rsuper_tpu_torch.ops.dispatch import plain_on_device
 
     def run(state, b, plain=False):
-        if not plain:
-            return _train_losses_and_grads(state, b, lmap, cfg)
-        with plain_on_device():
-            return _train_losses_and_grads(state, b, lmap, cfg)
+        with plain_on_device() if plain else nullcontext():
+            return _train_losses_and_grads(state, b, lmap, cfg, clip_only)
 
     fails = []
     state32 = bench_train.build_state(dev, False, margs, dtype=torch.float32)
@@ -1697,7 +1719,8 @@ def phase_train_cli(dev):
     just before and read just after, then ``--resume`` for CLI_RESUME_STEPS
     more. Fails unless the step counts, finite losses, the checkpoint and
     metrics files, the restored optimizer state and the kernels in the
-    window are as they must be."""
+    window are as they must be. Returns the failures and the device
+    operations of the profiled step."""
     import torch
 
     from rsuper_tpu_torch.data import native_io
@@ -1794,6 +1817,256 @@ def phase_train_cli(dev):
     del state
     torch.cuda.empty_cache()
     log(json.dumps({"train_cli": res}))
+    return failures, res["profiled_step_kernel_records"]
+
+
+# ------------------------------------------------- CLIP and classification
+CLIP_STEPS, CLIP_RESUME_STEPS = 4, 2
+CLIP_FEATS = 768  # the reference's report encoder (Clinical-Longformer) width
+# the kernels a CLIP step must show in its profile: the CLI step's, but
+# top-N (the CLIP step has no Ball Loss)
+CLIP_KERNELS = {k: v for k, v in CLI_KERNELS.items() if k != "topn"}
+TOPN_KERNELS = ("topn_threshold_multi", "topn_threshold_multi_batched")
+CLS_STEPS = 2  # steps of the preset with the classification branch
+
+
+@contextmanager
+def _loader_spy():
+    """Inside the block, keep the dataset, the batch size and the indices
+    of every loader the training loop builds (one an epoch)."""
+    from rsuper_tpu_torch.train import loop
+
+    seen, inner = [], loop.PrefetchLoader
+
+    class Recording(inner):
+        def __init__(self, dataset, batch_size, indices, **kwargs):
+            super().__init__(dataset, batch_size, indices, **kwargs)
+            seen.append((dataset, batch_size, [int(i) for i in self.indices]))
+
+    loop.PrefetchLoader = Recording
+    try:
+        yield seen
+    finally:
+        loop.PrefetchLoader = inner
+
+
+def _loader_batches(loaders):
+    """The index batches of the recorded loaders, in the order the loop
+    meets them."""
+    return [idx[i:i + bs] for _, bs, idx in loaders
+            for i in range(0, len(idx) - bs + 1, bs)]
+
+
+@contextmanager
+def _preset(**fields):
+    """Inside the block, the preset with `fields` replaced."""
+    from rsuper_tpu_torch.config import config
+
+    saved = config.DEFAULT_CONFIGS[PRESET]
+    config.DEFAULT_CONFIGS[PRESET] = {**saved, **fields}
+    try:
+        yield
+    finally:
+        config.DEFAULT_CONFIGS[PRESET] = saved
+
+
+def phase_clip(dev, full_step_ops: int):
+    """CLIP pretraining and the classification branch at the preset's sizes
+    (default MedFormer, 128³ crops, batch 2, bf16, ``remat`` on) on the
+    ``train_cli`` phase's synthetic cases (BDMAP_R1 with one more pancreas
+    tumour), with seeded CLIP_FEATS-wide report embeddings for the two
+    CT-Report cases (the CT-Mask cases take the zero embedding):
+
+    * ``main`` with ``--clip_pretrain --clip_source DIR`` for CLIP_STEPS
+      steps, the last profiled, the launch counts set to 0 just before and
+      read just after, then ``--resume`` for CLIP_RESUME_STEPS more: finite
+      contrastive losses, every batch of one crop organ, the resumed run's
+      batches those of the uninterrupted run's epoch (and of the organ
+      sampler), no top-N launch (no Ball Loss, no decoder); ms an
+      iteration, the profiled step's busy share and device operations
+      against the full ``ball_dice_last`` step's (`full_step_ops`), peak
+      memory;
+    * one CLIP step's losses and gradients through the kernels against the
+      plain versions, float32 and bf16, at full and cut depth
+      (``_kernels_vs_plain``: the train phase's rules) on a seeded 128³ × 2
+      batch;
+    * the classification branch: CLS_STEPS steps of the preset with
+      ``classification_branch`` and one output a lesion class, on the
+      kernels (finite terms every step), and one step of the train phase's
+      batch with the head through the kernels against the plain versions
+      (``_kernels_vs_plain``)."""
+    import numpy as np
+    import torch
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.config import load_config
+    from rsuper_tpu_torch.data.sampler import OrganBatchSampler
+    from rsuper_tpu_torch.losses import LesionChannelMap, LossConfig
+    from rsuper_tpu_torch.train.__main__ import main as train_main
+    from rsuper_tpu_torch.utils.device import card_line
+
+    failures, res = [], {"card": card_line(), "crop": list(AUG_CROP),
+                         "batch": 2, "clip_feats": CLIP_FEATS}
+    counted = wrappers()
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        masks, reports, csv = write_cli_cases(root)
+        # a second pancreas tumour for BDMAP_R1 (its kidney one ties it
+        # otherwise): both report cases tag "pancreas", so a pancreas batch
+        # holds two cases and two embeddings
+        with open(csv, "a") as f:
+            f.write("BDMAP_R1,pancreas,tail,25,no,0\n")
+        emb_dir = root / "embeddings"
+        emb_dir.mkdir()
+        rng = np.random.default_rng(7)
+        for k in range(2):  # unit-norm, as the reference's encoder writes
+            v = rng.normal(size=CLIP_FEATS).astype(np.float32)
+            np.save(emb_dir / f"BDMAP_R{k}.npy", v / np.linalg.norm(v))
+        args = ["--preset", PRESET, "--data_root", str(masks),
+                "--report_root", str(reports), "--reports", str(csv),
+                "--cp_path", str(root / "exp"), "--unique_name", "clip",
+                "--iter_per_epoch", "3", "--epochs", "4",
+                "--clip_pretrain", "--clip_source", str(emb_dir)]
+        exp = root / "exp" / "clip"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for w in counted.values():
+            w.launches = 0
+        with _loop_spy() as spy, _loader_spy() as loaders:
+            t0 = time.time()
+            state = train_main(args + ["--max_steps", str(CLIP_STEPS),
+                                       "--profile_steps", "1"])
+            torch.cuda.synchronize()
+            res["run_s"] = time.time() - t0
+        launches = {k: w.launches for k, w in counted.items()}
+        res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        losses = [float(v) for v in spy["losses"]]
+        phases = [r for r in _metrics_log(exp) if "phase/step_ms" in r][-1]
+        names, busy_ms = _trace_kernels(exp / "trace" / "trace.json")
+        found = {k: sum(part in n for n in names)
+                 for k, part in CLIP_KERNELS.items()}
+        res.update(
+            steps=CLIP_STEPS, contrastive_losses=losses,
+            heads=list(state.model.heads), batch_layout=spy["batch_layout"],
+            ms_per_step=phases["phase/iteration_median_ms"],
+            step_call_ms=phases["phase/step_median_ms"],
+            loader_item_ms=phases["phase/loader_item_ms"],
+            loader_wait_ms=phases["phase/load_median_ms"],
+            launches_per_step={k: n / CLIP_STEPS
+                               for k, n in launches.items()},
+            profiled_step_kernels=found, device_busy_ms=busy_ms,
+            device_busy_share_of_step=busy_ms / phases[
+                "phase/iteration_median_ms"],
+            device_ops=len(names), full_step_device_ops=full_step_ops,
+            device_ops_share_of_full_step=len(names) / full_step_ops)
+        if state.step != CLIP_STEPS or state.model.heads != ("clip",):
+            failures.append(f"clip: step {state.step}, heads "
+                            f"{state.model.heads} after the run")
+        if len(losses) != CLIP_STEPS or not all(map(math.isfinite, losses)):
+            failures.append(f"clip: contrastive losses {losses}")
+        if spy["batch_layout"].get("report_embedding") != [
+                "torch.float32", [2, CLIP_FEATS], dev.type]:
+            failures.append("clip: the step's report embeddings are not "
+                            f"float32 (2, {CLIP_FEATS}) on the device: "
+                            f"{spy['batch_layout']}")
+        for k in KERNELS:
+            if k in TOPN_KERNELS:
+                if launches[k]:
+                    failures.append(f"clip: {k} launched {launches[k]} "
+                                    "times: the CLIP step has no Ball Loss")
+            elif launches[k] <= 0:
+                failures.append(f"clip: {k} was not launched")
+        for k, n in found.items():
+            if n <= 0:
+                failures.append(f"clip: no {k} kernel in the profiled step")
+
+        # organ-homogeneous batches; the resumed run draws the batches of
+        # the uninterrupted run's epoch
+        dataset = loaders[0][0]
+        organs = dataset.crop_organs()
+        batches = _loader_batches(loaders)
+        res["crop_organs"] = organs
+        res["batch_organs"] = [[organs[i] for i in b]
+                               for b in batches[:CLIP_STEPS]]
+        with _loop_spy() as spy2, _loader_spy() as loaders2:
+            state = train_main(args + ["--max_steps", str(CLIP_RESUME_STEPS),
+                                       "--resume"])
+        losses2 = [float(v) for v in spy2["losses"]]
+        # the resumed run starts in epoch 1 after its first batch
+        first, skip = divmod(CLIP_STEPS, 3)
+        resumed = _loader_batches(loaders2)[skip:skip + CLIP_RESUME_STEPS]
+        uninterrupted = batches[CLIP_STEPS:CLIP_STEPS + CLIP_RESUME_STEPS]
+        sampler = OrganBatchSampler(organs, 2, seed=load_config(PRESET).seed)
+        drawn = [sampler.batch(s).tolist() for s in
+                 range(CLIP_STEPS, CLIP_STEPS + CLIP_RESUME_STEPS)]
+        res["resumed"] = dict(step=state.step, contrastive_losses=losses2,
+                              batches=resumed, uninterrupted=uninterrupted,
+                              sampler=drawn,
+                              batch_organs=[[organs[i] for i in b]
+                                            for b in resumed])
+        if not (loaders2[0][2] == loaders[first][2]
+                and resumed == uninterrupted == drawn):
+            failures.append(f"clip: the resumed batches {resumed} differ "
+                            f"from the uninterrupted run's {uninterrupted} "
+                            f"or the sampler's {drawn}")
+        if any(len({organs[i] for i in b}) != 1
+               for b in batches + _loader_batches(loaders2)):
+            failures.append(f"clip: a batch mixes organs: {batches}")
+        if (state.step != CLIP_STEPS + CLIP_RESUME_STEPS
+                or len(losses2) != CLIP_RESUME_STEPS
+                or not all(map(math.isfinite, losses2))):
+            failures.append(f"clip: the resumed run: {res['resumed']}")
+
+        # the classification branch at the preset's sizes, on the kernels
+        classes = sorted(CLASSES)
+        n_cls = len(LesionChannelMap.from_classes(classes)
+                    .lesion_class_indices())
+        margs = {**load_config(PRESET).model_args,
+                 "classification_classes": n_cls}
+        with _preset(classification_branch=True, model_args=margs), \
+                _loop_spy() as spy3:
+            state = train_main(args[:args.index("--clip_pretrain")]
+                               + ["--unique_name", "cls", "--max_steps",
+                                  str(CLS_STEPS)])
+        terms = [{k: float(v) for k, v in t.items()} for t in spy3["terms"]]
+        res["classification"] = dict(classes=n_cls, steps=terms,
+                                     heads=list(state.model.heads))
+        if (len(terms) != CLS_STEPS or state.model.heads != ("cls",)
+                or not all("classification" in t
+                           and all(map(math.isfinite, t.values()))
+                           for t in terms)):
+            failures.append(f"clip: the classification steps: "
+                            f"{res['classification']}")
+    del state
+    torch.cuda.empty_cache()
+
+    # kernels against the plain versions: the CLIP step on a seeded batch
+    # at the preset's sizes, the classification step on the train phase's
+    lmap = LesionChannelMap.from_classes(bench_train.CLASSES)
+    batch = bench_train.synthetic_batch(AUG_CROP[0], 2, device=dev)
+    batch["report_embedding"] = torch.randn(
+        (2, CLIP_FEATS), generator=torch.Generator().manual_seed(8)).to(dev)
+    for key, margs in (("full_depth", MODEL_ARGS),
+                       ("cut_depth", {**MODEL_ARGS, **CUT_DEPTH})):
+        agree, fails = _kernels_vs_plain(dev, {**margs, "clip_branch": True},
+                                         batch, lmap, LossConfig(),
+                                         clip_only=True)
+        res[f"kernels_vs_plain_{key}"] = agree
+        failures += [f"clip {key}: {f}" for f in fails]
+    del batch
+    n_cls = len(lmap.lesion_class_indices())
+    agree, fails = _kernels_vs_plain(
+        dev, {**MODEL_ARGS, "classification_classes": n_cls},
+        bench_train.synthetic_batch(WINDOW, 1, device=dev), lmap,
+        LossConfig(classification_branch=True))
+    res["classification"]["kernels_vs_plain"] = agree
+    failures += [f"classification: {f}" for f in fails]
+    if "classification" not in agree["losses"]:
+        failures.append("classification: no classification term")
+    res["phase_s"] = time.time() - t_phase
+    torch.cuda.empty_cache()
+    log(json.dumps({"clip": res}))
     return failures
 
 
@@ -1838,14 +2111,16 @@ def _recorded_probs():
 @contextmanager
 def _loop_spy():
     """Inside the block, count ``device_augment`` calls of the training
-    loop, and keep each step's loss and a checksum of each step's batch,
-    taken before and after the step on the consuming stream, as device
-    tensors (no host read in the loop)."""
+    loop, and keep each step's loss terms and a checksum of each step's
+    batch, taken before and after the step on the consuming stream, as
+    device tensors (no host read in the loop), and the type, shape and
+    device of the first batch's tensors."""
     import torch
 
     from rsuper_tpu_torch.train import loop
 
-    spy = {"augments": 0, "losses": [], "sums": [], "sums_after": []}
+    spy = {"augments": 0, "losses": [], "terms": [], "sums": [],
+           "sums_after": []}
     build, augment = loop.build_train_step, loop.device_augment
 
     def counted_augment(*args, **kwargs):
@@ -1861,9 +2136,14 @@ def _loop_spy():
                                 if isinstance(v, torch.Tensor)])
 
         def recorded(state, batch):
+            spy.setdefault("batch_layout", {  # the first batch's tensors
+                k: [str(v.dtype), list(v.shape), v.device.type]
+                for k, v in batch.items() if isinstance(v, torch.Tensor)})
             spy["sums"].append(checksum(batch))
             state, losses = step(state, batch)
             spy["losses"].append(losses["overall"].detach().float())
+            spy["terms"].append({k: v.detach().float()
+                                 for k, v in losses.items()})
             spy["sums_after"].append(checksum(batch))
             return state, losses
 
@@ -2380,7 +2660,9 @@ def main() -> int:
     failures += fails
     torch.cuda.empty_cache()
     failures += phase_augment(dev)
-    failures += phase_train_cli(dev)
+    fails, full_step_ops = phase_train_cli(dev)
+    failures += fails
+    failures += phase_clip(dev, full_step_ops)
     failures += phase_validate(dev)
     # each kernel's count comes from the path it was written for: the
     # forward kernels from the predict phase, the backward ones from the

@@ -343,6 +343,31 @@ class RSuperDataset:
         }
 
     # ---------------------------------------------------------------- public
+    def crop_organs(self) -> List[str]:
+        """A tag a case for organ-homogeneous CLIP batches: ``"mask"`` for a
+        CT-Mask case, ``"healthy"`` for a report case without tumour rows or
+        organs, else the case's most reported ``Standardized Organ`` (lower
+        case; ties to the alphabetically first). Crops are drawn online, so
+        the tag is the case's, where the reference reads each saved crop's
+        organ."""
+        out: List[str] = []
+        for case in self.cases:
+            if not case.is_report:
+                out.append("mask")
+                continue
+            rows = self._case_rows(case.case_id)
+            organs = [] if rows is None else [
+                o.strip().lower() for o in rows["Standardized Organ"].tolist()
+                if isinstance(o, str) and o.strip()]
+            if not organs:
+                out.append("healthy")
+                continue
+            counts: Dict[str, int] = {}
+            for o in organs:
+                counts[o] = counts.get(o, 0) + 1
+            out.append(max(sorted(counts), key=counts.get))
+        return out
+
     def sample(self, index: int, rng=None) -> Dict[str, np.ndarray]:
         rng = rng or np.random.default_rng()
         case = self.cases[index % len(self.cases)]

@@ -1,6 +1,6 @@
 """The loss dispatcher (counterpart of ``rsuper_tpu/losses/dispatcher.py``):
-aggregates the segmentation and report losses of every head into one
-``overall`` scalar.
+aggregates the segmentation and report losses of every head, the
+classification branch's and the CLIP loss into one ``overall`` scalar.
 
 * deep supervision: ``model_output['segmentation']`` may be a list of heads;
   head j is weighted by ``aux_weight[j]``;
@@ -8,11 +8,14 @@ aggregates the segmentation and report losses of every head into one
   routes a head to the Ball Loss, except the non-final heads when it also
   contains ``'last'``; anything else (``'dice'``) is the Volume Loss only;
 * segmentation loss per head = masked BCE + adaptive-Tversky Dice, both
-  masked by known voxels = 1 − dilate(unk, 5).
+  masked by known voxels = 1 − dilate(unk, 5);
+* ``clip_only``: symmetric InfoNCE between ``model_output['clip']`` and
+  the report embeddings, nothing else;
+* ``cfg.classification_branch``: the classification branch's BCE on lesion
+  presence is added when the output has ``'classification'``.
 
-Ported: the segmentation, Volume Loss and Ball Loss routes. The
-``model_genesis``, ``clip_only`` and ``classification_branch`` modes raise
-``NotImplementedError``.
+The ``model_genesis`` mode raises ``NotImplementedError`` (``ROADMAP.md``
+§1 item 5).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Any, Dict, Sequence
 import torch
 
 from .ball import BallLossConfig, ball_loss, lesion_masks_cf
+from .classification import classification_loss
+from .info_nce import symmetric_info_nce
 from .lesions import LesionChannelMap
 from .seg import (adaptive_tversky_dice, get_known_voxels,
                   masked_bce_with_logits)
@@ -70,18 +75,21 @@ def calculate_loss(model_output: Dict[str, Any], label, unk_voxels,
                    chosen_segment_mask, tumor_volumes, tumor_diameters,
                    lmap: LesionChannelMap, cfg: LossConfig = LossConfig(),
                    class_weights=None, model_genesis: bool = False,
-                   clip_only: bool = False) -> Dict[str, torch.Tensor]:
+                   clip_only: bool = False,
+                   report_embeddings=None) -> Dict[str, torch.Tensor]:
     """Every active loss of one training step, as a dict of float32 scalars
     with an ``'overall'`` key (their differentiable sum).
 
     Volumetric tensors are channels-last (B, D, H, W, C); `tumor_volumes`
     (B, T); `tumor_diameters` (B, T, 3), read by the Ball Loss only;
-    `class_weights` optional (B, C)."""
-    for name, on in (("model_genesis", model_genesis), ("clip_only", clip_only),
-                     ("classification_branch", cfg.classification_branch)):
-        if on:
-            raise NotImplementedError(f"calculate_loss({name}=True) is not "
-                                      "ported yet")
+    `class_weights` optional (B, C); `report_embeddings` (B, F), read by
+    ``clip_only`` only."""
+    if model_genesis:
+        raise NotImplementedError("calculate_loss(model_genesis=True) is not "
+                                  "ported yet: ROADMAP.md §1 item 5")
+    if clip_only:
+        loss = symmetric_info_nce(model_output["clip"], report_embeddings)
+        return {"contrastive_loss": loss, "overall": loss}
     result = model_output["segmentation"]
     heads: Sequence = result if isinstance(result, (tuple, list)) else [result]
     heads = [h for h in heads if h is not None]
@@ -133,6 +141,10 @@ def calculate_loss(model_output: Dict[str, Any], label, unk_voxels,
         loss_seg_total = loss_seg_total + w * cfg.seg_loss * seg
 
     losses["segmentation"] = loss_seg_total
+    if cfg.classification_branch and "classification" in model_output:
+        losses["classification"] = classification_loss(
+            model_output["classification"], label, unk_voxels,
+            chosen_segment_mask, lmap)
     overall = zero
     for v in losses.values():
         overall = overall + v

@@ -11,9 +11,9 @@ from .medformer import MedFormer
 
 
 def _medformer(args: Dict[str, Any], num_classes: int, dtype):
-    for key in ("classification_classes", "clip_branch", "torch_port"):
-        if args.get(key):
-            raise NotImplementedError(f"MedFormer {key} is not ported")
+    if args.get("torch_port"):
+        raise NotImplementedError("MedFormer torch_port is not ported yet: "
+                                  "ROADMAP.md §1 item 4")
     for key in ("cf_fullres", "cf_halfres"):
         if not args.get(key, True):
             raise NotImplementedError(f"MedFormer {key}=False is not ported")
@@ -35,6 +35,9 @@ def _medformer(args: Dict[str, Any], num_classes: int, dtype):
         norm=args.get("norm", "in"),
         act=args.get("act", "relu"),
         aux_loss=args.get("aux_loss", True),
+        classification_classes=args.get("classification_classes", 0),
+        clip_branch=args.get("clip_branch", False),
+        clip_feats=args.get("clip_feats", 768),
         remat=args.get("remat", True),
         dtype=dtype,
     )

@@ -10,9 +10,15 @@ down and up blocks run under ``torch.utils.checkpoint`` as the JAX model
 wraps them in ``nn.remat``: same loss and gradients, parameter names
 unchanged.
 
-Not ported: the ``torch_port=True`` numerics, the classification and CLIP
-branches, and configurations that leave the channel-first path (the
-constructor raises for those).
+With ``classification_classes`` and ``clip_branch`` the model has the
+JAX model's two encoder heads (``cls_extra``/``cls_branch``,
+``clip_extra``/``clip_branch``): an extra attention ``DownBlockMF`` on the
+deepest features, then a ``ClassificationBranch``, not rematerialised.
+``encoder`` and ``branches`` are the parts of ``forward`` that the heads
+read, so a CLIP step runs them alone, without the decoder.
+
+Not ported: the ``torch_port=True`` numerics and configurations that leave
+the channel-first path (the constructor raises for those).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from .layers import (
     CFConv3,
     Conv1,
     ConvNormAct,
+    Dense,
     DepthwiseSeparableConv,
     MBConv,
     TransformerBlock,
@@ -330,9 +337,34 @@ class SemanticMapFusion(nn.Module):
         return outs
 
 
+class ClassificationBranch(nn.Module):
+    """Bottleneck classifier: 1×1 conv (with bias) to `reduced_dim` → one
+    transformer block → the mean over the tokens → a float32 ``Dense``
+    (the JAX model's ``ClassificationBranch``, reference
+    ``medformer.py:12-78``)."""
+
+    def __init__(self, c_in: int, num_outputs: int, reduced_dim: int = 64,
+                 heads: int = 4, dim_head: int = 16, mlp_dim: int = 320,
+                 ln_eps: float = 1e-6, dtype=torch.float32):
+        super().__init__()
+        self.Conv_0 = Conv1(c_in, reduced_dim, True, dtype)
+        self.TransformerBlock_0 = TransformerBlock(
+            reduced_dim, 1, heads, dim_head, mlp_dim, ln_eps, dtype)
+        self.Dense_0 = Dense(reduced_dim, num_outputs, True, torch.float32)
+        self.reduced_dim = reduced_dim
+
+    def forward(self, x):
+        t = self.Conv_0(x).reshape(x.shape[0], -1, self.reduced_dim)
+        t = self.TransformerBlock_0(t)
+        t = t.float().mean(dim=1).to(t.dtype)
+        return self.Dense_0(t)
+
+
 class MedFormer(nn.Module):
     """(B, D, H, W, 1) volumes → ``{"segmentation": [logits, aux]}`` (or
-    ``logits`` alone without ``aux_loss``), channels-last, in ``dtype``."""
+    ``logits`` alone without ``aux_loss``), channels-last, in ``dtype``;
+    with the heads also ``"classification"`` (B, classification_classes)
+    and ``"clip"`` (B, clip_feats), float32."""
 
     def __init__(self, num_classes: int, base_chan: int = 32,
                  map_size: Tuple[int, int, int] = (3, 3, 3),
@@ -347,6 +379,8 @@ class MedFormer(nn.Module):
                  proj_type: str = "depthwise", norm: str = "in",
                  act: str = "relu", kernel_size=(3, 3, 3, 3, 3),
                  scale=((2, 2, 2),) * 4, aux_loss: bool = True,
+                 classification_classes: int = 0, clip_branch: bool = False,
+                 clip_feats: int = 768,
                  remat: bool = True, dtype=torch.float32):
         super().__init__()
         cn, tn, ch, nh = conv_num, trans_num, chan_num, num_heads
@@ -397,6 +431,19 @@ class MedFormer(nn.Module):
         self.UpBlockMF_2 = UpBlockCF(ch[5], ch[0], ch[6], cn[6], dtype)
         self.UpBlockMF_3 = UpBlockCF(ch[6], base_chan, ch[7], cn[7], dtype)
         self.outc = CFConv1(ch[7], num_classes, True, dtype)
+        # the encoder heads: an attention stage of ch[3] // 2 channels and 4
+        # heads on x4, then the classifier (JAX ``cls_extra``/``clip_extra``)
+        heads = [("cls", classification_classes)] if classification_classes \
+            else []
+        if clip_branch:
+            heads.append(("clip", clip_feats))
+        self.heads = tuple(name for name, _ in heads)
+        for name, n_out in heads:
+            self.add_module(f"{name}_extra", DownBlockMF(
+                ch[3], ch[3] // 2, 0, 1, 4, dim_head[3], expansion, scale[3],
+                map_size, map_generate=True, dtype=dtype))
+            self.add_module(f"{name}_branch", ClassificationBranch(
+                ch[3] // 2, n_out, dtype=dtype))
 
     def _block(self, name: str, *args):
         """Run a down or up block; with ``remat`` under autograd its
@@ -407,7 +454,10 @@ class MedFormer(nn.Module):
             return checkpoint(block, *args, use_reentrant=False)
         return block(*args)
 
-    def forward(self, x):
+    def encoder(self, x):
+        """The encoder: the skips ``x0_cf``, ``x1_cf`` (channel-first),
+        ``x2``, ``x3``, the deepest features ``x4`` and the three semantic
+        maps, as a tuple in that order."""
         x = x.to(self.dtype)
         x_cf = x.permute(0, 1, 4, 2, 3).contiguous()  # (B, D, 1, H, W)
         x0_cf = self.BasicBlock_0(self.Conv_0(x_cf))
@@ -415,7 +465,23 @@ class MedFormer(nn.Module):
         x2, map2 = self._block("DownBlockMF_1", x1_cf)
         x3, map3 = self._block("DownBlockMF_2", x2)
         x4, map4 = self._block("DownBlockMF_3", x3)
-        map2, map3, map4 = self.SemanticMapFusion_0([map2, map3, map4])
+        return x0_cf, x1_cf, x2, x3, x4, (map2, map3, map4)
+
+    def branches(self, x4):
+        """The encoder heads on the deepest features: ``{"classification":
+        (B, classification_classes), "clip": (B, clip_feats)}``, those the
+        model has, float32."""
+        out = {}
+        for name in self.heads:
+            feats, _ = getattr(self, f"{name}_extra")(x4)
+            key = "classification" if name == "cls" else name
+            out[key] = getattr(self, f"{name}_branch")(feats)
+        return out
+
+    def forward(self, x):
+        x0_cf, x1_cf, x2, x3, x4, maps = self.encoder(x)
+        heads = self.branches(x4)
+        map2, map3, map4 = self.SemanticMapFusion_0(list(maps))
 
         out, sem = self._block("UpBlockMF_0", x4, x3, map4, map3)
         out, sem = self._block("UpBlockMF_1", out, x2, sem, map2)
@@ -425,4 +491,5 @@ class MedFormer(nn.Module):
         out_cf = self._block("UpBlockMF_2", out.permute(0, 1, 4, 2, 3), x1_cf)
         out_cf = self._block("UpBlockMF_3", out_cf, x0_cf)
         logits = self.outc(out_cf).permute(0, 1, 3, 4, 2)
-        return {"segmentation": [logits, aux] if self.aux_loss else logits}
+        return {"segmentation": [logits, aux] if self.aux_loss else logits,
+                **heads}

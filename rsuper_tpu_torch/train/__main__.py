@@ -15,10 +15,13 @@ validates it on the fold's CT-Mask test cases (``fold_results.json``) and
 writes ``<cp_path>/<name>_cross_validation.txt`` once every fold has
 results. ``--pretrained`` warm-starts from a port checkpoint directory (its
 ``best``) or a flax ``.npz``, with class surgery of the heads when
-``--old_classes`` names the donor's classes. The options the port does not
-have yet (``--clip_pretrain``, ``--zero_opt``, ``--zero_ema``,
-``--spatial_shard`` > 1, the ``--dist_*`` flags, 2D presets) raise
-``NotImplementedError`` naming their item of ``ROADMAP.md`` §1.
+``--old_classes`` names the donor's classes. ``--clip_pretrain
+--clip_source DIR`` pretrains the encoder and its CLIP head with symmetric
+InfoNCE against precomputed report embeddings (one ``<case_id>.npy`` a case
+in DIR; a case without one gets zeros), over batches that share one crop
+organ. The options the port does not have yet (``--zero_opt``,
+``--zero_ema``, ``--spatial_shard`` > 1, the ``--dist_*`` flags, 2D presets)
+raise ``NotImplementedError`` naming their item of ``ROADMAP.md`` §1.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ if TYPE_CHECKING:  # the CLI imports torch only once the flags are parsed
     import torch
 
     from ..config import TrainConfig
+    from ..data.clip import ClipRecordAdapter
     from ..data.dataset import RSuperDataset
 
 # command-line arguments that are not TrainConfig fields
@@ -132,7 +136,7 @@ class Run:
     args: argparse.Namespace
     cfg: TrainConfig
     model: torch.nn.Module
-    dataset: RSuperDataset
+    dataset: RSuperDataset | ClipRecordAdapter
     test_cases: list
     device: torch.device
     classes: tuple
@@ -171,6 +175,7 @@ def build_run(argv=None) -> Run:
 
     from ..config import load_config
     from ..data.class_weights import class_proportions
+    from ..data.clip import ClipRecordAdapter, ReportEmbeddingStore
     from ..data.dataset import (RSuperDataConfig, RSuperDataset,
                                 build_case_list, kfold_split,
                                 split_train_test)
@@ -245,8 +250,18 @@ def build_run(argv=None) -> Run:
     dataset = RSuperDataset(train_cases, dcfg, report_rows=report_rows,
                             class_proportions=proportions)
 
+    model_args = dict(cfg.model_args)
+    if cfg.clip_pretrain:
+        if not cfg.clip_source:
+            raise SystemExit("--clip_pretrain needs --clip_source "
+                             "(per-case report-embedding .npy directory)")
+        model_args.setdefault("clip_branch", True)
+        dataset = ClipRecordAdapter(
+            dataset, ReportEmbeddingStore(cfg.clip_source),
+            dim=model_args.get("clip_feats", 768))
+
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    model = init_params(get_model(cfg.arch, len(classes), dict(cfg.model_args),
+    model = init_params(get_model(cfg.arch, len(classes), model_args,
                                   dtype=dtype), seed=cfg.seed)
     return Run(args=args, cfg=cfg, model=model, dataset=dataset,
                test_cases=test_cases, device=device, classes=tuple(classes),

@@ -3,7 +3,8 @@ augmentation, the loss-NaN guard, EMA, checkpoints, resume, warm starts and
 periodic validation (the port's counterpart of ``rsuper_tpu/train/loop.py``
 without the mesh).
 
-Each step: ``ChunkedSampler`` indices → ``PrefetchLoader`` (packed records,
+Each step: ``ChunkedSampler`` indices (``OrganBatchSampler`` batches for
+CLIP pretraining) → ``PrefetchLoader`` (packed records,
 or records augmented in its workers with ``host_augment``) → the transfer to
 the device (``pipeline.to_device``) → ``device_augment`` (or the cast of the
 host-augmented batch) → ``build_train_step`` → meters and logging. With
@@ -30,7 +31,7 @@ from ..config import TrainConfig
 from ..data.host_augment import make_host_augment, to_step_dtype
 from ..data.pipeline import (AugmentDraws, DevicePrefetcher, PrefetchLoader,
                              device_augment, draw_augment, to_device)
-from ..data.sampler import ChunkedSampler
+from ..data.sampler import ChunkedSampler, OrganBatchSampler
 from ..losses import LesionChannelMap
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger, dump_config, setup_logger
@@ -45,7 +46,6 @@ from .validation import run_validation, validation_model
 
 # the items of ROADMAP.md §1 that hold what the port does not have yet
 ROADMAP = {
-    "clip": "ROADMAP.md §1 item 1 (OrganBatchSampler and CLIP)",
     "2d": "ROADMAP.md §1 item 4 (the rest of MedFormer and the 2D path)",
     "multi_gpu": "ROADMAP.md §1 item 8 (multi-GPU)",
 }
@@ -59,14 +59,40 @@ def unported(what: str, item: str) -> NotImplementedError:
 
 def check_config(cfg: TrainConfig) -> None:
     """Raise for each option of the JAX loop the port does not have."""
-    for name, item in (("zero_opt", "multi_gpu"), ("zero_ema", "multi_gpu"),
-                       ("clip_pretrain", "clip")):
+    for name, item in (("zero_opt", "multi_gpu"), ("zero_ema", "multi_gpu")):
         if getattr(cfg, name):
             raise unported(name, item)
     if cfg.spatial_shard > 1:
         raise unported(f"spatial_shard={cfg.spatial_shard}", "multi_gpu")
     if cfg.is_2d:
         raise unported("2D training", "2d")
+
+
+def _epoch_indices(cfg: TrainConfig, dataset,
+                   start_epoch: int) -> Callable[[int], np.ndarray]:
+    """`epoch → dataset indices` of the run. CLIP pretraining draws
+    organ-homogeneous batches from the dataset's ``crop_organs``
+    (``OrganBatchSampler``: a batch depends on the seed and the global step
+    alone); otherwise the ``ChunkedSampler``'s cycles, the epochs before
+    `start_epoch` replayed so a resumed run sees the same indices."""
+    if cfg.clip_pretrain:
+        # a loader batch must be exactly one global organ batch: with more
+        # data shards on this one process it would span several steps' batches
+        # and mix organs (the JAX loop's condition)
+        if cfg.data_shards != 1:
+            raise ValueError("clip_pretrain requires data_shards == process "
+                             f"count (got {cfg.data_shards} shards over 1 "
+                             "process)")
+        organ = OrganBatchSampler(dataset.crop_organs(), cfg.batch_size,
+                                  seed=cfg.seed, shard=cfg.shard_index)
+        return lambda e: organ.epoch_indices(e, cfg.iter_per_epoch)
+    sampler = ChunkedSampler(
+        len(dataset), cfg.iter_per_epoch * cfg.batch_size,
+        shard=cfg.shard_index, num_shards=cfg.data_shards, seed=cfg.seed,
+    )
+    for e in range(start_epoch):
+        sampler.epoch_indices(e)
+    return sampler.epoch_indices
 
 
 def seeded_draws(cfg: TrainConfig, device: torch.device) -> Draws:
@@ -137,15 +163,9 @@ def train(
 
     step_fn = build_train_step(lmap, cfg.loss_config(),
                                ema_alpha=cfg.ema_alpha,
-                               model_genesis=cfg.model_genesis_pretrain)
-    sampler = ChunkedSampler(
-        len(dataset), cfg.iter_per_epoch * cfg.batch_size,
-        shard=cfg.shard_index, num_shards=cfg.data_shards, seed=cfg.seed,
-    )
-    # the sampler walks its shuffled cycles epoch by epoch: replay the
-    # epochs already trained so a resumed run sees the same indices
-    for e in range(start_epoch):
-        sampler.epoch_indices(e)
+                               model_genesis=cfg.model_genesis_pretrain,
+                               clip_only=cfg.clip_pretrain)
+    epoch_indices = _epoch_indices(cfg, dataset, start_epoch)
     draws = draws or seeded_draws(cfg, device)
     # host augmentation: the loader's workers augment (reference-style), and
     # the device only casts; else the loader packs and the device augments
@@ -200,7 +220,7 @@ def train(
     try:
         for epoch in range(start_epoch, cfg.epochs):
             loader = PrefetchLoader(
-                dataset, cfg.batch_size, sampler.epoch_indices(epoch),
+                dataset, cfg.batch_size, epoch_indices(epoch),
                 num_workers=cfg.num_workers, transform=host_transform,
             )
             batches = iter(loader)

@@ -2,8 +2,9 @@
 EMA (counterpart of ``rsuper_tpu/train/step.py``), for one device and 3D
 input. The model computes in its ``dtype`` (bf16 in training) with float32
 parameters, optimizer state and loss accumulations; it casts by hand, there
-is no ``torch.autocast``. The mesh, spatial sharding and the 2D lift are not
-ported yet.
+is no ``torch.autocast``. The CLIP step (``clip_only``) runs the encoder and
+its heads only. The mesh, spatial sharding and the 2D lift are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -21,16 +22,23 @@ def loss_fn(model, batch: Dict[str, Any], lmap: LesionChannelMap,
             clip_only: bool = False):
     """(overall loss, dict of every loss term) of one batch: ``image``
     (B, D, H, W, 1), ``label``, ``unk``, ``segment_mask`` (B, D, H, W, C),
-    ``volumes`` (B, T), ``diameters`` (B, T, 3), optional ``class_weights``."""
+    ``volumes`` (B, T), ``diameters`` (B, T, 3), optional ``class_weights``
+    and, for ``clip_only``, ``report_embedding`` (B, F). A ``clip_only``
+    step runs the model's encoder and heads alone (the CLIP loss reads
+    nothing of the decoder)."""
     if batch["image"].dim() != 5:
         raise NotImplementedError("the 2D pathway is not ported yet: image "
                                   "must be (B, D, H, W, 1)")
-    out = model(batch["image"])
+    if clip_only:
+        out = model.branches(model.encoder(batch["image"])[4])
+    else:
+        out = model(batch["image"])
     losses = calculate_loss(
         out, batch.get("label"), batch.get("unk"), batch.get("segment_mask"),
         batch.get("volumes"), batch.get("diameters"), lmap, cfg,
         class_weights=batch.get("class_weights"),
-        model_genesis=model_genesis, clip_only=clip_only)
+        model_genesis=model_genesis, clip_only=clip_only,
+        report_embeddings=batch.get("report_embedding"))
     return losses["overall"], losses
 
 
@@ -45,6 +53,13 @@ def build_train_step(lmap: LesionChannelMap, cfg: LossConfig = LossConfig(),
         overall, losses = loss_fn(state.model, batch, lmap, cfg,
                                   model_genesis, clip_only)
         overall.backward()
+        # a parameter the loss does not reach (the decoder of a CLIP step, a
+        # head no term reads) updates with a zero gradient, as the JAX step's
+        # gradient of the whole tree does: AdamW would skip it, weight decay
+        # included
+        for p in state.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         state.apply_gradients(ema_alpha=ema_alpha)
         return state, {k: v.detach() for k, v in losses.items()}
 

@@ -4,7 +4,8 @@ The kernels of ``csrc/dwconv.cu`` and ``csrc/dwconv_bwd.cu`` run only on the
 card (``tests/test_torch_kernels_cuda.py``, ``-m cuda``). Their grid, tile,
 depth run and shared memory come from ``ops/dwconv.py:_dw_plan`` and their
 staging from ``dw_route``; both are plain Python and are held here, at the
-production shapes of ``chip_smoke.py`` and at ragged ones: every output
+production shapes of ``chip_smoke.py`` (the CLIP and classification heads'
+4³ planes among them) and at ragged ones: every output
 voxel and channel owned by exactly one block, shared memory within the
 H100's 227 KB a block at the plan's blocks per SM, at least one block per SM
 at the production shapes, and the narrow staging where C or a pointer does
@@ -24,6 +25,9 @@ from rsuper_tpu_torch.ops import dwconv  # noqa: E402
 
 BF16, F32 = torch.bfloat16, torch.float32
 PRODUCTION = sorted(set(chip_smoke.DW_FWD_SHAPES + chip_smoke.DW_BWD_SHAPES))
+# the CLIP and classification heads' extra stage: 4³ planes at batch 2,
+# depth 4 (no main-path call is as shallow)
+HEADS = chip_smoke.CLIP_DW_SHAPES
 # (B, D, H, W, C): one-deep volumes, H and W that are not multiples of any
 # tile, channel counts that leave a partial chunk (3, 20, 320 in float32)
 RAGGED = [(1, 1, 1, 1, 3), (1, 1, 7, 5, 20), (2, 3, 5, 7, 3),
@@ -53,8 +57,8 @@ def _owners(shape, plan):
 
 @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=str)
-@pytest.mark.parametrize("shape", PRODUCTION + RAGGED,
-                         ids=_ids(PRODUCTION + RAGGED))
+@pytest.mark.parametrize("shape", PRODUCTION + RAGGED + HEADS,
+                         ids=_ids(PRODUCTION + RAGGED + HEADS))
 def test_plan_covers_every_output_once_and_fits_the_card(shape, dtype,
                                                          backward):
     B, D, H, W, C = shape
@@ -119,6 +123,13 @@ def test_production_channels_take_the_wide_staging(C, dtype):
     x = _aligned((1, 2, 3, 4, C), dtype)
     y = _aligned((1, 2, 3, 4, C), dtype)
     assert dwconv.dw_route(C, x, y) == "wide"
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=str)
+@pytest.mark.parametrize("C", sorted({s[-1] for s in HEADS}))
+def test_head_channels_take_the_wide_staging(C, dtype):
+    x = _aligned(HEADS[0][:-1] + (C,), dtype)
+    assert dwconv.dw_route(C, x, x) == "wide"
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=str)

@@ -43,7 +43,9 @@ def _sources():
                 "train/checkpoint.py", "train/loop.py", "train/__main__.py",
                 "metrics/dice.py", "metrics/surface.py",
                 "train/validation.py", "train/crossval.py",
-                "models/surgery.py", "data/host_augment.py"):
+                "models/surgery.py", "data/host_augment.py",
+                "data/clip.py", "losses/info_nce.py",
+                "losses/classification.py"):
         assert f"rsuper_tpu_torch/{new}" in names
     return files
 

@@ -25,7 +25,8 @@
   PyYAML; every option the port does not have raises
   ``NotImplementedError`` naming its ``ROADMAP.md`` item (validation,
   warm starts, host augmentation and the prefetcher are held in
-  ``tests/test_torch_{validation,pretrained,host_augment}.py``).
+  ``tests/test_torch_{validation,pretrained,host_augment}.py``, CLIP
+  pretraining in ``tests/test_torch_clip_loop.py``).
 """
 
 import dataclasses
@@ -256,13 +257,22 @@ def test_two_steps_match_jax_train(data, tmp_path, monkeypatch):
         for k, v in want.items():
             assert abs(got[k] - v) <= LOSS_TOL * abs(v), (i, k, got[k], v)
 
-    lr = [state.optimizer.schedule(s) for s in range(2)]
-    assert min(lr) > 0.99 * cfg.base_lr  # no warm-up: each step moves p
+    lr, params = _check_params(state, jstate, flat0, cfg, steps=2)
+    moved = [np.abs(want - p0).ravel() for _, want, p0 in params.values()]
+    assert np.concatenate(moved).mean() > 0.5 * lr[0]
+
+
+def _check_params(state, jstate, flat0, cfg, steps):
+    """The port's parameters after `steps` updates from `flat0` against the
+    JAX loop's, at the bounds of the module docstring; returns
+    (lr of each step, {name: (port, JAX, start)} as numpy)."""
     from rsuper_tpu_torch.models import params_from_flax
 
+    lr = [state.optimizer.schedule(s) for s in range(steps)]
+    assert min(lr) > 0.99 * cfg.base_lr  # no warm-up: each step moves p
     start = params_from_flax(flat0, state.model)
     final = params_from_flax(_flat(jstate.params["params"]), state.model)
-    diffs, moved = [], []
+    diffs, out = [], {}
     for k, p in state.model.named_parameters():
         got, want, p0 = p.detach().numpy(), final[k].numpy(), start[k].numpy()
         bound = 2 * sum(lr) + np.spacing(np.abs(want).astype(np.float32))
@@ -272,9 +282,9 @@ def test_two_steps_match_jax_train(data, tmp_path, monkeypatch):
         floor = UPDATE_FLOOR * lr[0] * np.sqrt(upd.size)
         assert err <= UPDATE_TOL * ref + floor, (k, err, ref)
         diffs.append(np.abs(got - want).ravel())
-        moved.append(np.abs(jupd).ravel())
+        out[k] = (got, want, p0)
     assert np.concatenate(diffs).mean() <= 0.2 * lr[0]
-    assert np.concatenate(moved).mean() > 0.5 * lr[0]
+    return lr, out
 
 
 def _state(seed=0):
@@ -443,7 +453,6 @@ def test_presets_and_class_lists_match_the_jax_package():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--clip_pretrain"], "item 1 "),
     (["--zero_opt"], "item 8 "),
     (["--zero_ema"], "item 8 "),
     (["--spatial_shard", "2"], "item 8 "),
@@ -461,7 +470,6 @@ def test_unported_cli_options_raise(tmp_path, flags, item):
 @pytest.mark.parametrize("field,value,item", [
     ("zero_opt", True, "item 8 "),
     ("spatial_shard", 2, "item 8 "),
-    ("clip_pretrain", True, "item 1 "),
 ])
 def test_unported_config_fields_raise(tmp_path, field, value, item):
     cfg = load_config(PRESET, overrides={field: value})

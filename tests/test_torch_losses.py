@@ -322,8 +322,7 @@ def test_loss_config_matches_jax_defaults():
                 jdisp._head_uses_ball(jdisp.LossConfig(loss=loss), j)
 
 
-@pytest.mark.parametrize("mode", ["model_genesis", "clip_only",
-                                  "classification_branch"])
+@pytest.mark.parametrize("mode", ["model_genesis"])
 def test_unported_modes_raise(mode):
     x = _t(DATA["logits"])
     args = (_t(DATA["label"]), _t(DATA["unk"]), _t(DATA["segment_mask"]),

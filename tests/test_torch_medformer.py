@@ -169,8 +169,6 @@ def test_params_from_flax_raises_on_extra_leaf(pair):
 
 
 @pytest.mark.parametrize("option", [{"torch_port": True},
-                                    {"clip_branch": True},
-                                    {"classification_classes": 2},
                                     {"cf_fullres": False},
                                     {"conv_block": "MBConv"}])
 def test_unported_options_raise(option):
