@@ -43,7 +43,18 @@ Phases, in order (any failure exits non-zero):
              of ``predict_masks_volume`` through the kernels and through the
              plain versions, and blended float32 probabilities against the
              plain versions;
-5. train   — training steps of the default MedFormer on ``bench.py``'s
+5. serve   — a checkpoint of any origin served by the predict CLI
+             (``python -m rsuper_tpu_torch.predict``) at the same windows on
+             synthetic CTs of 144³ and 120³: a ``CheckpointManager``
+             directory (``--checkpoint``, ``--tag``, ``--ema``; masks equal,
+             bit for bit, to ``--params_npz`` of the same weights), and a
+             reference-layout ``.pth`` through ``convert_checkpoint``,
+             served with ``torch_port`` numerics (launch counts set to 0
+             just before and read just after; blended float32
+             probabilities against the plain versions); ``evaluate`` on
+             those predictions; ``bench_infer`` once; the CLI's 128³
+             window at batches of 4 and 8 (seconds a volume, peak memory);
+6. train   — training steps of the default MedFormer on ``bench.py``'s
              synthetic 96³ batch of 1 (bf16 compute, float32 parameters,
              ``remat`` off) with the full R-Super losses (``LossConfig()``,
              ``loss="ball_dice_last"``: masked BCE + adaptive-Tversky Dice on
@@ -63,14 +74,14 @@ Phases, in order (any failure exits non-zero):
              public ``topn_masks_multi`` on the path's own masked volume
              equals the batched kernel's masks; 1 + 5 steps of the
              ``loss="dice"`` step beside it;
-6. augment — the device augmentation of the training CLI at the preset's
+7. augment — the device augmentation of the training CLI at the preset's
              sizes: a batch of 2 packed records at the 148 × 168 × 168 load
              size (16 classes) through ``device_augment`` on the card and on
              the CPU with the same draws; the image within 1e-5·(1+max|ref|),
              the masks equal but for voxels whose source coordinate lies
              within 1e-4 of a half (counted); TF32 off on the path; device
              ms a batch;
-7. train_cli — ``python -m rsuper_tpu_torch.train``'s ``main`` with
+8. train_cli — ``python -m rsuper_tpu_torch.train``'s ``main`` with
              ``--preset abdomenatlas_ufo/medformer_3d`` (default MedFormer,
              128³ crops, batch 2, bf16, ``ball_dice_last``) on synthetic
              CT-Mask and CT-Report cases written through ``preprocess_case``
@@ -81,7 +92,7 @@ Phases, in order (any failure exits non-zero):
              optimizer state and every kernel of the step in the profiled
              window are checked; ms a step, loader, transfer and augment ms,
              busy share, peak memory and host reads are printed;
-8. validate — on the same synthetic cases: ``validate_cases`` at 128³
+9. validate — on the same synthetic cases: ``validate_cases`` at 128³
              windows in batches of 4, the seeded model's final head made
              confident, in bf16 and in float32 through the kernels and the
              plain versions (probabilities held against the plain versions',
@@ -95,7 +106,7 @@ Phases, in order (any failure exits non-zero):
              augmentation, and ``device_prefetch`` 2 against 0 (equal
              batches and first losses, batches intact after their step, ms
              an iteration of both);
-9. clip    — CLIP pretraining and the classification branch on the same
+10. clip   — CLIP pretraining and the classification branch on the same
              cases: ``main`` with ``--clip_pretrain --clip_source DIR`` (seeded
              768-wide report embeddings) for 4 steps, the last profiled, and 2
              on ``--resume``, the launch counts set to 0 just before and read
@@ -1021,6 +1032,257 @@ def phase_predict(model, model32, dev, edge: int):
         failures.append(f"probabilities vs plain: {res['probs32_vs_plain']}")
     log(json.dumps({"predict": res}))
     return failures, res["launches"]
+
+
+SERVE_EDGES = (144, 120)  # the serve phase's two cases: 8 windows of 96³ each
+CLI_WINDOW = 128  # the predict CLI's default window
+CLI_BATCHES = (4, 8)  # window batches timed at CLI_WINDOW
+SERVE_GT = (  # per-CT lesion counts: liver, pancreatic, kidney
+    ("BDMAP_00000001", 0, 1, 0), ("BDMAP_00000002", 0, 0, 0))
+EVAL_FILES = 18  # 9 detection tables and 9 metric tables
+
+
+def _masks(out: Path, case: str):
+    import numpy as np
+
+    from rsuper_tpu_torch.data.nifti import read_nifti
+
+    return {c: np.asarray(read_nifti(str(out / case / f"{c}.nii.gz")).data)
+            for c in CLASSES}
+
+
+def _same_masks(a, b) -> bool:
+    import numpy as np
+
+    return all(np.array_equal(a[c], b[c]) for c in CLASSES)
+
+
+def phase_serve(dev):
+    """Serving a checkpoint of any origin, scoring the predictions, and the
+    serving benchmark, at full width (default MedFormer, 16 classes, bf16,
+    96³ windows in batches of 8 on synthetic CTs of SERVE_EDGES):
+
+    a. a checkpoint that ``CheckpointManager`` writes from seeded weights,
+       with an EMA copy of other seeded weights: the predict CLI's masks from
+       ``--checkpoint DIR --tag best`` equal, bit for bit, those from
+       ``--params_npz`` of the same weights; ``--ema`` those of the EMA
+       weights' ``.npz`` and not the parameters'; ``--tag best`` on a
+       directory holding ``latest`` alone falls back to it;
+    b. the same weights exported to a reference-layout ``.pth``
+       (``{'model_state_dict', 'ema_model_state_dict'}``, DDP prefixes),
+       converted by ``convert_checkpoint`` and served with ``{"torch_port":
+       true}`` with the lesion probabilities saved, on two cases, the launch
+       counts set to 0 just before and read just after (rows 1, 2 and 5
+       must be launched); the torch_port model's blended float32
+       probabilities through the kernels against the plain versions
+       (PROB_TOL);
+    c. ``evaluate.main`` on (b)'s folder with a per-CT CSV (one case with a
+       pancreatic lesion): every file written, its seconds;
+    d. ``bench_infer.main --reps 1``: its line and its keys;
+    e. ``predict_masks_volume`` on a VOLUME³ phantom at the CLI's 128³
+       windows in batches of 4 and of 8: seconds a volume and peak
+       memory."""
+    import numpy as np
+    import torch
+
+    from rsuper_tpu_torch import bench_infer, convert_checkpoint, evaluate
+    from rsuper_tpu_torch import predict as cli
+    from rsuper_tpu_torch.data.nifti import write_nifti
+    from rsuper_tpu_torch.data.preprocess import clip_and_normalize
+    from rsuper_tpu_torch.eval.sens_spec import best_f1
+    from rsuper_tpu_torch.inference.predict import predict_masks_volume
+    from rsuper_tpu_torch.inference.sliding_window import \
+        sliding_window_probs_device
+    from rsuper_tpu_torch.models import (flax_from_state_dict, get_model,
+                                         init_params)
+    from rsuper_tpu_torch.models.torch_port import export_state_dict
+    from rsuper_tpu_torch.ops.dispatch import plain_on_device
+    from rsuper_tpu_torch.train import create_train_state, make_optimizer
+    from rsuper_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                   load_params)
+    from rsuper_tpu_torch.utils.device import card_line
+
+    t_phase = time.time()
+    failures, res = [], {"card": card_line(), "window": WINDOW, "batch": 8,
+                         "edges": list(SERVE_EDGES)}
+    counted = wrappers()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        cases = [g[0] for g in SERVE_GT]
+        for d in ("in1", "in2"):
+            (root / d).mkdir()
+        for i, (case, edge) in enumerate(zip(cases, SERVE_EDGES)):
+            ct = phantom_ct(edge, seed=3 + i)
+            for d in (("in1", "in2") if i == 0 else ("in2",)):
+                write_nifti(str(root / d / f"{case}.nii"), ct, np.eye(4))
+        (root / "classes.json").write_text(json.dumps(CLASSES))
+
+        # a. the port's own checkpoints
+        t0 = time.time()
+        model = get_model("medformer", len(CLASSES), MODEL_ARGS,
+                          dtype=torch.bfloat16)
+        params = init_params(model, seed=0).state_dict()
+        ema = init_params(get_model("medformer", len(CLASSES), MODEL_ARGS),
+                          seed=1).state_dict()
+        state = create_train_state(model, make_optimizer(model.parameters()))
+        state.ema_params = ema
+        CheckpointManager(str(root / "run")).save_epoch(state, 0, metric=1.0)
+        CheckpointManager(str(root / "latest_only")).save_epoch(state, 0)
+        for name, sd in (("params", params), ("ema", ema)):
+            np.savez(root / f"{name}.npz", **flax_from_state_dict(sd))
+
+        def serve(name, source, inputs="in1", extra=()):
+            out = root / "out" / name
+            done = cli.main([
+                "--input_dir", str(root / inputs), "--output_dir", str(out),
+                *source, "--classes_json", str(root / "classes.json"),
+                "--window", *[str(WINDOW)] * 3, "--batch_windows", "8",
+                *extra])
+            want = sorted(f.split(".nii")[0]
+                          for f in os.listdir(root / inputs))
+            if sorted(done) != want or (out / "prediction_errors.txt"
+                                        ).exists():
+                failures.append(f"serve {name}: predicted {done}")
+            return out
+
+        runs = {
+            "checkpoint_best": ["--checkpoint", str(root / "run"),
+                                "--tag", "best"],
+            "params_npz": ["--params_npz", str(root / "params.npz")],
+            "checkpoint_ema": ["--checkpoint", str(root / "run"), "--ema"],
+            "ema_npz": ["--params_npz", str(root / "ema.npz")],
+            "fallback_latest": ["--checkpoint", str(root / "latest_only"),
+                                "--tag", "best"],
+        }
+        masks, secs = {}, {}
+        for name, source in runs.items():
+            t1 = time.time()
+            masks[name] = _masks(serve(name, source), cases[0])
+            secs[name] = time.time() - t1
+        checks = {
+            "checkpoint_equals_params_npz": _same_masks(
+                masks["checkpoint_best"], masks["params_npz"]),
+            "ema_equals_ema_npz": _same_masks(masks["checkpoint_ema"],
+                                              masks["ema_npz"]),
+            "ema_differs_from_params": not _same_masks(
+                masks["checkpoint_ema"], masks["params_npz"]),
+            "fallback_equals_params_npz": _same_masks(
+                masks["fallback_latest"], masks["params_npz"]),
+        }
+        res["checkpoint"] = dict(
+            checks, cli_s=secs, phase_s=time.time() - t0,
+            mask_voxels={k: int(sum(m[c].sum() for c in CLASSES))
+                         for k, m in masks.items()})
+        failures += [f"serve checkpoint: {k}" for k, ok in checks.items()
+                     if not ok]
+
+        # b. a reference .pth through the converter, served with torch_port
+        t0 = time.time()
+        ref = {k: export_state_dict(flax_from_state_dict(sd))
+               for k, sd in (("model_state_dict", params),
+                             ("ema_model_state_dict", ema))}
+        torch.save({k: {"module." + n: torch.from_numpy(v)
+                        for n, v in sd.items()} for k, sd in ref.items()},
+                   root / "model.pth")
+        convert_checkpoint.main([str(root / "model.pth"), str(root / "conv"),
+                                 "--classes", str(len(CLASSES))])
+        conv = load_params(str(root / "conv"))
+        res["pth"] = dict(converted_equal=all(
+            torch.equal(conv[k], v) for k, v in params.items()),
+            convert_s=time.time() - t0)
+        tp = ["--checkpoint", str(root / "conv"),
+              "--model_args_json", json.dumps({**MODEL_ARGS,
+                                               "torch_port": True})]
+        torch.cuda.synchronize()
+        for w in counted.values():
+            w.launches = 0
+        t1 = time.time()
+        pred = serve("torch_port", tp, "in2", ("--save_probabilities",))
+        torch.cuda.synchronize()
+        res["pth"]["serve_s"] = time.time() - t1
+        res["pth"]["launches"] = {k: counted[k].launches
+                                  for k in SERVING_KERNELS}
+        for k, n in res["pth"]["launches"].items():
+            if n <= 0:
+                failures.append(f"serve torch_port: kernel {k} was not "
+                                "launched")
+        if not res["pth"]["converted_equal"]:
+            failures.append("serve pth: converted parameters differ")
+        model32 = get_model("medformer", len(CLASSES),
+                            {**MODEL_ARGS, "torch_port": True},
+                            dtype=torch.float32)
+        model32.load_state_dict(conv)
+        fn32 = _model_fn(model32.to(dev).eval())
+        e = WINDOW + WINDOW // 6
+        small = clip_and_normalize(phantom_ct(e, seed=3))  # 8 windows
+        win = (WINDOW,) * 3
+        got = sliding_window_probs_device(fn32, small, len(CLASSES),
+                                          window=win, batch=8, device=dev)
+        with plain_on_device():
+            want = sliding_window_probs_device(fn32, small, len(CLASSES),
+                                               window=win, batch=8,
+                                               device=dev)
+        d = (got - want).abs()
+        res["pth"]["probs32_vs_plain"] = dict(
+            max_abs_err=d.max().item(), mean_abs_err=d.mean().item(),
+            tol=PROB_TOL)
+        if not d.max().item() <= PROB_TOL:
+            failures.append(f"serve torch_port probabilities vs plain: "
+                            f"{res['pth']['probs32_vs_plain']}")
+        del model32, fn32, got, want, d
+
+        # c. the evaluation of (b)'s predictions
+        gt = root / "per_ct.csv"
+        gt.write_text("BDMAP_ID,number of liver lesion instances,number of "
+                      "pancreatic lesion instances,number of kidney lesion "
+                      "instances\n" + "".join(
+                          ",".join(map(str, row)) + "\n" for row in SERVE_GT))
+        t1 = time.time()
+        evaluated = evaluate.main(["--pred_dir", str(pred), "--ground_truth",
+                                   str(gt), "--out_dir", str(root / "eval")])
+        eval_s = time.time() - t1
+        names = sorted(os.listdir(root / "eval"))
+        res["evaluate"] = dict(seconds=eval_s, files=len(names),
+                               best_f1_pancreatic=best_f1(evaluated))
+        if len(names) != EVAL_FILES or not all(
+                (root / "eval" / f"metrics_th{th}.csv").exists()
+                for th in (0.1, 0.5, 0.9)):
+            failures.append(f"evaluate wrote {names}")
+
+    # d. the serving benchmark
+    t1 = time.time()
+    line = bench_infer.main(["--reps", "1"])
+    res["bench_infer"] = dict(line, call_s=time.time() - t1)
+    keys = {"metric", "value", "unit", "seconds_per_volume",
+            "seconds_per_volume_prob_transfer",
+            "seconds_per_volume_masks_plus_lesion_probs", "prob_wire",
+            "first_call_with_compile_s"}
+    if set(line) != keys or not line["value"] > 0:
+        failures.append(f"bench_infer line: {line}")
+
+    # e. the CLI's default window at two window batches
+    vol = clip_and_normalize(phantom_ct(VOLUME))
+    fn = _model_fn(model.to(dev).eval())
+    res["cli_window"] = {}
+    for batch in CLI_BATCHES:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        predict_masks_volume([fn], vol, CLASSES, window=(CLI_WINDOW,) * 3,
+                             batch=batch, device=dev)  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.time()
+        predict_masks_volume([fn], vol, CLASSES, window=(CLI_WINDOW,) * 3,
+                             batch=batch, device=dev)
+        torch.cuda.synchronize()
+        res["cli_window"][f"b{batch}"] = dict(
+            s_per_volume=time.time() - t1,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del model, fn
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.time() - t_phase
+    log(json.dumps({"serve": res}))
+    return failures
 
 
 @contextmanager
@@ -2655,6 +2917,8 @@ def main() -> int:
     fails, launches = phase_predict(model, model32, dev, VOLUME)
     failures += fails
     del model, model32
+    torch.cuda.empty_cache()
+    failures += phase_serve(dev)
     torch.cuda.empty_cache()
     fails, train_launches = phase_train(dev, TRAIN_STEPS)
     failures += fails

@@ -11,9 +11,6 @@ from .medformer import MedFormer
 
 
 def _medformer(args: Dict[str, Any], num_classes: int, dtype):
-    if args.get("torch_port"):
-        raise NotImplementedError("MedFormer torch_port is not ported yet: "
-                                  "ROADMAP.md §1 item 4")
     for key in ("cf_fullres", "cf_halfres"):
         if not args.get(key, True):
             raise NotImplementedError(f"MedFormer {key}=False is not ported")
@@ -39,6 +36,7 @@ def _medformer(args: Dict[str, Any], num_classes: int, dtype):
         clip_branch=args.get("clip_branch", False),
         clip_feats=args.get("clip_feats", 768),
         remat=args.get("remat", True),
+        torch_port=args.get("torch_port", False),
         dtype=dtype,
     )
 

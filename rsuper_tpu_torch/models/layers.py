@@ -12,8 +12,9 @@ match the flax tree so ``models/params.py`` can carry a JAX checkpoint over:
 * ``weight`` is a torch-layout weight: ``(C_out, C_in)`` for 1×1 convs and
   dense layers, ``(C_out, C_in, 3, 3, 3)`` for ``F.conv3d``.
 
-Only the default numerics are ported: instance norm (eps 1e-4) and ReLU in
-the conv blocks, half-pixel trilinear resizing, LayerNorm eps 1e-6.
+Instance norm (eps 1e-4) and ReLU in the conv blocks; trilinear resizing
+with half-pixel centres, or with ``align_corners`` for MedFormer's
+``torch_port`` numerics; LayerNorm eps as the caller gives it.
 """
 
 from __future__ import annotations
@@ -311,16 +312,21 @@ class BasicBlockCF(nn.Module):
 
 
 # ---------------------------------------------------------------- resizing
-def resize_trilinear(x: torch.Tensor, size) -> torch.Tensor:
-    """Half-pixel trilinear resize of (B, D, H, W, C) to spatial `size`
-    (``jax.image.resize(method="linear")``; equal for upsampling)."""
+def resize_trilinear(x: torch.Tensor, size,
+                     align_corners: bool = False) -> torch.Tensor:
+    """Trilinear resize of (B, D, H, W, C) to spatial `size`: half-pixel
+    centres (``jax.image.resize(method="linear")``; equal for upsampling),
+    or with `align_corners` output i reads input i·(n_in−1)/(n_out−1), as
+    the reference's torch model upsamples (JAX ``_resize_axes_ac``)."""
     y = F.interpolate(x.permute(0, 4, 1, 2, 3), size=tuple(size),
-                      mode="trilinear", align_corners=False)
+                      mode="trilinear", align_corners=align_corners)
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def resize_trilinear_cf(x: torch.Tensor, size) -> torch.Tensor:
-    """`resize_trilinear` for (B, D, C, H, W) tensors."""
+def resize_trilinear_cf(x: torch.Tensor, size,
+                        align_corners: bool = False) -> torch.Tensor:
+    """`resize_trilinear` for (B, D, C, H, W) tensors: D, H and W are
+    resampled, C is not."""
     y = F.interpolate(x.permute(0, 2, 1, 3, 4), size=tuple(size),
-                      mode="trilinear", align_corners=False)
+                      mode="trilinear", align_corners=align_corners)
     return y.permute(0, 2, 1, 3, 4).contiguous()

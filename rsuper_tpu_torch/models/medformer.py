@@ -17,8 +17,16 @@ deepest features, then a ``ClassificationBranch``, not rematerialised.
 ``encoder`` and ``branches`` are the parts of ``forward`` that the heads
 read, so a CLIP step runs them alone, without the decoder.
 
-Not ported: the ``torch_port=True`` numerics and configurations that leave
-the channel-first path (the constructor raises for those).
+With ``torch_port`` the model computes as the reference's torch model
+does, for weights imported from a reference ``.pth``
+(``models/torch_port.py``): align-corners upsampling and the torch default
+eps 1e-5 in the norms the reference does not build through ``ConvNormAct``
+(the attention blocks', the patch merges', the LayerNorms), as the JAX
+model's ``torch_port`` option. The instance norms of the conv blocks keep
+1e-4 either way.
+
+Not ported: configurations that leave the channel-first path (the
+constructor raises for those).
 """
 
 from __future__ import annotations
@@ -223,15 +231,16 @@ class DownBlockMF(nn.Module):
                  down_scale=(2, 2, 2), map_size=(3, 3, 3),
                  map_generate: bool = False,
                  cf_input: bool = False, cf_output: bool = False,
-                 dtype=torch.float32):
+                 torch_port: bool = False, dtype=torch.float32):
         super().__init__()
+        block_eps = 1e-5 if torch_port else 1e-4
         if conv_num and (trans_num or map_generate):
             raise NotImplementedError("conv blocks beside attention in one "
                                       "encoder stage are not ported")
         if cf_output and not conv_num:
             raise ValueError("cf_output needs the channel-first conv blocks")
         self.PatchMerging_0 = PatchMerging(c_in, out_dim, down_scale,
-                                           cf_input=cf_input, dtype=dtype)
+                                           block_eps, cf_input, dtype)
         for i in range(conv_num):
             self.add_module(f"BasicBlock_{i}", BasicBlockCF(
                 out_dim, out_dim, dtype))
@@ -241,7 +250,7 @@ class DownBlockMF(nn.Module):
         if trans_num:
             self.BasicLayer_0 = BasicLayer(
                 trans_num, out_dim, out_dim, out_dim, heads, dim_head,
-                expansion, map_size, dtype=dtype)
+                expansion, map_size, norm_eps=block_eps, dtype=dtype)
         self.conv_num, self.trans_num = conv_num, trans_num
         self.map_generate, self.cf_output = map_generate, cf_output
 
@@ -267,19 +276,21 @@ class UpBlockMF(nn.Module):
     def __init__(self, c_low: int, c_skip: int, out_dim: int, trans_num: int,
                  heads: int, dim_head: int, expansion: int = 4,
                  map_size=(3, 3, 3), map_shortcut: bool = False,
-                 map_dims=(0, 0),
-                 no_map_out: bool = False, dtype=torch.float32):
+                 map_dims=(0, 0), no_map_out: bool = False,
+                 torch_port: bool = False, dtype=torch.float32):
         super().__init__()
         if map_shortcut:
             self.Conv_0 = Conv1(map_dims[0] + map_dims[1], out_dim, False,
                                 dtype)
         self.BasicLayer_0 = BasicLayer(
             trans_num, c_low + c_skip, out_dim, out_dim, heads, dim_head,
-            expansion, map_size, no_map_out, dtype=dtype)
-        self.map_shortcut = map_shortcut
+            expansion, map_size, no_map_out,
+            norm_eps=1e-5 if torch_port else 1e-4, dtype=dtype)
+        self.map_shortcut, self.align_corners = map_shortcut, torch_port
 
     def forward(self, x_low, x_skip, map_low, map_skip=None):
-        x = resize_trilinear(x_low, x_skip.shape[1:4]).to(x_low.dtype)
+        x = resize_trilinear(x_low, x_skip.shape[1:4],
+                             self.align_corners).to(x_low.dtype)
         feat = torch.cat([x, x_skip.to(x.dtype)], dim=-1)
         if self.map_shortcut and map_skip is not None:
             sem = self.Conv_0(torch.cat([map_low, map_skip], dim=-1))
@@ -292,17 +303,17 @@ class UpBlockCF(nn.Module):
     """Channel-first decoder stage: upsample + skip-concat + conv blocks."""
 
     def __init__(self, c_low: int, c_skip: int, out_dim: int, conv_num: int,
-                 dtype=torch.float32):
+                 torch_port: bool = False, dtype=torch.float32):
         super().__init__()
-        self.conv_num = conv_num
+        self.conv_num, self.align_corners = conv_num, torch_port
         for i in range(conv_num):
             self.add_module(f"BasicBlock_{i}", BasicBlockCF(
                 c_low + c_skip if i == 0 else out_dim, out_dim, dtype))
 
     def forward(self, x_low_cf, x_skip_cf):
         sk = x_skip_cf.shape
-        x = resize_trilinear_cf(x_low_cf, (sk[1], sk[3], sk[4])).to(
-            x_low_cf.dtype)
+        x = resize_trilinear_cf(x_low_cf, (sk[1], sk[3], sk[4]),
+                                self.align_corners).to(x_low_cf.dtype)
         feat = torch.cat([x, x_skip_cf.to(x.dtype)], dim=2)
         for i in range(self.conv_num):
             feat = getattr(self, f"BasicBlock_{i}")(feat)
@@ -380,8 +391,8 @@ class MedFormer(nn.Module):
                  act: str = "relu", kernel_size=(3, 3, 3, 3, 3),
                  scale=((2, 2, 2),) * 4, aux_loss: bool = True,
                  classification_classes: int = 0, clip_branch: bool = False,
-                 clip_feats: int = 768,
-                 remat: bool = True, dtype=torch.float32):
+                 clip_feats: int = 768, remat: bool = True,
+                 torch_port: bool = False, dtype=torch.float32):
         super().__init__()
         cn, tn, ch, nh = conv_num, trans_num, chan_num, num_heads
         scale = [tuple(s) if isinstance(s, (tuple, list)) else (s,) * 3
@@ -404,7 +415,8 @@ class MedFormer(nn.Module):
         dim_head = [ch[i] // nh[i] for i in range(8)]
         self.num_classes, self.aux_loss, self.dtype = num_classes, aux_loss, \
             dtype
-        self.remat = remat
+        self.remat, self.torch_port = remat, torch_port
+        ln_eps = 1e-5 if torch_port else 1e-6
 
         self.Conv_0 = CFConv3(1, base_chan, dtype=dtype)
         self.BasicBlock_0 = BasicBlockCF(base_chan, base_chan, dtype)
@@ -413,23 +425,26 @@ class MedFormer(nn.Module):
             self.add_module(f"DownBlockMF_{i}", DownBlockMF(
                 c_prev, ch[i], cn[i], tn[i], nh[i], dim_head[i], expansion,
                 scale[i], map_size, map_generate=i >= 1,
-                cf_input=i <= 1, cf_output=i == 0, dtype=dtype))
+                cf_input=i <= 1, cf_output=i == 0, torch_port=torch_port,
+                dtype=dtype))
             c_prev = ch[i]
         self.SemanticMapFusion_0 = SemanticMapFusion(
             (ch[1], ch[2], ch[3]), fusion_dim, fusion_heads, fusion_depth,
-            dtype=dtype)
+            ln_eps, dtype)
         self.UpBlockMF_0 = UpBlockMF(
             ch[3], ch[2], ch[4], tn[4], nh[4], dim_head[4], expansion,
             map_size, map_shortcut=True, map_dims=(ch[3], ch[2]),
-            dtype=dtype)
+            torch_port=torch_port, dtype=dtype)
         self.UpBlockMF_1 = UpBlockMF(
             ch[4], ch[1], ch[5], tn[5], nh[5], dim_head[5], expansion,
             map_size, map_shortcut=True, map_dims=(ch[4], ch[1]),
-            no_map_out=True, dtype=dtype)
+            no_map_out=True, torch_port=torch_port, dtype=dtype)
         if aux_loss:
             self.aux_out = Conv1(ch[5], num_classes, True, dtype)
-        self.UpBlockMF_2 = UpBlockCF(ch[5], ch[0], ch[6], cn[6], dtype)
-        self.UpBlockMF_3 = UpBlockCF(ch[6], base_chan, ch[7], cn[7], dtype)
+        self.UpBlockMF_2 = UpBlockCF(ch[5], ch[0], ch[6], cn[6], torch_port,
+                                     dtype)
+        self.UpBlockMF_3 = UpBlockCF(ch[6], base_chan, ch[7], cn[7],
+                                     torch_port, dtype)
         self.outc = CFConv1(ch[7], num_classes, True, dtype)
         # the encoder heads: an attention stage of ch[3] // 2 channels and 4
         # heads on x4, then the classifier (JAX ``cls_extra``/``clip_extra``)
@@ -441,9 +456,10 @@ class MedFormer(nn.Module):
         for name, n_out in heads:
             self.add_module(f"{name}_extra", DownBlockMF(
                 ch[3], ch[3] // 2, 0, 1, 4, dim_head[3], expansion, scale[3],
-                map_size, map_generate=True, dtype=dtype))
+                map_size, map_generate=True, torch_port=torch_port,
+                dtype=dtype))
             self.add_module(f"{name}_branch", ClassificationBranch(
-                ch[3] // 2, n_out, dtype=dtype))
+                ch[3] // 2, n_out, ln_eps=ln_eps, dtype=dtype))
 
     def _block(self, name: str, *args):
         """Run a down or up block; with ``remat`` under autograd its
@@ -487,7 +503,8 @@ class MedFormer(nn.Module):
         out, sem = self._block("UpBlockMF_1", out, x2, sem, map2)
         aux = None
         if self.aux_loss:
-            aux = resize_trilinear(self.aux_out(out), x.shape[1:4])
+            aux = resize_trilinear(self.aux_out(out), x.shape[1:4],
+                                   self.torch_port)
         out_cf = self._block("UpBlockMF_2", out.permute(0, 1, 4, 2, 3), x1_cf)
         out_cf = self._block("UpBlockMF_3", out_cf, x0_cf)
         logits = self.outc(out_cf).permute(0, 1, 3, 4, 2)

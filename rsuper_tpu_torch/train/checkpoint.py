@@ -1,13 +1,15 @@
-"""Checkpoints: latest / every-N / best retention and resume, and warm
-starts from a donor's parameters (the port's counterpart of
-``rsuper_tpu/train/checkpoint.py``, with ``torch.save`` in place of orbax).
+"""Checkpoints: latest / every-N / best retention and resume, warm starts
+from a donor's parameters, and the read-only parameter load that serving
+uses (the port's counterpart of ``rsuper_tpu/train/checkpoint.py``, with
+``torch.save`` in place of orbax).
 
 A checkpoint ``<dir>/<tag>`` holds the model's, the optimizer's and the EMA
-copy's ``state_dict``s and the step. It is written to a temporary file in
-the same directory, flushed to disk and ``os.replace``d, so a run cut
-mid-write never leaves a torn ``latest``. Saves are synchronous: when
+copy's ``state_dict``s and the step (a converted reference checkpoint,
+``save_params``, holds the parameters alone). It is written to a temporary
+file in the same directory, flushed to disk and ``os.replace``d, so a run
+cut mid-write never leaves a torn ``latest``. Saves are synchronous: when
 ``_save`` returns, the checkpoint is durable, so ``wait()`` has nothing to
-wait for.
+wait for. Only a save creates the directory: reading never does.
 """
 
 from __future__ import annotations
@@ -31,10 +33,23 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
+def _write(path: str, payload) -> None:
+    """``torch.save`` `payload` to `path` atomically and durably, creating
+    its directory."""
+    directory = os.path.dirname(path)
+    os.makedirs(directory, exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        torch.save(payload, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    _fsync_dir(directory)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, save_every: int = 25):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
         self.save_every = save_every
         self.best_metric = -float("inf")
 
@@ -51,14 +66,7 @@ class CheckpointManager:
             "ema_params": state.ema_params,
             "step": int(state.step),
         }
-        path = self._path(tag)
-        tmp = f"{path}.tmp{os.getpid()}"
-        with open(tmp, "wb") as f:
-            torch.save(payload, f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-        _fsync_dir(self.directory)
+        _write(self._path(tag), payload)
 
     def save_epoch(self, state: TrainState, epoch: int,
                    metric: Optional[float] = None) -> None:
@@ -87,6 +95,43 @@ class CheckpointManager:
 
     def has(self, tag: str = "latest") -> bool:
         return os.path.exists(self._path(tag))
+
+
+def save_params(directory: str, params: Dict[str, torch.Tensor],
+                tag: str = "best") -> str:
+    """Write `params` (a ``state_dict``) as ``<directory>/<tag>`` holding the
+    parameters alone, as the JAX package's checkpoint converter writes
+    ``{"params": ...}``; returns the path."""
+    path = os.path.join(os.path.abspath(directory), tag)
+    _write(path, {"params": {k: v.detach().cpu() for k, v in params.items()}})
+    return path
+
+
+def load_params(directory: str, tag: str = "best",
+                ema: bool = False) -> Dict[str, torch.Tensor]:
+    """The parameters of ``<directory>/<tag>`` as a ``state_dict`` on the
+    CPU, for serving: no optimizer, no train state. Falls back to ``latest``
+    when `tag` is absent (JAX ``predict.py:81``). With `ema` the EMA copy,
+    and a checkpoint without one raises. A missing directory raises
+    ``FileNotFoundError`` and is not created."""
+    ckpt = CheckpointManager(directory)
+    if not os.path.isdir(ckpt.directory):
+        raise FileNotFoundError(
+            f"checkpoint directory {ckpt.directory} does not exist")
+    use = tag if ckpt.has(tag) else "latest"
+    if not ckpt.has(use):
+        raise FileNotFoundError(
+            f"{ckpt.directory} holds neither {tag!r} nor 'latest'")
+    payload = torch.load(ckpt._path(use), map_location="cpu",
+                         weights_only=True)
+    if not ema:
+        return payload["params"]
+    if payload.get("ema_params") is None:
+        raise ValueError(
+            f"--ema: {ckpt._path(use)} holds no EMA copy (a converted "
+            "checkpoint holds the parameters alone: convert the reference's "
+            "EMA weights with convert_checkpoint --ema instead)")
+    return {**payload["params"], **payload["ema_params"]}
 
 
 def parse_class_list(spec: str):

@@ -2,7 +2,8 @@
 unless the CPU is asked for.
 
 * No module of ``rsuper_tpu_torch`` and not ``chip_smoke.py`` imports
-  ``jax``, ``flax``, ``optax`` or ``rsuper_tpu``: checked on the source (AST)
+  ``jax``, ``flax``, ``optax`` or ``rsuper_tpu``, nor ``pandas`` or
+  ``sklearn``, which the card's machine lacks: checked on the source (AST)
   and by importing every module in a fresh interpreter and reading
   ``sys.modules``.
 * The entry points raise without CUDA unless ``device="cpu"`` is given.
@@ -25,7 +26,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "rsuper_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
-             "rsuper_tpu")
+             "rsuper_tpu", "pandas", "sklearn")
 
 
 def _sources():
@@ -45,7 +46,10 @@ def _sources():
                 "train/validation.py", "train/crossval.py",
                 "models/surgery.py", "data/host_augment.py",
                 "data/clip.py", "losses/info_nce.py",
-                "losses/classification.py"):
+                "losses/classification.py", "models/torch_port.py",
+                "convert_checkpoint.py", "eval/__init__.py",
+                "eval/detection.py", "eval/sens_spec.py", "evaluate.py",
+                "bench_infer.py"):
         assert f"rsuper_tpu_torch/{new}" in names
     return files
 
@@ -121,7 +125,7 @@ def test_resolve_device_needs_cuda_unless_cpu(no_cuda):
 
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
-    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch import bench_infer, bench_train
     from rsuper_tpu_torch import predict as cli
     from rsuper_tpu_torch.train import __main__ as train_cli
     from rsuper_tpu_torch.inference.predict import (predict_folder,
@@ -143,6 +147,10 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: cli.main(["--input_dir", str(tmp_path), "--output_dir",
                           str(tmp_path / "o"), "--params_npz", "x.npz",
                           "--classes_json", "c.json"]),
+        lambda: cli.main(["--input_dir", str(tmp_path), "--output_dir",
+                          str(tmp_path / "o"), "--checkpoint", "run",
+                          "--classes_json", "c.json"]),
+        lambda: bench_infer.main(["--edge", "32", "--window", "32"]),
         lambda: bench_train.main(["--size", "32", "--steps", "1"]),
         lambda: train_cli.main(["--data_root", str(tmp_path)]),
     ):

@@ -168,9 +168,28 @@ def test_params_from_flax_raises_on_extra_leaf(pair):
         params_from_flax(wrong, model)
 
 
-@pytest.mark.parametrize("option", [{"torch_port": True},
-                                    {"cf_fullres": False},
+@pytest.mark.parametrize("option", [{"cf_fullres": False},
                                     {"conv_block": "MBConv"}])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError):
         get_model("medformer", NUM_CLASSES, {**TINY, **option})
+
+
+@pytest.mark.parametrize("torch_port", [False, True])
+def test_torch_port_option_is_threaded(torch_port):
+    """``torch_port`` builds and reaches every block the JAX option reaches:
+    align-corners upsampling, eps 1e-5 in the patch merges, the attention
+    blocks and the LayerNorms (1e-4 and 1e-6 without it)."""
+    model = get_model("medformer", NUM_CLASSES,
+                      {**TINY, "torch_port": torch_port,
+                       "classification_classes": 2})
+    block_eps, ln_eps = (1e-5, 1e-5) if torch_port else (1e-4, 1e-6)
+    assert model.torch_port is torch_port
+    for name, m in model.named_modules():
+        kind = type(m).__name__
+        if kind in ("PatchMerging", "BidirectionAttentionBlock"):
+            assert m.norm_eps == block_eps, name
+        elif kind == "LayerNorm":
+            assert m.eps == ln_eps, name
+        elif kind in ("UpBlockMF", "UpBlockCF"):
+            assert m.align_corners is torch_port, name
