@@ -119,6 +119,22 @@ Phases, in order (any failure exits non-zero):
              2 steps of the preset with the classification branch. The
              kernels phase also holds the depthwise kernels at the heads'
              (2,4,4,4,C) shapes.
+11. zoo    — the 3D model zoo: ``main`` with ``--preset
+             abdomenatlas/resunet_3d`` (ResUNet, 128³ crops, batch 2, bf16,
+             ``ball_dice_last``) on the same cases, fold 0 of ``--k_fold
+             2``: 4 steps with a profiled last step and the launch counts set
+             to 0 just before and read just after, the fold's validation,
+             then 2 on ``--resume`` (ms an iteration and a step, the loop's
+             wait, busy share, device operations, top-N launches a step,
+             peak memory); the Ball Loss of the last step's batch through
+             the top-N kernel against its plain version (bit-equal masks);
+             ``predict --arch resunet --checkpoint`` of what it wrote on a
+             144³ phantom (seconds a volume, the windows' device time); and
+             every other 3D arch at the JAX registry's defaults: a bf16
+             forward and backward at 96³ × 1 (swin_unetr and nnformer at
+             128³: their deepest stage must be a multiple of the window 4),
+             ms and peak memory, and the float32 logits on the card against
+             the CPU's.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. It imports nothing of JAX or of
@@ -1481,17 +1497,18 @@ def _grad_rel_l2(got, ref):
 
 
 def _ball_loss_on_identical_logits(state, batch, lmap, cfg):
-    """The Ball Loss of the same logits through the top-N kernel and through
-    its plain version: nothing else differs, so ball centres, pseudo-masks
-    and loss values must be equal (losses to 1e-6 relative: the same
-    operations on the same masks)."""
+    """The Ball Loss of the same logits (the final head's) through the top-N
+    kernel and through its plain version: nothing else differs, so ball
+    centres, pseudo-masks and loss values must be equal (losses to 1e-6
+    relative: the same operations on the same masks)."""
     import torch
 
     from rsuper_tpu_torch.losses import ball_loss
     from rsuper_tpu_torch.ops.dispatch import plain_on_device
 
     with torch.no_grad():
-        logits = state.model(batch["image"])["segmentation"][0]
+        seg = state.model(batch["image"])["segmentation"]
+        logits = seg[0] if isinstance(seg, (list, tuple)) else seg
 
     def run():
         with _ball_trace(keep_masks=True) as trace:
@@ -1971,6 +1988,18 @@ def _trace_kernels(path: Path):
             busy += b - max(a, end)
             end = b
     return [e["name"] for e in events], busy / 1e3
+
+
+def _trace_top(path: Path, top: int = 8):
+    """The `top` kernel names of a Chrome trace by summed device ms, with
+    their launches."""
+    sums = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            ms, n = sums.get(e["name"], (0.0, 0))
+            sums[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
+    rows = sorted(sums.items(), key=lambda kv: -kv[1][0])[:top]
+    return [dict(ms=ms, calls=n, name=k[:90]) for k, (ms, n) in rows]
 
 
 def phase_train_cli(dev):
@@ -2884,6 +2913,281 @@ def phase_validate(dev):
     return failures
 
 
+# ------------------------------------------------------------------- zoo
+ZOO_PRESET = "abdomenatlas/resunet_3d"
+ZOO_STEPS, ZOO_RESUME_STEPS = 4, 2
+ZOO_EDGE = 144  # the predict phantom: 8 windows of the CLI's 128³
+ZOO_ARCHS = ("unet", "attention_unet", "unetpp", "vnet", "unetr",
+             "swin_unetr", "nnformer", "vtunet")
+ZOO_SIZE = {"swin_unetr": 128, "nnformer": 128}  # else 96: the deepest stage
+# of these two is 1/16 of the input and must be a multiple of the window 4
+ZOO_CPU_SIZE = {"unetr": 96}  # else 64: the card against the CPU in float32
+ZOO_F32_TOL = 1e-3  # max|Δ| ≤ tol·(1+max|ref|): cuDNN against the CPU's
+# convs, float32 both, through up to ~40 instance norms
+
+
+@contextmanager
+def _last_step_batch():
+    """Inside the block, keep a copy of the last batch the training loop's
+    step took with a live report slot (a tumour volume > 0, which the Ball
+    Loss isolates), and the lesion map and loss configuration the step was
+    built with."""
+    import torch
+
+    from rsuper_tpu_torch.train import loop
+
+    seen, build = {}, loop.build_train_step
+
+    def recording_build(lmap, cfg, *args, **kwargs):
+        step = build(lmap, cfg, *args, **kwargs)
+        seen.update(lmap=lmap, cfg=cfg)
+
+        def recorded(state, batch):
+            if bool((batch["volumes"] > 0).any()):
+                seen["batch"] = {k: v.clone() if isinstance(v, torch.Tensor)
+                                 else v for k, v in batch.items()}
+            return step(state, batch)
+
+        return recorded
+
+    loop.build_train_step = recording_build
+    try:
+        yield seen
+    finally:
+        loop.build_train_step = build
+
+
+def _zoo_arch(dev, arch: str):
+    """One arch at the JAX registry's defaults: a bf16 forward and backward
+    on the card (ms after a warm-up, peak memory), and its float32 logits
+    on the card against the CPU's on the same input and weights."""
+    import torch
+
+    from rsuper_tpu_torch.models import get_model, init_params
+
+    n = len(CLASSES)
+    res, size = {}, ZOO_SIZE.get(arch, 96)
+    model = init_params(get_model(arch, n, {}, dtype=torch.bfloat16),
+                        seed=0).to(dev)
+    x = torch.randn((1, size, size, size, 1), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        seg = model(x)["segmentation"]
+        heads = seg if isinstance(seg, (list, tuple)) else [seg]
+        sum(h.float().square().mean() for h in heads).backward()
+        return heads
+
+    heads = step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res.update(size=size, params_m=sum(p.numel() for p in
+                                       model.parameters()) / 1e6,
+               heads=len(heads), logits=list(heads[0].shape),
+               fwd_bwd_ms=time_ms(step, reps=2, warmup=0),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               finite=all(bool(torch.isfinite(h).all()) for h in heads)
+               and all(bool(torch.isfinite(p.grad).all())
+                       for p in model.parameters() if p.grad is not None))
+    del heads
+    model.zero_grad(set_to_none=True)
+    cpu_size = ZOO_CPU_SIZE.get(arch, 64)
+    xc = torch.randn((1, cpu_size, cpu_size, cpu_size, 1),
+                     generator=torch.Generator().manual_seed(2))
+    m32 = get_model(arch, n, {}, dtype=torch.float32)
+    m32.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        ref = m32(xc)["segmentation"]
+        got = m32.to(dev)(xc.to(dev))["segmentation"]
+    ref = ref[0] if isinstance(ref, (list, tuple)) else ref
+    got = (got[0] if isinstance(got, (list, tuple)) else got).cpu()
+    mx = float(ref.abs().max())
+    res.update(cpu_size=cpu_size, f32_max_abs_err=float(
+        (got - ref).abs().max()), f32_ref_max=mx,
+        f32_rel_l2=float((got - ref).norm() / ref.norm()))
+    res["ok"] = (res["finite"] and tuple(res["logits"]) == (
+        1, size, size, size, n) and res["f32_max_abs_err"]
+        <= ZOO_F32_TOL * (1 + mx))
+    del model, m32
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_zoo(dev):
+    """The 3D model zoo on the card: (a) the ``abdomenatlas/resunet_3d``
+    preset through the training CLI (ResUNet at 128³ × 2, bf16,
+    ``ball_dice_last``; fold 0 of ``--k_fold 2``, so the run validates its
+    held-out case): ZOO_STEPS steps with the last profiled and the launch
+    counts set to 0 just before and read just after, then ``--resume`` for
+    ZOO_RESUME_STEPS; (b) the Ball Loss of the last step's own batch
+    through the top-N kernel against its plain version; (c) ``predict
+    --arch resunet --checkpoint`` of the run on a ZOO_EDGE³ phantom, and the
+    windows' device time; (d) every other 3D arch (``_zoo_arch``)."""
+    import numpy as np
+    import torch
+
+    from rsuper_tpu_torch import predict as cli
+    from rsuper_tpu_torch.config import DEFAULT_CONFIGS
+    from rsuper_tpu_torch.data.nifti import write_nifti
+    from rsuper_tpu_torch.data.preprocess import clip_and_normalize
+    from rsuper_tpu_torch.inference.sliding_window import \
+        sliding_window_probs_device
+    from rsuper_tpu_torch.models import get_model
+    from rsuper_tpu_torch.train import validation
+    from rsuper_tpu_torch.train.__main__ import main as train_main
+    from rsuper_tpu_torch.train.checkpoint import load_params
+    from rsuper_tpu_torch.utils.device import card_line
+
+    t_phase = time.time()
+    model_args = DEFAULT_CONFIGS[ZOO_PRESET]["model_args"]
+    failures, res = [], {"card": card_line(), "preset": ZOO_PRESET,
+                         "model_args": model_args, "crop": list(AUG_CROP),
+                         "batch": 2}
+    counted = wrappers()
+    topn = "topn_threshold_multi_batched"
+    validated, run_validation = [], validation.run_validation
+
+    def timed_validation(*args, **kwargs):
+        t0 = time.time()
+        out = run_validation(*args, **kwargs)
+        torch.cuda.synchronize()
+        validated.append(dict(cases=int(max(out["cases_per_class"])),
+                              seconds=time.time() - t0,
+                              dice=[float(v) for v in out["dice"]]))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        masks, reports, csv = write_cli_cases(root)
+        args = ["--preset", ZOO_PRESET, "--data_root", str(masks),
+                "--report_root", str(reports), "--reports", str(csv),
+                "--cp_path", str(root / "exp"), "--unique_name", "zoo",
+                "--iter_per_epoch", "3", "--epochs", "4", "--k_fold", "2",
+                "--fold", "0"]
+        exp = root / "exp" / "zoo_fold0"
+
+        # (a) the preset through the CLI
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for w in counted.values():
+            w.launches = 0
+        validation.run_validation = timed_validation
+        try:
+            with _last_step_batch() as last:
+                t0 = time.time()
+                state = train_main(args + ["--max_steps", str(ZOO_STEPS),
+                                           "--profile_steps", "1"])
+                torch.cuda.synchronize()
+                res["run_s"] = time.time() - t0
+            launches = {k: w.launches for k, w in counted.items()}
+            res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            recs = _metrics_log(exp)
+            phases = [r for r in recs if "phase/step_ms" in r][-1]
+            losses = {r["step"]: r["train/overall"] for r in recs
+                      if "train/overall" in r}
+            names, busy_ms = _trace_kernels(exp / "trace" / "trace.json")
+            res.update(
+                profiled_step_top=_trace_top(exp / "trace" / "trace.json"),
+                steps=state.step, logged_losses=losses,
+                ms_per_iteration=phases["phase/iteration_median_ms"],
+                step_call_ms=phases["phase/step_median_ms"],
+                loader_wait_ms=phases["phase/load_median_ms"],
+                loader_item_ms=phases["phase/loader_item_ms"],
+                profiled_step_device_ops=len(names),
+                profiled_step_busy_ms=busy_ms,
+                device_busy_share_of_iteration=busy_ms
+                / phases["phase/iteration_median_ms"],
+                topn_in_profiled_step=sum("multisect_kernel" in k
+                                          for k in names),
+                launches_per_step={k: n / ZOO_STEPS
+                                   for k, n in launches.items() if n},
+                validation=list(validated))
+            if state.step != ZOO_STEPS:
+                failures.append(f"zoo: step {state.step} after the run")
+            if not losses or not all(math.isfinite(v)
+                                     for v in losses.values()):
+                failures.append(f"zoo: logged losses {losses}")
+            if launches[topn] <= 0 or res["topn_in_profiled_step"] <= 0:
+                failures.append("zoo: the batched top-N kernel was not "
+                                "launched in the ResUNet step")
+            if (not validated or validated[0]["cases"] < 1
+                    or not (exp / "fold_results.json").exists()):
+                failures.append(f"zoo: the fold was not validated: "
+                                f"{validated}")
+
+            # (b) row 8 against its plain version on a step's batch
+            if "batch" not in last:
+                raise RuntimeError("zoo: no step had a live report slot")
+            agree = _ball_loss_on_identical_logits(
+                state, last["batch"], last["lmap"], last["cfg"])
+            res["ball_loss_on_identical_logits"] = {
+                k: agree[k] for k in ("losses", "mask_voxels_that_differ",
+                                      "ok")}
+            if not agree["ok"]:
+                failures.append(f"zoo: the Ball Loss through the top-N "
+                                f"kernel differs from its plain version: "
+                                f"{agree}")
+            del state, last
+            torch.cuda.empty_cache()
+
+            state = train_main(args + ["--max_steps",
+                                       str(ZOO_RESUME_STEPS), "--resume"])
+        finally:
+            validation.run_validation = run_validation
+        total = ZOO_STEPS + ZOO_RESUME_STEPS
+        saved = torch.load(exp / "latest", weights_only=True)
+        res["resumed"] = dict(step=state.step, saved_step=saved["step"])
+        if not state.step == saved["step"] == total:
+            failures.append(f"zoo: the resumed run: {res['resumed']}")
+        del state, saved
+        torch.cuda.empty_cache()
+
+        # (c) the predict CLI serves what the run wrote
+        (root / "in").mkdir()
+        ct = phantom_ct(ZOO_EDGE, seed=5)
+        write_nifti(str(root / "in" / "zoo_case.nii"), ct, np.eye(4))
+        t0 = time.time()
+        done = cli.main([
+            "--input_dir", str(root / "in"), "--output_dir",
+            str(root / "out"), "--checkpoint", str(exp), "--tag", "latest",
+            "--classes_json", str(masks / "classes.json"), "--arch",
+            "resunet", "--model_args_json", json.dumps(model_args)])
+        torch.cuda.synchronize()
+        res["predict_s_per_volume"] = time.time() - t0
+        if done != ["zoo_case"] or (root / "out" /
+                                    "prediction_errors.txt").exists():
+            failures.append(f"zoo: predict --arch resunet gave {done}")
+        n = len(json.loads((masks / "classes.json").read_text()))
+        model = get_model("resunet", n, model_args, dtype=torch.bfloat16)
+        model.load_state_dict(load_params(str(exp), "latest"))
+        model = model.to(dev).eval()
+        vol = clip_and_normalize(ct)
+
+        def windows():
+            with torch.inference_mode():
+                sliding_window_probs_device(
+                    lambda x: model(x)["segmentation"], vol, n,
+                    window=(128,) * 3, batch=8, device=dev)
+
+        prof = _profile(windows, top=5)
+        res["predict_windows"] = {k: prof[k] for k in (
+            "wall_ms", "device_busy_ms", "device_busy_share", "device_ops",
+            "top")}
+        del model
+        torch.cuda.empty_cache()
+
+    # (d) every other 3D arch at the JAX registry's defaults
+    res["archs"] = {}
+    for arch in ZOO_ARCHS:
+        res["archs"][arch] = r = _zoo_arch(dev, arch)
+        if not r["ok"]:
+            failures.append(f"zoo {arch}: {r}")
+    res["phase_s"] = time.time() - t_phase
+    log(json.dumps({"zoo": res}))
+    return failures
+
+
 def main() -> int:
     import torch
 
@@ -2928,6 +3232,8 @@ def main() -> int:
     failures += fails
     failures += phase_clip(dev, full_step_ops)
     failures += phase_validate(dev)
+    torch.cuda.empty_cache()
+    failures += phase_zoo(dev)
     # each kernel's count comes from the path it was written for: the
     # forward kernels from the predict phase, the backward ones from the
     # training steps (which launch the forward kernels too)

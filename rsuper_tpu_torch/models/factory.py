@@ -1,5 +1,8 @@
-"""Model factory (counterpart of ``rsuper_tpu/models/factory.py``); the
-port builds MedFormer only."""
+"""Model factory (counterpart of ``rsuper_tpu/models/factory.py``): every
+3D architecture of the JAX registry, with its defaults. All models take
+channels-last ``(B, D, H, W, 1)`` volumes and return
+``{"segmentation": logits | [logits, aux], ...}``. The 2D architectures are
+``ROADMAP.md`` §1 item 4 and raise ``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -7,7 +10,32 @@ from typing import Any, Dict
 
 import torch
 
+from .attention_unet import AttentionUNet
 from .medformer import MedFormer
+from .nnformer import NnFormer, VTUNet
+from .swin_unetr import SwinUNETR
+from .unet3d import UNet3D
+from .unetpp import UNetPlusPlus
+from .unetr import UNETR
+from .vnet import VNet
+
+
+def _unet(args: Dict[str, Any], num_classes: int, dtype):
+    return UNet3D(
+        num_classes=num_classes,
+        base_chan=args.get("base_chan", 32),
+        block=args.get("block", "ConvNormAct"),
+        pool=args.get("pool", False),
+        norm=args.get("norm", "in"),
+        aux_head=args.get("aux_head", False),
+        dtype=dtype,
+    )
+
+
+def _resunet(args, num_classes, dtype):
+    args = dict(args)
+    args.setdefault("block", "BasicBlock")
+    return _unet(args, num_classes, dtype)
 
 
 def _medformer(args: Dict[str, Any], num_classes: int, dtype):
@@ -41,7 +69,80 @@ def _medformer(args: Dict[str, Any], num_classes: int, dtype):
     )
 
 
-MODEL_REGISTRY = {"medformer": _medformer}
+def _vnet(args, num_classes, dtype):
+    return VNet(num_classes=num_classes, base_chan=args.get("base_chan", 16),
+                dtype=dtype)
+
+
+def _unetr(args, num_classes, dtype):
+    return UNETR(
+        num_classes=num_classes,
+        img_size=tuple(args.get("img_size", (96, 96, 96))),
+        feature_size=args.get("feature_size", 16),
+        hidden_size=args.get("hidden_size", 768),
+        mlp_dim=args.get("mlp_dim", 3072),
+        num_heads=args.get("num_heads", 12),
+        num_layers=args.get("num_layers", 12),
+        dtype=dtype,
+    )
+
+
+def _attention_unet(args, num_classes, dtype):
+    return AttentionUNet(num_classes=num_classes,
+                         base_chan=args.get("base_chan", 32), dtype=dtype)
+
+
+def _unetpp(args, num_classes, dtype):
+    return UNetPlusPlus(num_classes=num_classes,
+                        base_chan=args.get("base_chan", 32),
+                        depth=args.get("depth", 4), dtype=dtype)
+
+
+def _swin_unetr(args, num_classes, dtype):
+    return SwinUNETR(
+        num_classes=num_classes,
+        feature_size=args.get("feature_size", 48),
+        depths=tuple(args.get("depths", (2, 2, 2, 2))),
+        num_heads=tuple(args.get("num_heads", (3, 6, 12, 24))),
+        window_size=args.get("window_size", 4),
+        dtype=dtype,
+    )
+
+
+def _nnformer(args, num_classes, dtype):
+    return NnFormer(
+        num_classes=num_classes, embed_dim=args.get("embed_dim", 48),
+        depths=tuple(args.get("depths", (2, 2, 2))),
+        num_heads=tuple(args.get("num_heads", (3, 6, 12))),
+        window_size=args.get("window_size", 4),
+        aux_loss=args.get("aux_loss", True), dtype=dtype)
+
+
+def _vtunet(args, num_classes, dtype):
+    return VTUNet(
+        num_classes=num_classes, embed_dim=args.get("embed_dim", 48),
+        depths=tuple(args.get("depths", (2, 2, 2))),
+        num_heads=tuple(args.get("num_heads", (3, 6, 12))),
+        window_size=args.get("window_size", 4), dtype=dtype)
+
+
+MODEL_REGISTRY = {
+    "unet": _unet,
+    "resunet": _resunet,
+    "medformer": _medformer,
+    "vnet": _vnet,
+    "unetr": _unetr,
+    "attention_unet": _attention_unet,
+    "unetpp": _unetpp,
+    "swin_unetr": _swin_unetr,
+    "nnformer": _nnformer,
+    "vtunet": _vtunet,
+}
+
+# the JAX registry's 2D pathway (its --dimension 2d zoo), not ported yet
+UNPORTED_2D = ("unet_2d", "resunet_2d", "attention_unet_2d",
+               "dual_attention_unet_2d", "transunet_2d", "swin_unet_2d",
+               "unetpp_2d", "medformer_2d")
 
 
 def get_model(arch: str, num_classes: int, args: Dict[str, Any] | None = None,
@@ -49,6 +150,10 @@ def get_model(arch: str, num_classes: int, args: Dict[str, Any] | None = None,
     """Build a model (float32 parameters, computing in `dtype`). Its
     parameters are uninitialised: fill them with ``init_params`` or
     ``load_flax_params``."""
+    if arch in UNPORTED_2D:
+        raise NotImplementedError(
+            f"arch {arch!r} is a 2D model, not ported yet: ROADMAP.md §1 "
+            "item 4 (the rest of MedFormer and the 2D path)")
     if arch not in MODEL_REGISTRY:
         raise ValueError(f"unknown arch {arch!r}; the port has "
                          f"{sorted(MODEL_REGISTRY)}")

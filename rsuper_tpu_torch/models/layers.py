@@ -1,5 +1,5 @@
-"""Shared 3D building blocks of MedFormer (counterpart of
-``rsuper_tpu/models/layers.py``).
+"""Shared 3D building blocks of MedFormer and the model zoo (counterpart
+of ``rsuper_tpu/models/layers.py``).
 
 Layouts follow the JAX package: channels-last ``(B, D, H, W, C)`` for the
 ``nn.Conv``-style blocks, depth-major channel-first ``(B, D, C, H, W)`` for
@@ -10,11 +10,14 @@ match the flax tree so ``models/params.py`` can carry a JAX checkpoint over:
 * ``kernel`` is a flax-layout conv kernel ``(3, 3, 3, C_in, C_out)`` (or
   ``(3, 3, 3, 1, C)`` depthwise) — the layout the CUDA kernels take;
 * ``weight`` is a torch-layout weight: ``(C_out, C_in)`` for 1×1 convs and
-  dense layers, ``(C_out, C_in, 3, 3, 3)`` for ``F.conv3d``.
+  dense layers, ``(C_out, C_in, kd, kh, kw)`` for ``F.conv3d`` (``Conv``,
+  the model zoo's dense convs of any kernel and stride) and
+  ``(C_in, C_out, kd, kh, kw)`` for ``F.conv_transpose3d``
+  (``ConvTranspose``).
 
-Instance norm (eps 1e-4) and ReLU in the conv blocks; trilinear resizing
-with half-pixel centres, or with ``align_corners`` for MedFormer's
-``torch_port`` numerics; LayerNorm eps as the caller gives it.
+Instance norm (eps 1e-4) and flax's activations in the conv blocks;
+trilinear resizing with half-pixel centres, or with ``align_corners`` for
+MedFormer's ``torch_port`` numerics; LayerNorm eps as the caller gives it.
 """
 
 from __future__ import annotations
@@ -30,18 +33,41 @@ from ..ops.dwconv import depthwise_conv3x3x3
 
 
 # ----------------------------------------------------------- normalisation
+class _InstanceNorm(torch.autograd.Function):
+    """The JAX package's instance norm with its closed-form VJP
+    (``rsuper_tpu/models/layers.py`` ``_instance_norm_fwd/_bwd``): the
+    backward is dx = inv·(dy − E[dy] − y·E[dy·y]) from the saved output y
+    and 1/σ, float32 means; autograd of the one-pass forward would
+    differentiate E[x²] − E[x]², which cancels badly where σ ≪ |μ|."""
+
+    @staticmethod
+    def forward(ctx, x, axes, eps):
+        n = math.prod(x.shape[a] for a in axes)
+        x32 = x.float()
+        s1 = x32.sum(dim=axes, keepdim=True)
+        s2 = (x32 * x32).sum(dim=axes, keepdim=True)
+        mean = s1 / n
+        var = torch.clamp(s2 / n - mean * mean, min=0.0)
+        inv = torch.rsqrt(var + eps)
+        y = ((x32 - mean) * inv).to(x.dtype)
+        ctx.save_for_backward(y, inv)
+        ctx.axes = axes
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        y, inv = ctx.saved_tensors
+        m1 = dy.float().mean(dim=ctx.axes, keepdim=True)
+        m2 = (dy * y).float().mean(dim=ctx.axes, keepdim=True)
+        dx = inv * (dy.float() - m1 - y.float() * m2)
+        return dx.to(dy.dtype), None, None
+
+
 def instance_norm_axes(x: torch.Tensor, spatial_axes, eps: float = 1e-4):
     """Per-sample normalisation over `spatial_axes` (no affine): float32
-    one-pass stats, var = max(E[x²] − E[x]², 0), output in x's type."""
-    axes = tuple(spatial_axes)
-    n = math.prod(x.shape[a] for a in axes)
-    x32 = x.float()
-    s1 = x32.sum(dim=axes, keepdim=True)
-    s2 = (x32 * x32).sum(dim=axes, keepdim=True)
-    mean = s1 / n
-    var = torch.clamp(s2 / n - mean * mean, min=0.0)
-    inv = torch.rsqrt(var + eps)
-    return ((x32 - mean) * inv).to(x.dtype)
+    one-pass stats, var = max(E[x²] − E[x]², 0), output in x's type; the
+    closed-form backward of ``_InstanceNorm``."""
+    return _InstanceNorm.apply(x, tuple(spatial_axes), eps)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-4):
@@ -87,31 +113,197 @@ class DepthwiseConv3(nn.Module):
         return depthwise_conv3x3x3(x.to(self.dtype), self.kernel)
 
 
-class ConvNormAct(nn.Module):
-    """Pre-activated, channels-last: instance norm → ReLU (unless ``relu``
-    is False) → conv, no bias. The conv is a 1×1 ``Conv_0`` or, for a 3³
-    depthwise conv (groups == features == C_in), ``DepthwiseConv3_0``. The
-    other forms of the JAX block are not on MedFormer's default path and
-    are not ported."""
+def _triple(v):
+    return (v,) * 3 if isinstance(v, int) else tuple(v)
 
-    def __init__(self, c_in: int, features: int, kernel_size: int = 3,
-                 groups: int = 1, relu: bool = True, dtype=torch.float32):
+
+def same_pads(size, kernel, stride):
+    """flax ``padding="SAME"``'s (low, high) pads of one axis: the output
+    has ceil(size / stride) positions and an odd total pad puts the extra
+    voxel at the high end (``lax.padtype_to_pads``). A stride-2 3³ conv on
+    an even size pads (0, 1), where torch's ``padding=1`` pads (1, 1)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """Dense conv of any kernel and stride on channels-last (B, D, H, W, C)
+    tensors with flax's SAME padding (``nn.Conv``), through cuDNN on the
+    card: ``weight`` in torch layout (C_out, C_in, kd, kh, kw), optional
+    ``bias``. The channels-last tensor is handed to ``F.conv3d`` as a
+    channels_last_3d view, so no layout copy is made."""
+
+    def __init__(self, c_in: int, features: int, kernel_size=3, strides=1,
+                 use_bias: bool = True, dtype=torch.float32):
         super().__init__()
-        if groups > 1 and groups == features == c_in and kernel_size == 3:
+        self.kernel, self.strides = _triple(kernel_size), _triple(strides)
+        self.weight = nn.Parameter(torch.empty(features, c_in, *self.kernel))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+        self.dtype = dtype
+
+    def forward(self, x):
+        x = x.to(self.dtype).permute(0, 4, 1, 2, 3)
+        pads = [same_pads(n, k, s) for n, k, s in
+                zip(x.shape[2:], self.kernel, self.strides)]
+        if all(lo == hi for lo, hi in pads):
+            padding = tuple(lo for lo, _ in pads)
+        else:  # F.pad's order: last axis first
+            x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
+            padding = 0
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        y = F.conv3d(x, self.weight.to(self.dtype), b, self.strides, padding)
+        return y.permute(0, 2, 3, 4, 1)
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose`` (SAME padding, ``transpose_kernel=False``)
+    on channels-last tensors. flax correlates the stride-dilated input with
+    the kernel as it is; torch's ``conv_transpose3d`` is the same product on
+    the spatially flipped kernel. ``weight`` is torch's layout
+    (C_in, C_out, kd, kh, kw), holding that flipped kernel
+    (``models/params.py`` flips it on the way across)."""
+
+    def __init__(self, c_in: int, features: int, kernel_size=2, strides=2,
+                 use_bias: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.kernel, self.strides = _triple(kernel_size), _triple(strides)
+        # lax.conv_transpose's SAME pads (a, b) of the dilated input are
+        # torch's padding k - 1 - a and output_padding b - a; b - a lies in
+        # [-1, s - 1], and -1 is one voxel cropped off the high end
+        pads = []
+        for k, s in zip(self.kernel, self.strides):
+            a = k - 1 if s > k - 1 else -(-(k + s - 2) // 2)
+            pads.append((k - 1 - a, k + s - 2 - 2 * a))
+        self.padding = tuple(p for p, _ in pads)
+        self.output_padding = tuple(max(op, 0) for _, op in pads)
+        self.crop = tuple(max(-op, 0) for _, op in pads)
+        self.weight = nn.Parameter(torch.empty(c_in, features, *self.kernel))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+        self.dtype = dtype
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        y = F.conv_transpose3d(
+            x.to(self.dtype).permute(0, 4, 1, 2, 3), self.weight.to(self.dtype),
+            b, self.strides, self.padding, self.output_padding)
+        if any(self.crop):
+            d, h, w = (n - c for n, c in zip(y.shape[2:], self.crop))
+            y = y[:, :, :d, :h, :w]
+        return y.permute(0, 2, 3, 4, 1)
+
+
+def make_norm(norm: str):
+    """'in' → instance norm (eps 1e-4), 'none' → identity."""
+    if norm == "in":
+        return instance_norm
+    if norm == "none":
+        return lambda x: x
+    raise ValueError(f"unsupported norm {norm!r} (use 'in' or 'none')")
+
+
+def make_act(act: str):
+    """flax's activations; ``gelu`` is its tanh approximation."""
+    return {
+        "relu": F.relu,
+        "relu6": F.relu6,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "silu": F.silu,
+        "none": lambda x: x,
+    }[act]
+
+
+class ConvNormAct(nn.Module):
+    """conv → norm → act, or with ``preact`` norm → act → conv; no bias
+    unless ``use_bias``. The conv is ``DepthwiseConv3_0`` for a 3³ stride-1
+    depthwise conv (groups == features == C_in), a 1×1×1 ``Conv_0``
+    (``Conv1``) for a pointwise one, else a dense ``Conv_0`` (``Conv``) of
+    any kernel and stride."""
+
+    def __init__(self, c_in: int, features: int, kernel_size=3, strides=1,
+                 groups: int = 1, norm: str = "in", act: str = "relu",
+                 preact: bool = False, use_bias: bool = False,
+                 dtype=torch.float32):
+        super().__init__()
+        kernel, stride = _triple(kernel_size), _triple(strides)
+        if (groups > 1 and groups == features == c_in
+                and kernel == (3, 3, 3) and stride == (1, 1, 1)
+                and not use_bias):
             self.DepthwiseConv3_0 = DepthwiseConv3(c_in, dtype)
             self._conv = "DepthwiseConv3_0"
-        elif kernel_size == 1 and groups == 1:
-            self.Conv_0 = Conv1(c_in, features, False, dtype)
+        elif groups == 1 and kernel == (1, 1, 1) and stride == (1, 1, 1):
+            self.Conv_0 = Conv1(c_in, features, use_bias, dtype)
+            self._conv = "Conv_0"
+        elif groups == 1:
+            self.Conv_0 = Conv(c_in, features, kernel, stride, use_bias, dtype)
             self._conv = "Conv_0"
         else:
             raise NotImplementedError(
-                f"ConvNormAct(kernel_size={kernel_size}, groups={groups}) "
-                "is not ported")
-        self.relu = relu
+                f"ConvNormAct(groups={groups}) other than a 3³ stride-1 "
+                "depthwise conv is not ported")
+        self.norm, self.act = make_norm(norm), make_act(act)
+        self.preact = preact
 
     def forward(self, x):
-        a = instance_norm(x)
-        return getattr(self, self._conv)(F.relu(a) if self.relu else a)
+        conv = getattr(self, self._conv)
+        if self.preact:
+            return conv(self.act(self.norm(x)))
+        return self.act(self.norm(conv(x)))
+
+
+class BasicBlock(nn.Module):
+    """Two pre-activated convs + shortcut (``ConvNormAct_0/1``; a
+    pre-activated ``ConvNormAct_2`` shortcut when the stride or C
+    changes)."""
+
+    def __init__(self, c_in: int, features: int, kernel_size=3, strides=1,
+                 norm: str = "in", act: str = "relu", dtype=torch.float32):
+        super().__init__()
+        kw = dict(norm=norm, act=act, preact=True, dtype=dtype)
+        self.ConvNormAct_0 = ConvNormAct(c_in, features, kernel_size, strides,
+                                         **kw)
+        self.ConvNormAct_1 = ConvNormAct(features, features, kernel_size, 1,
+                                         **kw)
+        self.shortcut = _triple(strides) != (1, 1, 1) or c_in != features
+        if self.shortcut:
+            self.ConvNormAct_2 = ConvNormAct(c_in, features, kernel_size,
+                                             strides, **kw)
+
+    def forward(self, x):
+        out = self.ConvNormAct_1(self.ConvNormAct_0(x))
+        return out + (self.ConvNormAct_2(x) if self.shortcut else x)
+
+
+class Bottleneck(nn.Module):
+    """1×1 → k³ → 1×1 pre-activated bottleneck + shortcut."""
+
+    def __init__(self, c_in: int, features: int, kernel_size=3, strides=1,
+                 norm: str = "in", act: str = "relu", dtype=torch.float32,
+                 expansion: int = 2):
+        super().__init__()
+        mid = features // expansion
+        kw = dict(norm=norm, act=act, preact=True, dtype=dtype)
+        self.ConvNormAct_0 = ConvNormAct(c_in, mid, 1, 1, **kw)
+        self.ConvNormAct_1 = ConvNormAct(mid, mid, kernel_size, strides, **kw)
+        self.ConvNormAct_2 = ConvNormAct(mid, features, 1, 1, **kw)
+        self.shortcut = _triple(strides) != (1, 1, 1) or c_in != features
+        if self.shortcut:
+            self.ConvNormAct_3 = ConvNormAct(c_in, features, kernel_size,
+                                             strides, **kw)
+
+    def forward(self, x):
+        out = self.ConvNormAct_2(self.ConvNormAct_1(self.ConvNormAct_0(x)))
+        return out + (self.ConvNormAct_3(x) if self.shortcut else x)
+
+
+# the blocks a UNet stage can be built of: Block(c_in, features,
+# kernel_size=, strides=, norm=, dtype=); the JAX package's MBConv and
+# FusedMBConv stages are ROADMAP.md §1 item 6's remainder
+BLOCKS = {
+    "ConvNormAct": ConvNormAct,
+    "BasicBlock": BasicBlock,
+    "Bottleneck": Bottleneck,
+}
 
 
 class DepthwiseSeparableConv(nn.Module):
@@ -153,10 +345,12 @@ class MBConv(nn.Module):
         # flax numbers the ConvNormActs in call order: without the expansion
         # conv, the depthwise one is ConvNormAct_0
         convs = [] if expansion == 1 else [
-            ConvNormAct(c_in, mid, 1, dtype=dtype)]
-        convs.append(ConvNormAct(mid, mid, 3, groups=mid, dtype=dtype))
+            ConvNormAct(c_in, mid, 1, preact=True, dtype=dtype)]
+        convs.append(ConvNormAct(mid, mid, 3, groups=mid, preact=True,
+                                 dtype=dtype))
         self.SEBlock_0 = SEBlock(mid, dtype=dtype)
-        convs.append(ConvNormAct(mid, features, 1, relu=False, dtype=dtype))
+        convs.append(ConvNormAct(mid, features, 1, act="none", preact=True,
+                                 dtype=dtype))
         self.n_convs = len(convs)
         for i, conv in enumerate(convs):
             self.add_module(f"ConvNormAct_{i}", conv)

@@ -153,7 +153,7 @@ class BidirectionAttentionBlock(nn.Module):
             dtype)
         if feat_dim != out_dim:
             self.ConvNormAct_0 = ConvNormAct(feat_dim, out_dim, 1,
-                                             dtype=dtype)
+                                             preact=True, dtype=dtype)
         self.MBConv_0 = MBConv(out_dim, out_dim, expansion, dtype)
         self.shortcut = feat_dim != out_dim
         self.no_map_out, self.norm_eps = no_map_out, norm_eps

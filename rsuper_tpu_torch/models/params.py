@@ -1,5 +1,5 @@
-"""Parameters: carry a JAX (flax) MedFormer parameter tree over to the port,
-or draw seeded random ones.
+"""Parameters: carry a JAX (flax) parameter tree of MedFormer or of the
+model zoo over to the port, or draw seeded random ones.
 
 ``params_from_flax`` takes the tree as nested dicts of arrays or as a flat
 ``{"a/b/kernel": array}`` mapping (the ``--params_npz`` file of
@@ -12,9 +12,18 @@ its kind:
 * ``Dense_*/kernel`` (I, O)                → ``weight`` (O, I)
 * 1×1×1 conv ``kernel`` (1, 1, 1, I, O)    → ``weight`` (O, I)
 * ``SemanticMapGeneration_*/Conv_*/kernel`` → ``weight`` (O, I, 3, 3, 3)
+* ``kernel`` of a port ``Conv`` (the zoo's dense convs of any kernel and
+  stride)                                  → ``weight`` (O, I, kd, kh, kw)
+* ``kernel`` of a port ``ConvTranspose``   → ``weight`` (I, O, kd, kh, kw),
+  spatially flipped (flax does not flip a transposed conv's kernel; torch
+  does)
 * other 3³ ``kernel`` (CF and depthwise)   → ``kernel`` unchanged (the
   layout the CUDA kernels take)
-* ``bias``                                 → ``bias``
+* ``bias``, ``alpha`` (PReLU), ``rel_bias`` (Swin's relative-position
+  table), ``pos_embed`` (UNETR)            → unchanged
+
+The owner of a zoo conv's kernel is found in `model`, so a zoo tree needs
+it; MedFormer's rules go by name alone.
 
 The mapping is a pure re-layout, so it carries any tree of the parameters'
 structure across: a JAX gradient tree, the EMA tree, Adam's moments.
@@ -31,6 +40,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from .layers import Conv, ConvTranspose
 
 
 def _t_conv(w: np.ndarray) -> np.ndarray:
@@ -58,12 +69,36 @@ def _strip_checkpoint(part: str) -> str:
     return part[len("Checkpoint"):] if part.startswith("Checkpoint") else part
 
 
-def _convert_leaf(parts, w: np.ndarray):
-    """(port name of the leaf, array in the port's layout)."""
+def _t_conv_transpose(w: np.ndarray) -> np.ndarray:
+    """flax ConvTranspose (kd, kh, kw, I, O) → torch (I, O, kd, kh, kw) of
+    the flipped kernel."""
+    return np.transpose(w[::-1, ::-1, ::-1], (3, 4, 0, 1, 2))
+
+
+_UNCHANGED = ("bias", "alpha", "rel_bias", "pos_embed")
+
+
+def _owner(model, parts):
+    """The port module that holds the leaf at `parts`, or None."""
+    if model is None:
+        return None
+    try:
+        return model.get_submodule(".".join(parts[:-1]))
+    except AttributeError:
+        return None
+
+
+def _convert_leaf(parts, w: np.ndarray, owner=None):
+    """(port name of the leaf, array in the port's layout); `owner` is the
+    port module that holds it, where known."""
     leaf, parent = parts[-1], parts[-2] if len(parts) > 1 else ""
     grand = parts[-3] if len(parts) > 2 else ""
-    if leaf == "bias":
-        return "bias", w
+    if leaf in _UNCHANGED:
+        return leaf, w
+    if leaf == "kernel" and isinstance(owner, ConvTranspose):
+        return "weight", _t_conv_transpose(w)
+    if leaf == "kernel" and isinstance(owner, Conv):
+        return "weight", _t_conv(w)
     if leaf == "scale" and parent.startswith("LayerNorm"):
         return "weight", w
     if leaf == "kernel" and w.ndim == 2 and parent.startswith("Dense"):
@@ -78,24 +113,28 @@ def _convert_leaf(parts, w: np.ndarray):
 
 
 def params_from_flax(tree: Mapping[str, Any],
-                     model: nn.Module | None = None) -> Dict[str, torch.Tensor]:
+                     model: nn.Module | None = None,
+                     strict: bool = True) -> Dict[str, torch.Tensor]:
     """flax parameter tree → the port's ``state_dict`` (float32 tensors).
 
     Every flax leaf is consumed exactly once (two leaves mapping to one port
-    name raise). With `model`, every port parameter must be filled with the
-    right shape and no leaf may be left over, else it raises."""
+    name raise). With `model` (which a zoo tree needs, for the layout of its
+    convs), every port parameter must be filled with the right shape and no
+    leaf may be left over, else it raises; unless not `strict`, as for a
+    warm start's donor of other classes."""
     if "params" in tree and len(tree) == 1:
         tree = tree["params"]
     flat = _flatten(tree)  # nested and flat "a/b/kernel" trees alike
     state: Dict[str, torch.Tensor] = {}
     for path, value in flat.items():
         parts = [_strip_checkpoint(p) for p in path.split("/")]
-        name, arr = _convert_leaf(parts, np.asarray(value, dtype=np.float32))
+        name, arr = _convert_leaf(parts, np.asarray(value, dtype=np.float32),
+                                  _owner(model, parts))
         key = ".".join(parts[:-1] + [name])
         if key in state:
             raise KeyError(f"two flax leaves map to {key}")
         state[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
-    if model is not None:
+    if model is not None and strict:
         want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
         missing = sorted(set(want) - set(state))
         extra = sorted(set(state) - set(want))
@@ -124,7 +163,11 @@ def flax_from_state_dict(state: Mapping[str, torch.Tensor],
         parts = key.split(".")
         leaf, parent = parts[-1], parts[-2] if len(parts) > 1 else ""
         w = value.detach().cpu().float().numpy()
-        if leaf == "weight" and w.ndim == 1:
+        if leaf == "weight" and w.ndim == 5 and parent.startswith(
+                "ConvTranspose"):
+            leaf, w = "kernel", np.transpose(w, (2, 3, 4, 0, 1))[::-1, ::-1,
+                                                                 ::-1]
+        elif leaf == "weight" and w.ndim == 1:
             leaf = "scale"
         elif leaf == "weight" and w.ndim == 2 and parent.startswith("Dense"):
             leaf, w = "kernel", _t_linear(w)
@@ -132,7 +175,7 @@ def flax_from_state_dict(state: Mapping[str, torch.Tensor],
             leaf, w = "kernel", _t_linear(w)[None, None, None]
         elif leaf == "weight" and w.ndim == 5:
             leaf, w = "kernel", np.transpose(w, (2, 3, 4, 1, 0))
-        elif leaf not in ("kernel", "bias"):
+        elif leaf != "kernel" and leaf not in _UNCHANGED:
             raise KeyError(f"no rule for port parameter {key} {w.shape}")
         if remat and parts[0] in _REMAT_BLOCKS:
             parts = ["Checkpoint" + parts[0]] + parts[1:]
@@ -175,8 +218,10 @@ def load_flax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
 
 @torch.no_grad()
 def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Seeded random parameters: LeCun-normal kernels and weights (fan-in by
-    layout), zero biases, unit LayerNorm scales. Returns `model`."""
+    """Seeded random parameters, with flax's initialisers: LeCun-normal
+    kernels and weights (fan-in by layout), zero biases, unit LayerNorm
+    scales, PReLU slopes 0.25, and normal(0.02) for Swin's relative-position
+    table and UNETR's position embedding. Returns `model`."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -186,10 +231,19 @@ def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
             val = torch.zeros(p.shape)
         elif type(owner).__name__ == "LayerNorm":
             val = torch.ones(p.shape)
+        elif leaf == "alpha":
+            val = torch.full(p.shape, 0.25)
+        elif leaf in ("rel_bias", "pos_embed"):
+            val = 0.02 * torch.randn(p.shape, generator=gen)
         else:
-            # flax layout (..., I, O) or torch layout (O, I, ...)
-            fan_in = (math.prod(p.shape[:-1]) if leaf == "kernel"
-                      else math.prod(p.shape[1:]))
+            # flax layout (..., I, O), torch layout (O, I, ...) or a
+            # transposed conv's (I, O, ...)
+            if leaf == "kernel":
+                fan_in = math.prod(p.shape[:-1])
+            elif isinstance(owner, ConvTranspose):
+                fan_in = p.shape[0] * math.prod(p.shape[2:])
+            else:
+                fan_in = math.prod(p.shape[1:])
             val = torch.randn(p.shape, generator=gen) / math.sqrt(fan_in)
         p.copy_(val.to(p.device))
     return model

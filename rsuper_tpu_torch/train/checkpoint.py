@@ -164,10 +164,11 @@ def parse_class_list(spec: str):
     return sorted(str(c).strip() for c in classes)
 
 
-def _donor_params(path: str) -> Dict[str, torch.Tensor]:
+def _donor_params(path: str, model=None) -> Dict[str, torch.Tensor]:
     """The donor's parameters as a ``state_dict``: from an ``.npz`` of flax
     parameters (``tools/export_params_npz.py``), carried across by
-    ``params_from_flax``, or from ``<path>/best``, the best checkpoint of
+    ``params_from_flax`` (in the layout of `model`'s modules, which a zoo
+    donor needs), or from ``<path>/best``, the best checkpoint of
     ``CheckpointManager``."""
     if os.path.isfile(path):
         import numpy as np
@@ -175,7 +176,8 @@ def _donor_params(path: str) -> Dict[str, torch.Tensor]:
         from ..models.params import params_from_flax
 
         with np.load(path) as flat:
-            return params_from_flax({k: flat[k] for k in flat.files})
+            return params_from_flax({k: flat[k] for k in flat.files}, model,
+                                    strict=False)
     payload = torch.load(os.path.join(path, "best"), map_location="cpu",
                          weights_only=True)
     return payload["params"]
@@ -200,7 +202,7 @@ def load_pretrained_params(state: TrainState, path: str,
     where = path if os.path.isfile(path) else os.path.join(
         os.path.abspath(path), "best")
     try:
-        donor = _donor_params(path)
+        donor = _donor_params(path, state.model)
     except (OSError, KeyError, TypeError, ValueError, RuntimeError,
             pickle.UnpicklingError) as e:  # unreadable / not a checkpoint
         logger.warning("pretrained load failed for %s (%s: %s) — keeping "

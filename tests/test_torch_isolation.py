@@ -49,7 +49,10 @@ def _sources():
                 "losses/classification.py", "models/torch_port.py",
                 "convert_checkpoint.py", "eval/__init__.py",
                 "eval/detection.py", "eval/sens_spec.py", "evaluate.py",
-                "bench_infer.py"):
+                "bench_infer.py", "models/unet3d.py",
+                "models/attention_unet.py", "models/unetpp.py",
+                "models/vnet.py", "models/unetr.py", "models/swin_unetr.py",
+                "models/nnformer.py"):
         assert f"rsuper_tpu_torch/{new}" in names
     return files
 
