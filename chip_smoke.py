@@ -135,6 +135,24 @@ Phases, in order (any failure exits non-zero):
              128³: their deepest stage must be a multiple of the window 4),
              ms and peak memory, and the float32 logits on the card against
              the CPU's.
+12. dim2   — the 2D pathway: ``main`` with ``--preset slices/resunet_2d``
+             (UNet2D base 32, 256² slices × 2, ``dice``, EMA) on the
+             CT-Mask cases alone, fold 0 of ``--k_fold 2``: 4 steps, the
+             fold's slice-wise validation (``validate_cases_2d``), 2 on
+             ``--resume`` (ms an iteration, the loop's wait, worker ms an
+             item, the validation's seconds); every 2D arch at the JAX
+             registry's defaults: a bf16 forward and backward at 256² × 8
+             (ms, peak memory), float32 logits on the card against the
+             CPU's within max(1e-3, 4ρ)·(1 + max|ref|).
+13. mf_variants — two MedFormer configurations at the default widths on a
+             96³ volume: ``mf_aniso`` (scale (1, 2, 2) first) and
+             ``mf_mbconv`` (MBConv stages beside attention, linear
+             projections, GELU): a bf16 forward and backward with the launch
+             counts set to 0 just before and read just after (rows 1–6 for
+             the first, rows 5–6 and no launch of rows 1–4 for the second),
+             every shape they launch rows 1–6 at, each row against its plain
+             version at each of those shapes, float32 through the kernels
+             against the plain versions.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. It imports nothing of JAX or of
@@ -3188,6 +3206,355 @@ def phase_zoo(dev):
     return failures
 
 
+DIM2_PRESET = "slices/resunet_2d"
+DIM2_STEPS, DIM2_RESUME_STEPS = 4, 2
+DIM2_ARCHS = ("unet_2d", "resunet_2d", "attention_unet_2d",
+              "dual_attention_unet_2d", "transunet_2d", "swin_unet_2d",
+              "unetpp_2d", "medformer_2d")
+DIM2_SIZE, DIM2_BATCH = 256, 8  # the preset's slices, a window batch of 8
+# the two MedFormer variants at the default widths, 96³ × 1
+MF_VARIANTS = {
+    "mf_aniso": dict(scale=((1, 2, 2), (2, 2, 2), (2, 2, 2), (2, 2, 2))),
+    "mf_mbconv": dict(conv_block="MBConv", conv_num=(2, 1, 1, 1, 1, 1, 2, 2),
+                      proj_type="linear", act="gelu"),
+}
+CONV_ROWS = ("conv3x3x3_cf", "in_relu_conv3x3x3_cf", "conv3x3x3_cf_dgrad",
+             "conv3x3x3_cf_wgrad", "in_relu_conv3x3x3_cf_wgrad")
+DW_ROWS = ("depthwise_conv3x3x3", "depthwise_conv3x3x3_bwd")
+MF_LAUNCHED = {"mf_aniso": CONV_ROWS + DW_ROWS, "mf_mbconv": DW_ROWS}
+
+
+def phase_dim2(dev):
+    """The 2D pathway on the card: (a) ``main`` with ``--preset
+    slices/resunet_2d`` (UNet2D base 32, 256² slices × 2, ``dice``, EMA) on
+    CT-Mask cases alone (fold 0 of ``--k_fold 2``, so the run validates
+    the held-out 152 × 172 × 170 case slice by slice with
+    ``validate_cases_2d``): DIM2_STEPS steps, then DIM2_RESUME_STEPS on
+    ``--resume``; ms an iteration, the loop's wait for the loader, worker
+    ms an item, the validation's seconds. (b) every 2D arch at the JAX
+    registry's defaults: a bf16 forward and backward at 256² × 8 (ms, peak
+    memory) and its float32 logits on the card against the CPU's at 256²
+    × 1, within max(ZOO_F32_TOL, 4ρ)·(1 + max|ref|), ρ the move of the
+    CPU's logits under one float32 rounding of the input (the seeded 2D
+    MedFormer is chaotic: ρ ≈ 1e-3 there, ≤ 2e-5 in the others), failing
+    above RHO_MAX."""
+    import torch
+
+    from rsuper_tpu_torch.models import get_model, init_params
+    from rsuper_tpu_torch.train import validation
+    from rsuper_tpu_torch.train.__main__ import main as train_main
+    from rsuper_tpu_torch.utils.device import card_line
+
+    t_phase = time.time()
+    failures, res = [], {"card": card_line(), "preset": DIM2_PRESET}
+    validated, run_validation = [], validation.run_validation
+
+    def timed_validation(*args, **kwargs):
+        t0 = time.time()
+        out = run_validation(*args, **kwargs)
+        torch.cuda.synchronize()
+        validated.append(dict(cases=int(max(out["cases_per_class"])),
+                              seconds=time.time() - t0,
+                              dice=[float(v) for v in out["dice"]]))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        masks, _, _ = write_cli_cases(root)
+        args = ["--preset", DIM2_PRESET, "--data_root", str(masks),
+                "--cp_path", str(root / "exp"), "--unique_name", "dim2",
+                "--iter_per_epoch", "3", "--epochs", "4", "--k_fold", "2",
+                "--fold", "0"]
+        exp = root / "exp" / "dim2_fold0"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        validation.run_validation = timed_validation
+        try:
+            t0 = time.time()
+            state = train_main(args + ["--max_steps", str(DIM2_STEPS)])
+            torch.cuda.synchronize()
+            res["run_s"] = time.time() - t0
+            res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            recs = _metrics_log(exp)
+            phases = [r for r in recs if "phase/step_ms" in r][-1]
+            losses = {r["step"]: r["train/overall"] for r in recs
+                      if "train/overall" in r}
+            res.update(steps=state.step, logged_losses=losses,
+                       ms_per_iteration=phases["phase/iteration_median_ms"],
+                       step_call_ms=phases["phase/step_median_ms"],
+                       loader_wait_ms=phases["phase/load_median_ms"],
+                       loader_item_ms=phases["phase/loader_item_ms"])
+            if state.step != DIM2_STEPS or not losses or not all(
+                    math.isfinite(v) for v in losses.values()):
+                failures.append(f"dim2: step {state.step}, losses {losses}")
+            del state
+            state = train_main(args + ["--max_steps",
+                                       str(DIM2_RESUME_STEPS), "--resume"])
+            saved = torch.load(exp / "latest", weights_only=True)
+            res["resumed"] = dict(step=state.step, saved_step=saved["step"])
+            if not state.step == saved["step"] == DIM2_STEPS \
+                    + DIM2_RESUME_STEPS:
+                failures.append(f"dim2: the resumed run: {res['resumed']}")
+            del state, saved
+        finally:
+            validation.run_validation = run_validation
+        res["validation"] = list(validated)
+        if (len(validated) != 2 or validated[0]["cases"] < 1
+                or not (exp / "fold_results.json").exists()):
+            failures.append(f"dim2: the fold was not validated: {validated}")
+    torch.cuda.empty_cache()
+
+    res["archs"] = {}
+    n = len(CLASSES)
+    img = {"img_size": (DIM2_SIZE, DIM2_SIZE)}
+    for arch in DIM2_ARCHS:
+        r = res["archs"][arch] = {}
+        model = init_params(get_model(arch, n, img, dtype=torch.bfloat16),
+                            seed=0).to(dev)
+        x = torch.randn((DIM2_BATCH, DIM2_SIZE, DIM2_SIZE, 1),
+                        generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            seg = model(x)["segmentation"]
+            heads = seg if isinstance(seg, (list, tuple)) else [seg]
+            sum(h.float().square().mean() for h in heads).backward()
+            return heads
+
+        heads = step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r.update(params_m=sum(p.numel() for p in model.parameters()) / 1e6,
+                 logits=list(heads[0].shape),
+                 fwd_bwd_ms=time_ms(step, reps=2, warmup=0),
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 finite=all(bool(torch.isfinite(h).all()) for h in heads))
+        del heads
+        model.zero_grad(set_to_none=True)
+        cpu = torch.Generator().manual_seed(2)
+        xc = torch.randn((1, DIM2_SIZE, DIM2_SIZE, 1), generator=cpu)
+        # one float32 rounding of the input, at random signs: how far the
+        # seeded model alone moves its logits (ρ, as the train phase)
+        xp = xc + (torch.randint(0, 2, xc.shape, generator=cpu) * 2 - 1) \
+            * xc.abs() * 2.0 ** -24
+        m32 = get_model(arch, n, img, dtype=torch.float32)
+        m32.load_state_dict(model.state_dict())
+
+        def head(out):
+            seg = out["segmentation"]
+            return seg[0] if isinstance(seg, (list, tuple)) else seg
+
+        with torch.no_grad():
+            ref, moved = head(m32(xc)), head(m32(xp))
+            got = head(m32.to(dev)(xc.to(dev))).cpu()
+        mx = float(ref.abs().max())
+        rho = float((moved - ref).abs().max()) / (1 + mx)
+        r.update(f32_max_abs_err=float((got - ref).abs().max()),
+                 f32_ref_max=mx, f32_rho=rho,
+                 f32_tol=max(ZOO_F32_TOL, 4 * rho) * (1 + mx))
+        r["ok"] = (r["finite"] and tuple(r["logits"]) == (
+            DIM2_BATCH, DIM2_SIZE, DIM2_SIZE, n) and rho <= RHO_MAX
+            and r["f32_max_abs_err"] <= r["f32_tol"])
+        if not r["ok"]:
+            failures.append(f"dim2 {arch}: {r}")
+        del model, m32
+        torch.cuda.empty_cache()
+    res["phase_s"] = time.time() - t_phase
+    log(json.dumps({"dim2": res}))
+    return failures
+
+
+@contextmanager
+def _launch_shapes():
+    """Inside the block, the shapes at which rows 1–6 launch their kernels
+    (name → {(shape, dtype)}), recorded at the launch functions of
+    ``ops/conv_cf.py`` and ``ops/dwconv.py``: (B, D, C_in, H, W, C_out) of
+    the conv kernels as they stage them (for the dgrad, C_in is dy's
+    channels), (B, D, H, W, C) of the depthwise ones."""
+    from rsuper_tpu_torch.ops import conv_cf, dwconv
+
+    seen = {k: set() for k in CONV_ROWS + DW_ROWS}
+    saved = (conv_cf._launch, conv_cf._launch_wgrad, dwconv._launch,
+             dwconv._launch_bwd)
+
+    def dtype(x):
+        return str(x.dtype).split(".")[-1]
+
+    def launch(x, w, stats):
+        # the dgrad wrapper runs the forward kernel on flipped weights, on
+        # dy's layout; its caller tells it from the forward
+        if sys._getframe(1).f_code.co_name == "conv3x3x3_cf_dgrad":
+            name = "conv3x3x3_cf_dgrad"
+        else:
+            name = "conv3x3x3_cf" if stats is None else "in_relu_conv3x3x3_cf"
+        seen[name].add((tuple(x.shape) + (w.shape[4],), dtype(x)))
+        return saved[0](x, w, stats)
+
+    def launch_wgrad(x, dy, stats):
+        name = ("conv3x3x3_cf_wgrad" if stats is None
+                else "in_relu_conv3x3x3_cf_wgrad")
+        seen[name].add((tuple(x.shape) + (dy.shape[2],), dtype(x)))
+        return saved[1](x, dy, stats)
+
+    def dw_launch(x, w):
+        seen["depthwise_conv3x3x3"].add((tuple(x.shape), dtype(x)))
+        return saved[2](x, w)
+
+    def dw_launch_bwd(x, w, dy, round_dw=False):
+        seen["depthwise_conv3x3x3_bwd"].add((tuple(x.shape), dtype(x)))
+        return saved[3](x, w, dy, round_dw)
+
+    (conv_cf._launch, conv_cf._launch_wgrad, dwconv._launch,
+     dwconv._launch_bwd) = (launch, launch_wgrad, dw_launch, dw_launch_bwd)
+    try:
+        yield seen
+    finally:
+        (conv_cf._launch, conv_cf._launch_wgrad, dwconv._launch,
+         dwconv._launch_bwd) = saved
+
+
+def _row_at_shape(name, shape, dtype, gen, dev):
+    """One kernel of rows 1–6 against its plain version at `shape` on
+    seeded inputs: max|Δ| and the kernels phase's bound."""
+    import torch
+
+    from rsuper_tpu_torch.ops import conv_cf, dwconv
+    from rsuper_tpu_torch.ops.dispatch import plain_on_device
+
+    dt = getattr(torch, dtype)
+
+    def rand(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    if name in DW_ROWS:
+        x = rand(*shape).to(dt)
+        w = rand(3, 3, 3, 1, shape[-1]) / 27
+        args = (x, w) if name == "depthwise_conv3x3x3" else \
+            (x, w, rand(*shape).to(dt))
+    else:
+        B, D, Ci, H, W, Co = shape
+        if name == "conv3x3x3_cf_dgrad":  # dy (B, D, Ci, H, W), w (…, Co, Ci)
+            args = (rand(B, D, Ci, H, W).to(dt),
+                    rand(3, 3, 3, Co, Ci) / math.sqrt(27 * Co))
+        elif name.endswith("wgrad"):
+            x = rand(B, D, Ci, H, W).to(dt)
+            args = (x, rand(B, D, Co, H, W).to(dt))
+            if name.startswith("in_relu"):
+                args += (conv_cf._in_stats_cf(x, 1e-4),)
+        else:
+            args = (rand(B, D, Ci, H, W).to(dt),
+                    rand(3, 3, 3, Ci, Co) / math.sqrt(27 * Ci))
+    fn = getattr(dwconv if name in DW_ROWS else conv_cf, name)
+    got = fn(*args)
+    with plain_on_device():
+        ref = fn(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err, tol = 0.0, 0.0
+    ok = True
+    for g, r in zip(got, ref):
+        e, mx = _err(g, r)
+        t = TOL[str(g.dtype).split(".")[-1]] * (1.0 + mx)
+        ok = ok and e <= t
+        err, tol = max(err, e), max(tol, t)
+    return dict(name=name, shape=list(shape), dtype=dtype, max_abs_err=err,
+                tol=tol, ok=ok)
+
+
+def phase_mf_variants(dev):
+    """Two MedFormer configurations beside the default, at its widths, on
+    one 96³ volume: ``mf_aniso`` (the default blocks on an anisotropic
+    scale, (1, 2, 2) first: its channel-first stages run rows 1–6 on planes
+    whose depth is twice their edge) and ``mf_mbconv`` (MBConv stages, conv
+    blocks beside attention, linear projections, GELU: channels-last, so
+    rows 1–4 launch no time and rows 5–6 run the MBConv's 4×-expanded
+    depthwise convs). Each: a bf16 forward and backward with the launch
+    counts set to 0 just before and read just after (ms after a warm-up,
+    peak memory), the shapes every row launched at, each row held against
+    its plain version at each of them (the kernels phase's tolerances),
+    and the float32 model through the kernels against the
+    plain versions at MODEL32_TOL."""
+    import torch
+
+    from rsuper_tpu_torch.models import init_params
+    from rsuper_tpu_torch.models.medformer import MedFormer
+    from rsuper_tpu_torch.ops.dispatch import plain_on_device
+    from rsuper_tpu_torch.utils.device import card_line
+
+    t_phase = time.time()
+    failures, res = [], {"card": card_line()}
+    counted = wrappers()
+    n = len(CLASSES)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for variant, extra in MF_VARIANTS.items():
+        r = res[variant] = {"model_args": extra}
+        # MedFormer itself: the registry keeps the default scale, as the
+        # JAX registry does
+        model = init_params(MedFormer(n, dtype=torch.bfloat16, **extra),
+                            seed=0).to(dev)
+        x = torch.randn((1, WINDOW, WINDOW, WINDOW, 1), generator=gen,
+                        device=dev)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            seg = model(x)["segmentation"]
+            sum(h.float().square().mean() for h in seg).backward()
+            return seg
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in counted.values():
+            w.launches = 0
+        with _launch_shapes() as shapes:
+            seg = step()
+            torch.cuda.synchronize()
+        launches = {k: counted[k].launches for k in CONV_ROWS + DW_ROWS}
+        r.update(launches=launches,
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 finite=all(bool(torch.isfinite(h).all()) for h in seg),
+                 fwd_bwd_ms=time_ms(step, reps=2, warmup=0),
+                 stem_cf=model.stem_cf)
+        del seg
+        for k in CONV_ROWS + DW_ROWS:
+            want = k in MF_LAUNCHED[variant]
+            if (launches[k] > 0) != want:
+                failures.append(f"{variant}: {k} launched {launches[k]} "
+                                f"times, {'expected' if want else 'none'} "
+                                "expected")
+        r["shapes"] = {k: sorted(list(s) + [d] for s, d in v)
+                       for k, v in shapes.items() if v}
+        cases = []
+        for k, v in shapes.items():
+            for s, d in sorted(v):
+                c = _row_at_shape(k, s, d, gen, dev)
+                cases.append(c)
+                if not c["ok"]:
+                    failures.append(f"{variant}: {c}")
+        r["rows_vs_plain"] = cases
+        torch.cuda.empty_cache()
+        model32 = MedFormer(n, dtype=torch.float32, **extra)
+        model32.load_state_dict(model.state_dict())
+        del model
+        model32 = model32.to(dev).eval()
+        with torch.inference_mode():
+            got = model32(x)["segmentation"]
+            with plain_on_device():
+                ref = model32(x)["segmentation"]
+        f32 = _dist(got[0], ref[0])
+        f32["tol"] = MODEL32_TOL * (1 + f32["max_abs_ref"])
+        r["float32_vs_plain"] = f32
+        if not (r["finite"] and f32["finite"]
+                and f32["max_abs_err"] <= f32["tol"]
+                and tuple(got[0].shape) == (1, WINDOW, WINDOW, WINDOW, n)):
+            failures.append(f"{variant}: {r['float32_vs_plain']}")
+        del model32, got, ref
+        torch.cuda.empty_cache()
+    res["phase_s"] = time.time() - t_phase
+    log(json.dumps({"mf_variants": res}))
+    return failures
+
+
 def main() -> int:
     import torch
 
@@ -3234,6 +3601,9 @@ def main() -> int:
     failures += phase_validate(dev)
     torch.cuda.empty_cache()
     failures += phase_zoo(dev)
+    torch.cuda.empty_cache()
+    failures += phase_dim2(dev)
+    failures += phase_mf_variants(dev)
     # each kernel's count comes from the path it was written for: the
     # forward kernels from the predict phase, the backward ones from the
     # training steps (which launch the forward kernels too)

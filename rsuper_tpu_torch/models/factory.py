@@ -1,8 +1,11 @@
 """Model factory (counterpart of ``rsuper_tpu/models/factory.py``): every
-3D architecture of the JAX registry, with its defaults. All models take
-channels-last ``(B, D, H, W, 1)`` volumes and return
-``{"segmentation": logits | [logits, aux], ...}``. The 2D architectures are
-``ROADMAP.md`` §1 item 4 and raise ``NotImplementedError``."""
+architecture of the JAX registry, with its defaults. The 3D models take
+channels-last ``(B, D, H, W, 1)`` volumes, the ``*_2d`` ones ``(B, H, W, 1)``
+slices; all return ``{"segmentation": logits | [logits, aux], ...}``.
+``swin_unet_2d`` and ``transunet_2d`` have parameters whose shapes depend
+on the input size, which the JAX models take from the input they are
+initialised with: here the model argument ``img_size`` (H, W) gives it
+(default (256, 256), the ``slices/resunet_2d`` preset's size)."""
 
 from __future__ import annotations
 
@@ -11,6 +14,8 @@ from typing import Any, Dict
 import torch
 
 from .attention_unet import AttentionUNet
+from .dim2 import AttentionUNet2D, DualAttentionUNet2D, TransUNet2D, UNet2D
+from .dim2_zoo import MedFormer2D, SwinUNet2D, UNetPlusPlus2D
 from .medformer import MedFormer
 from .nnformer import NnFormer, VTUNet
 from .swin_unetr import SwinUNETR
@@ -39,9 +44,8 @@ def _resunet(args, num_classes, dtype):
 
 
 def _medformer(args: Dict[str, Any], num_classes: int, dtype):
-    for key in ("cf_fullres", "cf_halfres"):
-        if not args.get(key, True):
-            raise NotImplementedError(f"MedFormer {key}=False is not ported")
+    # as in the JAX registry, `kernel_size` and `scale` keep the model's
+    # defaults here (construct MedFormer directly for others)
     return MedFormer(
         num_classes=num_classes,
         base_chan=args.get("base_chan", 32),
@@ -64,6 +68,8 @@ def _medformer(args: Dict[str, Any], num_classes: int, dtype):
         clip_branch=args.get("clip_branch", False),
         clip_feats=args.get("clip_feats", 768),
         remat=args.get("remat", True),
+        cf_fullres=args.get("cf_fullres", True),
+        cf_halfres=args.get("cf_halfres", True),
         torch_port=args.get("torch_port", False),
         dtype=dtype,
     )
@@ -137,12 +143,42 @@ MODEL_REGISTRY = {
     "swin_unetr": _swin_unetr,
     "nnformer": _nnformer,
     "vtunet": _vtunet,
+    # 2D pathway (--dimension 2d in the reference); resunet_2d is the same
+    # UNet2D as unet_2d, as in the JAX registry
+    "unet_2d": lambda a, n, d: UNet2D(
+        num_classes=n, base_chan=a.get("base_chan", 32), dtype=d),
+    "resunet_2d": lambda a, n, d: UNet2D(
+        num_classes=n, base_chan=a.get("base_chan", 32), dtype=d),
+    "attention_unet_2d": lambda a, n, d: AttentionUNet2D(
+        num_classes=n, base_chan=a.get("base_chan", 32), dtype=d),
+    "dual_attention_unet_2d": lambda a, n, d: DualAttentionUNet2D(
+        num_classes=n, base_chan=a.get("base_chan", 32), dtype=d),
+    "transunet_2d": lambda a, n, d: TransUNet2D(
+        num_classes=n, base_chan=a.get("base_chan", 32),
+        hidden=a.get("hidden", 256), depth=a.get("depth", 4),
+        heads=a.get("heads", 8),
+        img_size=tuple(a.get("img_size", (256, 256))), dtype=d),
+    "swin_unet_2d": lambda a, n, d: SwinUNet2D(
+        num_classes=n, embed_dim=a.get("embed_dim", 96),
+        depths=tuple(a.get("depths", (2, 2, 2, 2))),
+        num_heads=tuple(a.get("num_heads", (3, 6, 12, 24))),
+        window_size=a.get("window_size", 4),
+        patch_size=a.get("patch_size", 4),
+        img_size=tuple(a.get("img_size", (256, 256))), dtype=d),
+    "unetpp_2d": lambda a, n, d: UNetPlusPlus2D(
+        num_classes=n, base_chan=a.get("base_chan", 32),
+        depth=a.get("depth", 4), dtype=d),
+    "medformer_2d": lambda a, n, d: MedFormer2D(
+        num_classes=n, base_chan=a.get("base_chan", 32),
+        map_size=a.get("map_size", 8),
+        conv_num=tuple(a.get("conv_num", (2, 1, 0, 0, 0, 1, 2, 2))),
+        trans_num=tuple(a.get("trans_num", (0, 1, 2, 2, 2, 1, 0, 0))),
+        num_heads=tuple(a.get("num_heads", (1, 4, 8, 16, 8, 4, 1, 1))),
+        fusion_depth=a.get("fusion_depth", 2),
+        fusion_dim=a.get("fusion_dim", 512),
+        fusion_heads=a.get("fusion_heads", 16),
+        aux_loss=a.get("aux_loss", False), dtype=d),
 }
-
-# the JAX registry's 2D pathway (its --dimension 2d zoo), not ported yet
-UNPORTED_2D = ("unet_2d", "resunet_2d", "attention_unet_2d",
-               "dual_attention_unet_2d", "transunet_2d", "swin_unet_2d",
-               "unetpp_2d", "medformer_2d")
 
 
 def get_model(arch: str, num_classes: int, args: Dict[str, Any] | None = None,
@@ -150,10 +186,6 @@ def get_model(arch: str, num_classes: int, args: Dict[str, Any] | None = None,
     """Build a model (float32 parameters, computing in `dtype`). Its
     parameters are uninitialised: fill them with ``init_params`` or
     ``load_flax_params``."""
-    if arch in UNPORTED_2D:
-        raise NotImplementedError(
-            f"arch {arch!r} is a 2D model, not ported yet: ROADMAP.md §1 "
-            "item 4 (the rest of MedFormer and the 2D path)")
     if arch not in MODEL_REGISTRY:
         raise ValueError(f"unknown arch {arch!r}; the port has "
                          f"{sorted(MODEL_REGISTRY)}")

@@ -83,38 +83,57 @@ def instance_norm_cf(x: torch.Tensor, eps: float = 1e-4):
 # -------------------------------------------------------------- primitives
 class Conv1(nn.Module):
     """1×1×1 conv on the last axis (flax ``nn.Conv(features, (1, 1, 1))``):
-    ``weight`` (C_out, C_in), optional ``bias``."""
+    ``weight`` (C_out, C_in), optional ``bias``. `nd` is the number of
+    spatial axes of its flax kernel (1,) * nd + (C_in, C_out): 3, or 2 in
+    the 2D models."""
 
     def __init__(self, c_in: int, features: int, use_bias: bool = True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, nd: int = 3):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, c_in))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
-        self.dtype = dtype
+        self.dtype, self.nd = dtype, nd
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
 
-Dense = Conv1  # flax nn.Dense on the last axis: same parameters and math
+class Dense(Conv1):
+    """flax ``nn.Dense`` on the last axis: a Conv1 whose flax kernel is
+    (C_in, C_out)."""
+
+    def __init__(self, c_in: int, features: int, use_bias: bool = True,
+                 dtype=torch.float32):
+        super().__init__(c_in, features, use_bias, dtype, nd=0)
 
 
 class DepthwiseConv3(nn.Module):
     """3³ stride-1 depthwise conv through ``ops/dwconv.py`` (the CUDA kernel
-    on the card); ``kernel`` (3, 3, 3, 1, C)."""
+    on the card); ``kernel`` (3, 3, 3, 1, C), optional ``bias`` (C,)."""
 
-    def __init__(self, c: int, dtype=torch.float32):
+    def __init__(self, c: int, dtype=torch.float32, use_bias: bool = False):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(3, 3, 3, 1, c))
+        self.bias = nn.Parameter(torch.empty(c)) if use_bias else None
         self.dtype = dtype
 
     def forward(self, x):
-        return depthwise_conv3x3x3(x.to(self.dtype), self.kernel)
+        y = depthwise_conv3x3x3(x.to(self.dtype), self.kernel)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+def _ntuple(v, n: int = 3):
+    return (v,) * n if isinstance(v, int) else tuple(v)
 
 
 def _triple(v):
-    return (v,) * 3 if isinstance(v, int) else tuple(v)
+    return _ntuple(v, 3)
+
+
+def is_3cubed(kernel_size) -> bool:
+    """True for a 3³ kernel, given as 3 or (3, 3, 3)."""
+    return _triple(kernel_size) == (3, 3, 3)
 
 
 def same_pads(size, kernel, stride):
@@ -128,22 +147,28 @@ def same_pads(size, kernel, stride):
 
 
 class Conv(nn.Module):
-    """Dense conv of any kernel and stride on channels-last (B, D, H, W, C)
-    tensors with flax's SAME padding (``nn.Conv``), through cuDNN on the
-    card: ``weight`` in torch layout (C_out, C_in, kd, kh, kw), optional
-    ``bias``. The channels-last tensor is handed to ``F.conv3d`` as a
-    channels_last_3d view, so no layout copy is made."""
+    """Dense or grouped conv of any kernel and stride on channels-last
+    (B, *spatial, C) tensors with flax's SAME padding (``nn.Conv``, with
+    ``feature_group_count`` = `groups`), through cuDNN on the card:
+    ``weight`` in torch layout (C_out, C_in / groups, *kernel), optional
+    ``bias``. `nd` spatial axes: 3 (``F.conv3d``) or 2 (``F.conv2d``, the
+    2D models). The channels-last tensor is handed to cuDNN as a
+    channels-last view, so no layout copy is made."""
 
     def __init__(self, c_in: int, features: int, kernel_size=3, strides=1,
-                 use_bias: bool = True, dtype=torch.float32):
+                 use_bias: bool = True, dtype=torch.float32, groups: int = 1,
+                 nd: int = 3):
         super().__init__()
-        self.kernel, self.strides = _triple(kernel_size), _triple(strides)
-        self.weight = nn.Parameter(torch.empty(features, c_in, *self.kernel))
+        self.nd, self.groups = nd, groups
+        self.kernel = _ntuple(kernel_size, nd)
+        self.strides = _ntuple(strides, nd)
+        self.weight = nn.Parameter(torch.empty(features, c_in // groups,
+                                               *self.kernel))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self.dtype = dtype
 
     def forward(self, x):
-        x = x.to(self.dtype).permute(0, 4, 1, 2, 3)
+        x = x.to(self.dtype).movedim(-1, 1)
         pads = [same_pads(n, k, s) for n, k, s in
                 zip(x.shape[2:], self.kernel, self.strides)]
         if all(lo == hi for lo, hi in pads):
@@ -152,8 +177,10 @@ class Conv(nn.Module):
             x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
             padding = 0
         b = None if self.bias is None else self.bias.to(self.dtype)
-        y = F.conv3d(x, self.weight.to(self.dtype), b, self.strides, padding)
-        return y.permute(0, 2, 3, 4, 1)
+        conv = F.conv3d if self.nd == 3 else F.conv2d
+        y = conv(x, self.weight.to(self.dtype), b, self.strides, padding,
+                 groups=self.groups)
+        return y.movedim(1, -1)
 
 
 class ConvTranspose(nn.Module):
@@ -217,8 +244,9 @@ class ConvNormAct(nn.Module):
     """conv → norm → act, or with ``preact`` norm → act → conv; no bias
     unless ``use_bias``. The conv is ``DepthwiseConv3_0`` for a 3³ stride-1
     depthwise conv (groups == features == C_in), a 1×1×1 ``Conv_0``
-    (``Conv1``) for a pointwise one, else a dense ``Conv_0`` (``Conv``) of
-    any kernel and stride."""
+    (``Conv1``) for a pointwise one, else a ``Conv_0`` (``Conv``, cuDNN) of
+    any kernel, stride and group count, as the JAX package runs
+    ``feature_group_count`` through XLA."""
 
     def __init__(self, c_in: int, features: int, kernel_size=3, strides=1,
                  groups: int = 1, norm: str = "in", act: str = "relu",
@@ -227,20 +255,16 @@ class ConvNormAct(nn.Module):
         super().__init__()
         kernel, stride = _triple(kernel_size), _triple(strides)
         if (groups > 1 and groups == features == c_in
-                and kernel == (3, 3, 3) and stride == (1, 1, 1)
-                and not use_bias):
-            self.DepthwiseConv3_0 = DepthwiseConv3(c_in, dtype)
+                and kernel == (3, 3, 3) and stride == (1, 1, 1)):
+            self.DepthwiseConv3_0 = DepthwiseConv3(c_in, dtype, use_bias)
             self._conv = "DepthwiseConv3_0"
         elif groups == 1 and kernel == (1, 1, 1) and stride == (1, 1, 1):
             self.Conv_0 = Conv1(c_in, features, use_bias, dtype)
             self._conv = "Conv_0"
-        elif groups == 1:
-            self.Conv_0 = Conv(c_in, features, kernel, stride, use_bias, dtype)
-            self._conv = "Conv_0"
         else:
-            raise NotImplementedError(
-                f"ConvNormAct(groups={groups}) other than a 3³ stride-1 "
-                "depthwise conv is not ported")
+            self.Conv_0 = Conv(c_in, features, kernel, stride, use_bias,
+                               dtype, groups=groups)
+            self._conv = "Conv_0"
         self.norm, self.act = make_norm(norm), make_act(act)
         self.preact = preact
 
@@ -296,71 +320,124 @@ class Bottleneck(nn.Module):
         return out + (self.ConvNormAct_3(x) if self.shortcut else x)
 
 
-# the blocks a UNet stage can be built of: Block(c_in, features,
-# kernel_size=, strides=, norm=, dtype=); the JAX package's MBConv and
-# FusedMBConv stages are ROADMAP.md §1 item 6's remainder
-BLOCKS = {
-    "ConvNormAct": ConvNormAct,
-    "BasicBlock": BasicBlock,
-    "Bottleneck": Bottleneck,
-}
-
-
 class DepthwiseSeparableConv(nn.Module):
-    """depthwise 3³ conv + pointwise 1×1 (``DepthwiseConv3_0``, ``Conv_0``)."""
+    """depthwise k³ conv + pointwise 1×1: ``DepthwiseConv3_0`` and
+    ``Conv_0`` for a 3³ stride-1 depthwise conv (the CUDA kernel), else a
+    grouped ``Conv_0`` (cuDNN) and the pointwise ``Conv_1``, as flax names
+    them."""
 
-    def __init__(self, c_in: int, features: int, dtype=torch.float32):
+    def __init__(self, c_in: int, features: int, kernel_size=3, strides=1,
+                 use_bias: bool = False, dtype=torch.float32):
         super().__init__()
-        self.DepthwiseConv3_0 = DepthwiseConv3(c_in, dtype)
-        self.Conv_0 = Conv1(c_in, features, False, dtype)
+        if is_3cubed(kernel_size) and _triple(strides) == (1, 1, 1):
+            self.DepthwiseConv3_0 = DepthwiseConv3(c_in, dtype, use_bias)
+            self.Conv_0 = Conv1(c_in, features, use_bias, dtype)
+            self._convs = ("DepthwiseConv3_0", "Conv_0")
+        else:
+            self.Conv_0 = Conv(c_in, c_in, kernel_size, strides, use_bias,
+                               dtype, groups=c_in)
+            self.Conv_1 = Conv1(c_in, features, use_bias, dtype)
+            self._convs = ("Conv_0", "Conv_1")
 
     def forward(self, x):
-        return self.Conv_0(self.DepthwiseConv3_0(x))
+        depthwise, pointwise = (getattr(self, n) for n in self._convs)
+        return pointwise(depthwise(x))
 
 
 class SEBlock(nn.Module):
-    """Squeeze-and-excitation: f32 spatial mean → 1×1 → ReLU → 1×1 → gate."""
+    """Squeeze-and-excitation: f32 spatial mean → 1×1 → act → 1×1 → gate."""
 
-    def __init__(self, c: int, ratio: int = 4, dtype=torch.float32):
+    def __init__(self, c: int, ratio: int = 4, act: str = "relu",
+                 dtype=torch.float32):
         super().__init__()
         self.Conv_0 = Conv1(c, c // ratio, True, dtype)
         self.Conv_1 = Conv1(c // ratio, c, True, dtype)
+        self.act = make_act(act)
 
     def forward(self, x):
-        s = x.float().mean(dim=(1, 2, 3), keepdim=True).to(x.dtype)
-        s = self.Conv_1(F.relu(self.Conv_0(s)))
+        axes = tuple(range(1, x.dim() - 1))
+        s = x.float().mean(dim=axes, keepdim=True).to(x.dtype)
+        s = self.Conv_1(self.act(self.Conv_0(s)))
         return x * torch.sigmoid(s)
 
 
-class MBConv(nn.Module):
-    """Inverted residual with SE: expand 1×1 → depthwise 3³ → SE → 1×1."""
+class _InvertedResidual(nn.Module):
+    """The ``ConvNormAct`` chain of MBConv / FusedMBConv (flax numbers them
+    in call order), an optional ``SEBlock_0`` before the last, and the
+    residual: the input, or a plain k³ ``ConvNormAct`` without norm and
+    activation when the stride or C changes."""
 
-    def __init__(self, c_in: int, features: int, expansion: int = 4,
-                 dtype=torch.float32):
-        super().__init__()
-        if c_in != features:
-            raise NotImplementedError("MBConv with a conv shortcut is not "
-                                      "on MedFormer's path")
-        mid = expansion * c_in
-        # flax numbers the ConvNormActs in call order: without the expansion
-        # conv, the depthwise one is ConvNormAct_0
-        convs = [] if expansion == 1 else [
-            ConvNormAct(c_in, mid, 1, preact=True, dtype=dtype)]
-        convs.append(ConvNormAct(mid, mid, 3, groups=mid, preact=True,
-                                 dtype=dtype))
-        self.SEBlock_0 = SEBlock(mid, dtype=dtype)
-        convs.append(ConvNormAct(mid, features, 1, act="none", preact=True,
-                                 dtype=dtype))
-        self.n_convs = len(convs)
+    def _finish(self, convs, c_in: int, mid: int, features: int,
+                kernel_size, strides, se: bool, act: str, dtype):
+        self.shortcut = c_in != features or _triple(strides) != (1, 1, 1)
+        if self.shortcut:
+            convs.append(ConvNormAct(c_in, features, kernel_size, strides,
+                                     norm="none", act="none", dtype=dtype))
+        self.n_main = len(convs) - self.shortcut
+        # SEBlock_0 first: `init_params` draws in registration order, and
+        # this keeps the seeded default MedFormer's weights those of before
+        self.se = se
+        if se:
+            self.SEBlock_0 = SEBlock(mid, act=act, dtype=dtype)
         for i, conv in enumerate(convs):
             self.add_module(f"ConvNormAct_{i}", conv)
 
     def forward(self, x):
         out = x
-        for i in range(self.n_convs - 1):
+        for i in range(self.n_main - 1):
             out = getattr(self, f"ConvNormAct_{i}")(out)
-        out = self.SEBlock_0(out)
-        return getattr(self, f"ConvNormAct_{self.n_convs - 1}")(out) + x
+        if self.se:
+            out = self.SEBlock_0(out)
+        out = getattr(self, f"ConvNormAct_{self.n_main - 1}")(out)
+        res = getattr(self, f"ConvNormAct_{self.n_main}")(x) \
+            if self.shortcut else x
+        return out + res
+
+
+class MBConv(_InvertedResidual):
+    """Inverted residual with SE: expand 1×1 (unless `expansion` is 1) →
+    depthwise k³ (the CUDA kernel at 3³ stride 1, else a grouped cuDNN
+    conv) → SE → project 1×1, all pre-activated."""
+
+    def __init__(self, c_in: int, features: int, expansion: int = 4,
+                 kernel_size=3, strides=1, se: bool = True, norm: str = "in",
+                 act: str = "relu", dtype=torch.float32):
+        super().__init__()
+        mid = expansion * c_in
+        kw = dict(norm=norm, act=act, preact=True, dtype=dtype)
+        convs = [] if expansion == 1 else [ConvNormAct(c_in, mid, 1, **kw)]
+        convs.append(ConvNormAct(mid, mid, kernel_size, strides, groups=mid,
+                                 **kw))
+        convs.append(ConvNormAct(mid, features, 1, **{**kw, "act": "none"}))
+        self._finish(convs, c_in, mid, features, kernel_size, strides, se,
+                     act, dtype)
+
+
+class FusedMBConv(_InvertedResidual):
+    """MBConv with the expansion and the depthwise conv fused into one
+    dense k³ conv → SE → project 1×1, pre-activated."""
+
+    def __init__(self, c_in: int, features: int, expansion: int = 4,
+                 kernel_size=3, strides=1, se: bool = True, norm: str = "in",
+                 act: str = "relu", dtype=torch.float32):
+        super().__init__()
+        mid = expansion * c_in
+        kw = dict(norm=norm, act=act, preact=True, dtype=dtype)
+        convs = [ConvNormAct(c_in, mid, kernel_size, strides, **kw),
+                 ConvNormAct(mid, features, 1, **{**kw, "act": "none"})]
+        self._finish(convs, c_in, mid, features, kernel_size, strides, se,
+                     act, dtype)
+
+
+# the blocks a UNet or MedFormer stage can be built of: Block(c_in,
+# features, kernel_size=, strides=, norm=, act=, dtype=)
+BLOCKS = {
+    "ConvNormAct": ConvNormAct,
+    "BasicBlock": BasicBlock,
+    "Bottleneck": Bottleneck,
+    "MBConv": MBConv,
+    "FusedMBConv": FusedMBConv,
+}
 
 
 # ------------------------------------------------------------ transformers

@@ -12,18 +12,22 @@ its kind:
 * ``Dense_*/kernel`` (I, O)                → ``weight`` (O, I)
 * 1×1×1 conv ``kernel`` (1, 1, 1, I, O)    → ``weight`` (O, I)
 * ``SemanticMapGeneration_*/Conv_*/kernel`` → ``weight`` (O, I, 3, 3, 3)
-* ``kernel`` of a port ``Conv`` (the zoo's dense convs of any kernel and
-  stride)                                  → ``weight`` (O, I, kd, kh, kw)
+* ``kernel`` of a port ``Conv`` (dense and grouped convs of any kernel
+  and stride, 3D and 2D)                   → ``weight`` (O, I/g, *kernel)
+* ``kernel`` of a port ``Conv1`` or ``Dense`` (1×1 convs, 2D ones too)
+                                           → ``weight`` (O, I)
 * ``kernel`` of a port ``ConvTranspose``   → ``weight`` (I, O, kd, kh, kw),
   spatially flipped (flax does not flip a transposed conv's kernel; torch
   does)
 * other 3³ ``kernel`` (CF and depthwise)   → ``kernel`` unchanged (the
   layout the CUDA kernels take)
 * ``bias``, ``alpha`` (PReLU), ``rel_bias`` (Swin's relative-position
-  table), ``pos_embed`` (UNETR)            → unchanged
+  table), ``pos_embed`` (UNETR), ``pos`` (TransUNet 2D), ``gamma``
+  (DANet's gates)                          → unchanged
 
 The owner of a zoo conv's kernel is found in `model`, so a zoo tree needs
-it; MedFormer's rules go by name alone.
+it, and so does a MedFormer whose blocks leave the default's (grouped and
+non-3³ convs); the default MedFormer's rules go by name alone.
 
 The mapping is a pure re-layout, so it carries any tree of the parameters'
 structure across: a JAX gradient tree, the EMA tree, Adam's moments.
@@ -41,12 +45,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import Conv, ConvTranspose
+from .layers import Conv, Conv1, ConvTranspose
 
 
 def _t_conv(w: np.ndarray) -> np.ndarray:
-    """flax (kd, kh, kw, I, O) → torch Conv3d (O, I, kd, kh, kw)."""
-    return np.transpose(w, (4, 3, 0, 1, 2))
+    """flax (*kernel, I, O) → torch (O, I, *kernel): Conv3d's (O, I, kd,
+    kh, kw), Conv2d's (O, I, kh, kw); I is C_in / groups."""
+    n = w.ndim - 2
+    return np.transpose(w, (n + 1, n, *range(n)))
 
 
 def _t_linear(w: np.ndarray) -> np.ndarray:
@@ -75,7 +81,7 @@ def _t_conv_transpose(w: np.ndarray) -> np.ndarray:
     return np.transpose(w[::-1, ::-1, ::-1], (3, 4, 0, 1, 2))
 
 
-_UNCHANGED = ("bias", "alpha", "rel_bias", "pos_embed")
+_UNCHANGED = ("bias", "alpha", "rel_bias", "pos_embed", "pos", "gamma")
 
 
 def _owner(model, parts):
@@ -99,6 +105,8 @@ def _convert_leaf(parts, w: np.ndarray, owner=None):
         return "weight", _t_conv_transpose(w)
     if leaf == "kernel" and isinstance(owner, Conv):
         return "weight", _t_conv(w)
+    if leaf == "kernel" and isinstance(owner, Conv1):
+        return "weight", _t_linear(w.reshape(w.shape[-2:]))
     if leaf == "scale" and parent.startswith("LayerNorm"):
         return "weight", w
     if leaf == "kernel" and w.ndim == 2 and parent.startswith("Dense"):
@@ -153,28 +161,36 @@ _REMAT_BLOCKS = ("DownBlockMF_0", "DownBlockMF_1", "DownBlockMF_2",
 
 
 def flax_from_state_dict(state: Mapping[str, torch.Tensor],
-                         remat: bool = False) -> Dict[str, np.ndarray]:
+                         remat: bool = False,
+                         model: nn.Module | None = None
+                         ) -> Dict[str, np.ndarray]:
     """The port's ``state_dict`` (or any mapping of its parameter names, such
     as gradients) → a flat flax tree ``{"a/b/kernel": array}`` (float32): the
     inverse of ``params_from_flax``. With `remat` the blocks that flax names
-    with a ``Checkpoint`` prefix under ``nn.remat`` get it back."""
+    with a ``Checkpoint`` prefix under ``nn.remat`` get it back. A 2D
+    model's 1×1 convs need `model` (their flax kernels are (1, 1, I, O))."""
     flat: Dict[str, np.ndarray] = {}
     for key, value in state.items():
         parts = key.split(".")
         leaf, parent = parts[-1], parts[-2] if len(parts) > 1 else ""
         w = value.detach().cpu().float().numpy()
+        owner = _owner(model, parts)
         if leaf == "weight" and w.ndim == 5 and parent.startswith(
                 "ConvTranspose"):
             leaf, w = "kernel", np.transpose(w, (2, 3, 4, 0, 1))[::-1, ::-1,
                                                                  ::-1]
         elif leaf == "weight" and w.ndim == 1:
             leaf = "scale"
+        elif leaf == "weight" and w.ndim == 2 and isinstance(owner, Conv1):
+            leaf, w = "kernel", _t_linear(w).reshape((1,) * owner.nd
+                                                      + w.shape[::-1])
         elif leaf == "weight" and w.ndim == 2 and parent.startswith("Dense"):
             leaf, w = "kernel", _t_linear(w)
         elif leaf == "weight" and w.ndim == 2:
             leaf, w = "kernel", _t_linear(w)[None, None, None]
-        elif leaf == "weight" and w.ndim == 5:
-            leaf, w = "kernel", np.transpose(w, (2, 3, 4, 1, 0))
+        elif leaf == "weight" and w.ndim in (4, 5):
+            n = w.ndim - 2
+            leaf, w = "kernel", np.transpose(w, (*range(2, n + 2), 1, 0))
         elif leaf != "kernel" and leaf not in _UNCHANGED:
             raise KeyError(f"no rule for port parameter {key} {w.shape}")
         if remat and parts[0] in _REMAT_BLOCKS:
@@ -219,21 +235,22 @@ def load_flax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
 @torch.no_grad()
 def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random parameters, with flax's initialisers: LeCun-normal
-    kernels and weights (fan-in by layout), zero biases, unit LayerNorm
-    scales, PReLU slopes 0.25, and normal(0.02) for Swin's relative-position
-    table and UNETR's position embedding. Returns `model`."""
+    kernels and weights (fan-in by layout), zero biases and DANet gates,
+    unit LayerNorm scales, PReLU slopes 0.25, and normal(0.02) for Swin's
+    relative-position tables and the position embeddings of UNETR and
+    TransUNet 2D. Returns `model`."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         owner = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name \
             else model
-        if leaf == "bias":
+        if leaf in ("bias", "gamma"):
             val = torch.zeros(p.shape)
         elif type(owner).__name__ == "LayerNorm":
             val = torch.ones(p.shape)
         elif leaf == "alpha":
             val = torch.full(p.shape, 0.25)
-        elif leaf in ("rel_bias", "pos_embed"):
+        elif leaf in ("rel_bias", "pos_embed", "pos"):
             val = 0.02 * torch.randn(p.shape, generator=gen)
         else:
             # flax layout (..., I, O), torch layout (O, I, ...) or a

@@ -5,7 +5,9 @@ An encoder of ``Conv_0`` + one block + 4 down blocks (channel multipliers
 1, 2, 4, 8, 10 × base), a mirrored decoder that upsamples trilinearly and
 concatenates the skip, and a 1×1×1 class head ``outc``. ``block=
 "BasicBlock"`` is the ResUNet of the ``abdomenatlas/resunet_3d`` preset;
-``unet`` stages are post-activated ``ConvNormAct``s. Downsampling is a
+``unet`` stages are post-activated ``ConvNormAct``s; ``Bottleneck``,
+``MBConv`` and ``FusedMBConv`` stages are the other blocks of
+``layers.BLOCKS``. Downsampling is a
 strided first block (flax SAME padding, ``layers.same_pads``) or, with
 ``pool``, a VALID max pool. ``aux_head`` adds the 1×1×1 ``aux_out`` head on
 the second decoder stage, resized to the input.
@@ -28,9 +30,8 @@ def _scale3(s):
 
 def _block(name: str):
     if name not in BLOCKS:
-        raise NotImplementedError(
-            f"UNet block {name!r} is not ported (ROADMAP.md §1 item 6); the "
-            f"port has {sorted(BLOCKS)}")
+        raise ValueError(f"unknown UNet block {name!r}; the blocks are "
+                         f"{sorted(BLOCKS)}")
     return BLOCKS[name]
 
 

@@ -19,9 +19,13 @@ results. ``--pretrained`` warm-starts from a port checkpoint directory (its
 --clip_source DIR`` pretrains the encoder and its CLIP head with symmetric
 InfoNCE against precomputed report embeddings (one ``<case_id>.npy`` a case
 in DIR; a case without one gets zeros), over batches that share one crop
-organ. The options the port does not have yet (``--zero_opt``,
-``--zero_ema``, ``--spatial_shard`` > 1, the ``--dist_*`` flags, 2D presets)
-raise ``NotImplementedError`` naming their item of ``ROADMAP.md`` §1.
+organ. A 2D configuration (``--preset slices/resunet_2d``, or
+``--dimension 2d`` / a 2D ``training_size``) trains a 2D model on axial
+slices of the CT-Mask cases (``SliceDataset``) and validates slice by
+slice; it refuses CT-Report cases, as the JAX CLI does. The options the
+port does not have yet (``--zero_opt``, ``--zero_ema``, ``--spatial_shard``
+> 1, the ``--dist_*`` flags) raise ``NotImplementedError`` naming their
+item of ``ROADMAP.md`` §1.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ if TYPE_CHECKING:  # the CLI imports torch only once the flags are parsed
     from ..config import TrainConfig
     from ..data.clip import ClipRecordAdapter
     from ..data.dataset import RSuperDataset
+    from ..data.dataset2d import SliceDataset
 
 # command-line arguments that are not TrainConfig fields
 _NOT_CONFIG = ("preset", "config", "all_train", "max_steps",
@@ -90,6 +95,9 @@ def parse_args(argv=None):
     p.add_argument("--zero_opt", action="store_true")
     p.add_argument("--zero_ema", action="store_true")
     p.add_argument("--spatial_shard", type=int, default=None)
+    p.add_argument("--dimension", default=None, choices=("auto", "2d", "3d"),
+                   help="the config's dimension: auto (from training_size),"
+                        " 2d or 3d")
     p.add_argument("--dist_coordinator", default=None)
     p.add_argument("--dist_num_processes", type=int, default=None)
     p.add_argument("--dist_process_id", type=int, default=None)
@@ -136,7 +144,7 @@ class Run:
     args: argparse.Namespace
     cfg: TrainConfig
     model: torch.nn.Module
-    dataset: RSuperDataset | ClipRecordAdapter
+    dataset: RSuperDataset | ClipRecordAdapter | SliceDataset
     test_cases: list
     device: torch.device
     classes: tuple
@@ -179,6 +187,7 @@ def build_run(argv=None) -> Run:
     from ..data.dataset import (RSuperDataConfig, RSuperDataset,
                                 build_case_list, kfold_split,
                                 split_train_test)
+    from ..data.dataset2d import SliceDataConfig, SliceDataset
     from ..data.reports import clean_reports, load_reports
     from ..data.table import Table
     from ..models import get_model, init_params
@@ -247,10 +256,20 @@ def build_run(argv=None) -> Run:
             Table.read_csv(args.class_weights_csv),
             [c.case_id for c in train_cases], lesion_names,
         )
-    dataset = RSuperDataset(train_cases, dcfg, report_rows=report_rows,
-                            class_proportions=proportions)
-
     model_args = dict(cfg.model_args)
+    if cfg.is_2d:
+        if any(c.is_report for c in train_cases):
+            raise SystemExit("the 2D pathway trains on CT-Mask slices only "
+                             "(report supervision is volumetric)")
+        dataset = SliceDataset(train_cases, SliceDataConfig(
+            classes=tuple(classes), crop_size=tuple(cfg.training_size)))
+        # the 2D models whose parameter shapes follow the input size are
+        # built for the training slices, as the JAX model is initialised
+        model_args.setdefault("img_size", tuple(cfg.training_size))
+    else:
+        dataset = RSuperDataset(train_cases, dcfg, report_rows=report_rows,
+                                class_proportions=proportions)
+
     if cfg.clip_pretrain:
         if not cfg.clip_source:
             raise SystemExit("--clip_pretrain needs --clip_source "

@@ -7,7 +7,11 @@ Each step: ``ChunkedSampler`` indices (``OrganBatchSampler`` batches for
 CLIP pretraining) → ``PrefetchLoader`` (packed records,
 or records augmented in its workers with ``host_augment``) → the transfer to
 the device (``pipeline.to_device``) → ``device_augment`` (or the cast of the
-host-augmented batch) → ``build_train_step`` → meters and logging. With
+host-augmented batch) → ``build_train_step`` → meters and logging. On the
+2D pathway (``cfg.is_2d``) the dataset is a ``SliceDataset`` whose records
+come augmented: the loader moves their channels last, and the float32
+batch goes to the step without device augmentation; validation runs
+``validate_cases_2d``. With
 ``device_prefetch`` > 0 a ``DevicePrefetcher`` runs the transfer and the
 augmentation of the next batches on a side stream while the step runs. A
 resumed run goes on from the step it saved, also in the middle of an epoch
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..config import TrainConfig
+from ..data.dataset import to_channels_last
 from ..data.host_augment import make_host_augment, to_step_dtype
 from ..data.pipeline import (AugmentDraws, DevicePrefetcher, PrefetchLoader,
                              device_augment, draw_augment, to_device)
@@ -46,7 +51,6 @@ from .validation import run_validation, validation_model
 
 # the items of ROADMAP.md §1 that hold what the port does not have yet
 ROADMAP = {
-    "2d": "ROADMAP.md §1 item 4 (the rest of MedFormer and the 2D path)",
     "multi_gpu": "ROADMAP.md §1 item 8 (multi-GPU)",
 }
 
@@ -64,8 +68,6 @@ def check_config(cfg: TrainConfig) -> None:
             raise unported(name, item)
     if cfg.spatial_shard > 1:
         raise unported(f"spatial_shard={cfg.spatial_shard}", "multi_gpu")
-    if cfg.is_2d:
-        raise unported("2D training", "2d")
 
 
 def _epoch_indices(cfg: TrainConfig, dataset,
@@ -168,9 +170,14 @@ def train(
     epoch_indices = _epoch_indices(cfg, dataset, start_epoch)
     draws = draws or seeded_draws(cfg, device)
     # host augmentation: the loader's workers augment (reference-style), and
-    # the device only casts; else the loader packs and the device augments
+    # the device only casts; else the loader packs and the device augments.
+    # 2D slices are augmented by the dataset (data/dataset2d.py): the
+    # loader only moves their channels last, and the batch goes to the step
+    # as it is, as the JAX loop feeds it
     host_transform = None
-    if cfg.host_augment:
+    if cfg.is_2d:
+        host_transform = lambda rec, rng: to_channels_last(rec)  # noqa: E731
+    elif cfg.host_augment:
         host_transform = make_host_augment(
             tuple(cfg.training_size), scale=tuple(cfg.scale),
             rotate=tuple(cfg.rotate), translate=tuple(cfg.translate))
@@ -196,6 +203,8 @@ def train(
         """A host batch on the device, augmented, in the step's type."""
         with timer.phase("h2d"):
             batch = to_device(host, device)
+        if cfg.is_2d:
+            return batch
         if host_transform is not None:
             return to_step_dtype(batch, dtype)
         with timer.phase("augment"):

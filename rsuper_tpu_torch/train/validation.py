@@ -1,12 +1,14 @@
 """In-training validation: sliding-window inference per test case, Dice and
-surface distances per class (the port's counterpart of
+surface distances per class, or on the 2D pathway slice-wise inference and
+the volumetric Dice (the port's counterpart of
 ``rsuper_tpu/train/validation.py``).
 
 Reference: ``rsuper_train/training/validation.py`` (threshold 0.5 on
 multi-label sigmoids, ASD/HD95 with NaN→500 clamp, per-class means over the
 cases that contain the class). The probabilities are blended on the device
 and leave it as float16, as the JAX call leaves them by default, so the
-threshold is taken on the same float16 values.
+threshold is taken on the same float16 values; the 2D pathway's leave it
+as float32, as the JAX package's 2D function returns them.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..inference.sliding_window import sliding_window_inference
+from ..inference.sliding_window2d import sliding_window_inference_2d
 from ..metrics import asd_hd95, dice_score
 from ..utils.profiling import PhaseTimer
 
@@ -101,11 +104,40 @@ def validate_cases(
     }
 
 
-def validate_cases_2d(*args, **kwargs):
-    """The 2D pathway's validation, not ported yet."""
-    from .loop import unported
-
-    raise unported("validate_cases_2d", "2d")
+def validate_cases_2d(
+    model_fn,
+    cases,  # iterable of (image (D,H,W), labels (C,D,H,W))
+    num_classes: int,
+    window=(256, 256),
+    threshold: float = 0.5,
+    batch: int = 8,
+    device="cuda",
+    timer: Optional[PhaseTimer] = None,
+) -> Dict[str, np.ndarray]:
+    """The 2D pathway's validation: slice-wise sliding-window inference
+    (``sliding_window_inference_2d``) stacked back into the volume, then
+    the volumetric Dice per class over the cases that contain it (the
+    reference's 2D mode evaluates the same way). With `timer`, each case
+    adds its inference as ``val_window`` and its metrics as
+    ``val_metrics``."""
+    timer = timer or PhaseTimer()
+    dices = np.zeros(num_classes)
+    counts = np.zeros(num_classes)
+    for image, labels in cases:
+        with timer.phase("val_window"):
+            probs = sliding_window_inference_2d(
+                model_fn, image, num_classes, window=window, batch=batch,
+                device=device)
+        with timer.phase("val_metrics"):
+            pred = probs > threshold
+            for c in range(num_classes):
+                target = labels[c] > 0
+                if not target.any():
+                    continue
+                counts[c] += 1
+                dices[c] += dice_score(pred[..., c], target)
+    denom = np.maximum(counts, 1)
+    return {"dice": dices / denom, "cases_per_class": counts}
 
 
 def run_validation(val_model: torch.nn.Module, state, cfg, cases: Sequence,
@@ -115,13 +147,14 @@ def run_validation(val_model: torch.nn.Module, state, cfg, cases: Sequence,
     pass (the reference runs the same eval_net at ``train_ddp.py:388`` and
     ``:751``): the EMA weights when ``cfg.ema`` (else the parameters) are
     loaded into `val_model` (``validation_model``), whose final head is
-    evaluated at ``cfg.training_size`` windows in batches of 4."""
-    if cfg.is_2d:
-        return validate_cases_2d()
+    evaluated at ``cfg.training_size`` windows: 3D ones in batches of 4,
+    or, on the 2D pathway (``cfg.is_2d``), the slices' windows in batches
+    of 8 (``validate_cases_2d``)."""
     weights = state.ema_params if cfg.ema else dict(
         state.model.named_parameters())
     with torch.no_grad():
         val_model.load_state_dict(weights)
-    return validate_cases(head_fn(val_model), cases, num_classes,
-                          window=tuple(cfg.training_size), device=device,
-                          timer=timer)
+    validate = validate_cases_2d if cfg.is_2d else validate_cases
+    return validate(head_fn(val_model), cases, num_classes,
+                    window=tuple(cfg.training_size), device=device,
+                    timer=timer)

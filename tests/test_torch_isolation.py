@@ -52,7 +52,9 @@ def _sources():
                 "bench_infer.py", "models/unet3d.py",
                 "models/attention_unet.py", "models/unetpp.py",
                 "models/vnet.py", "models/unetr.py", "models/swin_unetr.py",
-                "models/nnformer.py"):
+                "models/nnformer.py", "models/dim2.py",
+                "models/dim2_zoo.py", "data/dataset2d.py",
+                "inference/sliding_window2d.py"):
         assert f"rsuper_tpu_torch/{new}" in names
     return files
 
@@ -135,6 +137,9 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
                                                     predict_masks_volume)
     from rsuper_tpu_torch.inference.sliding_window import (
         sliding_window_inference, sliding_window_probs_device)
+    from rsuper_tpu_torch.inference.sliding_window2d import \
+        sliding_window_inference_2d
+    from rsuper_tpu_torch.train.validation import validate_cases_2d
 
     vol = np.zeros((8, 8, 8), np.float32)
 
@@ -156,6 +161,11 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: bench_infer.main(["--edge", "32", "--window", "32"]),
         lambda: bench_train.main(["--size", "32", "--steps", "1"]),
         lambda: train_cli.main(["--data_root", str(tmp_path)]),
+        lambda: train_cli.main(["--data_root", str(tmp_path), "--preset",
+                                "slices/resunet_2d"]),
+        lambda: sliding_window_inference_2d(fn, vol, 2, window=(8, 8)),
+        lambda: validate_cases_2d(fn, [(vol, np.ones((2, 8, 8, 8)))], 2,
+                                  window=(8, 8)),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

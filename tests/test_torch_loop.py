@@ -23,7 +23,9 @@
   bit for bit; the CLI runs
   end to end with ``--device cpu`` and resumes, without importing pandas or
   PyYAML; every option the port does not have raises
-  ``NotImplementedError`` naming its ``ROADMAP.md`` item (validation,
+  ``NotImplementedError`` naming its ``ROADMAP.md`` item, also beside the
+  2D preset (the 2D pathway is held in ``tests/test_torch_dim2_loop.py``;
+  validation,
   warm starts, host augmentation and the prefetcher are held in
   ``tests/test_torch_{validation,pretrained,host_augment}.py``, CLIP
   pretraining in ``tests/test_torch_clip_loop.py``).
@@ -460,7 +462,7 @@ def test_presets_and_class_lists_match_the_jax_package():
     (["--dist_num_processes", "2"], "item 8 "),
     (["--dist_process_id", "0"], "item 8 "),
     (["--local_device_ids", "0"], "item 8 "),
-    (["--preset", "slices/resunet_2d"], "item 4 "),
+    (["--preset", "slices/resunet_2d", "--zero_opt"], "item 8 "),
 ])
 def test_unported_cli_options_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):

@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from rsuper_tpu.models.medformer import MedFormer as JaxMedFormer
-from rsuper_tpu_torch.models import get_model, load_flax_params
+from rsuper_tpu_torch.models import get_model, init_params, load_flax_params
 from rsuper_tpu_torch.models.params import params_from_flax
 
 # the small widths of tests/test_torch_port.py (copied, not imported)
@@ -170,9 +170,29 @@ def test_params_from_flax_raises_on_extra_leaf(pair):
 
 @pytest.mark.parametrize("option", [{"cf_fullres": False},
                                     {"conv_block": "MBConv"}])
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        get_model("medformer", NUM_CLASSES, {**TINY, **option})
+def test_unported_options_raise(option, pair):
+    """These options once raised; they are ported now. ``cf_fullres=False``
+    (a TPU layout switch of the JAX model) builds the default's modules and
+    computes its function; an MBConv MedFormer builds and runs
+    channels-last (``tests/test_torch_medformer_options.py`` holds it
+    against JAX)."""
+    x, flat, out = pair
+    model = get_model("medformer", NUM_CLASSES, {**TINY, **option},
+                      dtype=torch.float32)
+    if "cf_fullres" in option:
+        assert model.stem_cf
+        load_flax_params(model, flat)
+        with torch.inference_mode():
+            seg = model(torch.from_numpy(x))["segmentation"]
+        err, mx, _ = _errs(seg[0].numpy(), out["float32"][0])
+        assert err <= F32_TOL * (1 + mx)
+        return
+    init_params(model, seed=1)
+    assert not model.stem_cf and "MBConv_0" in dict(model.named_children())
+    with torch.inference_mode():
+        seg = model(torch.from_numpy(x[:, :16, :16, :16]))["segmentation"]
+    assert tuple(seg[0].shape) == (1, 16, 16, 16, NUM_CLASSES)
+    assert torch.isfinite(seg[0]).all()
 
 
 @pytest.mark.parametrize("torch_port", [False, True])
@@ -191,5 +211,5 @@ def test_torch_port_option_is_threaded(torch_port):
             assert m.norm_eps == block_eps, name
         elif kind == "LayerNorm":
             assert m.eps == ln_eps, name
-        elif kind in ("UpBlockMF", "UpBlockCF"):
+        elif kind == "UpBlockMF":
             assert m.align_corners is torch_port, name

@@ -370,8 +370,35 @@ def test_make_optimizer_raises_on_unknown_name():
 
 
 def test_loss_fn_refuses_2d_input():
-    with pytest.raises(NotImplementedError):
-        loss_fn(None, {"image": torch.zeros(1, 8, 8, 1)}, LMAP, CFG)
+    """(Once a test that 2D input raised; the lift is ported.) A 2D batch's
+    heads and masks are lifted to depth-1 volumes (JAX ``_lift_2d``): its
+    losses are those of the same batch given as (B, 1, H, W, ·) volumes to
+    a model that returns the lifted heads."""
+    from rsuper_tpu_torch.train.step import _lift_2d
+
+    rng = np.random.default_rng(6)
+    C = len(CLASSES)
+    logits = torch.from_numpy(rng.normal(size=(2, 12, 10, C)).astype(
+        np.float32))
+    aux = torch.from_numpy(rng.normal(size=(2, 12, 10, C)).astype(
+        np.float32))
+    label = torch.from_numpy((rng.random((2, 12, 10, C)) < 0.3).astype(
+        np.float32))
+    batch = {"image": torch.zeros(2, 12, 10, 1), "label": label,
+             "unk": torch.zeros_like(label),
+             "segment_mask": torch.zeros_like(label),
+             "volumes": torch.zeros(2, 10), "diameters": torch.zeros(2, 10, 3)}
+    cfg = CFG
+    flat = lambda x: {"segmentation": [logits, aux]}  # noqa: E731
+    lifted = lambda x: {"segmentation": [logits[:, None], aux[:, None]]}  # noqa: E731,E501
+    _, got = loss_fn(flat, batch, LMAP, cfg)
+    vol = {k: _lift_2d(v) for k, v in batch.items()}
+    vol["image"] = batch["image"][:, None]
+    _, want = loss_fn(lifted, vol, LMAP, cfg)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert _lift_2d(None) is None and _lift_2d(logits[:, None]).dim() == 5
 
 
 def test_synthetic_batch_matches_bench_py():

@@ -183,11 +183,33 @@ def test_run_validation_takes_the_ema_weights(pair, monkeypatch):
 
 
 def test_validate_cases_2d_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4 "):
-        validation.validate_cases_2d()
-    cfg = load_config("slices/resunet_2d")
-    with pytest.raises(NotImplementedError, match="item 4 "):
-        validation.run_validation(None, None, cfg, [], 2, device="cpu")
+    """(Once a test that the 2D validation raised: it is ported, and
+    ``tests/test_torch_dim2_loop.py`` holds it against JAX.) A 2D config's
+    ``run_validation`` evaluates the parameters (no EMA here) with
+    ``validate_cases_2d`` at the training slices' windows: the result of
+    the direct call, a Dice for each class a case contains."""
+    from rsuper_tpu_torch.models import get_model, init_params
+    from rsuper_tpu_torch.train.optim import make_optimizer
+    from rsuper_tpu_torch.train.state import create_train_state
+
+    model = init_params(get_model("resunet_2d", 3, {"base_chan": 4},
+                                  dtype=torch.float32), seed=2)
+    rng = np.random.default_rng(2)
+    labels = np.zeros((3, 3, 40, 36), np.uint8)
+    labels[1, :, 8:20, 10:30] = 1
+    cases = [(rng.normal(size=(3, 40, 36)).astype(np.float32), labels)]
+    cfg = load_config("slices/resunet_2d", overrides={
+        "training_size": (32, 32), "ema": False})
+    state = create_train_state(model, make_optimizer(model.parameters()),
+                               ema=False)
+    got = validation.run_validation(validation.validation_model(model),
+                                    state, cfg, cases, 3, device="cpu")
+    direct = validation.validate_cases_2d(validation.head_fn(model), cases,
+                                          3, window=(32, 32), device="cpu")
+    assert sorted(got) == ["cases_per_class", "dice"]
+    for k in got:
+        np.testing.assert_array_equal(got[k], direct[k])
+    np.testing.assert_array_equal(got["cases_per_class"], [0, 1, 0])
 
 
 def test_cross_validation_files_are_byte_equal(tmp_path):

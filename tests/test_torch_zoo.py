@@ -182,6 +182,17 @@ BLOCK_CASES = {
     "basicblock_s2": ("BasicBlock", dict(features=8, strides=2)),
     "bottleneck_s2": ("Bottleneck", dict(features=8, strides=2)),
     "bottleneck_5": ("Bottleneck", dict(features=8, kernel_size=5)),
+    "convnormact_grouped_s2": ("ConvNormAct", dict(features=8, groups=2,
+                                                   strides=2)),
+    "dsconv_5_s2": ("DepthwiseSeparableConv", dict(features=8, kernel_size=5,
+                                                   strides=2)),
+    "mbconv_s2_gelu": ("MBConv", dict(features=8, strides=2, act="gelu")),
+    "mbconv_e1_k311_nose": ("MBConv", dict(features=8, expansion=1,
+                                           kernel_size=(3, 1, 1), se=False)),
+    "fused_mbconv_s2_silu": ("FusedMBConv", dict(features=8, strides=2,
+                                                 act="silu")),
+    "fused_mbconv_nonorm": ("FusedMBConv", dict(features=8, norm="none",
+                                                expansion=2)),
 }
 
 
@@ -290,20 +301,22 @@ _DEFAULT_INPUT = {"unetr": 96, "swin_unetr": 64, "nnformer": 64,
 
 @pytest.mark.parametrize("arch", sorted(jfactory.MODEL_REGISTRY))
 def test_every_jax_arch_builds_or_names_its_roadmap_item(arch):
-    """Each name of the JAX registry builds at the JAX defaults (the JAX
+    """Each name of the JAX registry builds at the JAX defaults: the JAX
     tree's leaves name every parameter, each with its shape, and nothing
-    else) or, for the 2D models, raises naming ROADMAP.md §1 item 4."""
-    if arch not in factory.MODEL_REGISTRY:
-        assert arch.endswith("_2d")
-        with pytest.raises(NotImplementedError, match="item 4 "):
-            get_model(arch, NUM_CLASSES)
-        return
-    model = get_model(arch, NUM_CLASSES)
-    if arch == "medformer":  # held at its defaults by tools/, too slow here
-        return
-    s = _DEFAULT_INPUT.get(arch, 16)
+    else. The 2D models are held at a 64² slice (the input size their
+    Swin windows and TransUNet's embedding are built for)."""
+    assert arch in factory.MODEL_REGISTRY
+    if arch.endswith("_2d"):
+        model = get_model(arch, NUM_CLASSES, {"img_size": (64, 64)})
+        x_shape = (1, 64, 64, 1)
+    else:
+        model = get_model(arch, NUM_CLASSES)
+        if arch == "medformer":  # held at its defaults by tools/, too slow
+            return
+        s = _DEFAULT_INPUT.get(arch, 16)
+        x_shape = (1, s, s, s, 1)
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    assert _jax_leaf_shapes(arch, model, (1, s, s, s, 1)) == want
+    assert _jax_leaf_shapes(arch, model, x_shape) == want
 
 
 def test_unknown_arch_raises_value_error():
