@@ -153,6 +153,25 @@ Phases, in order (any failure exits non-zero):
              every shape they launch rows 1–6 at, each row against its plain
              version at each of those shapes, float32 through the kernels
              against the plain versions.
+14. genesis — the Model-Genesis mode and the baselines on the train_cli
+             cases: ``loop.train`` of the preset with
+             ``model_genesis_pretrain`` and a single-head model
+             (``aux_loss=False``) for 4 steps, the last profiled, launch
+             counts set to 0 just before and read just after (rows 1-6
+             launched, the top-N rows not), each step's loss against the
+             MSE of its logits and labels recounted in float64; one genesis
+             step in float32 through the kernels against the plain versions
+             at two cut depths (the train phase's bound); the preset's own
+             model (auxiliary heads) refused; ``refine_with_report`` on the
+             lesion
+             probabilities ``predict_masks_volume`` serves; one round of the
+             augmentation daemon read back through
+             ``AugmentedRecordDataset``.
+15. host_pipelines — no device: report extraction with a stub LLM client
+             over 50 seeded reports for every step, the organ-mask
+             maintenance tools on synthetic NIfTIs, the sub-organ
+             predictor's discovery and sharding, one sanity dump; pandas
+             never imported.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. It imports nothing of JAX or of
@@ -1353,7 +1372,8 @@ def _ball_trace(keep_masks: bool = False):
         ball._ball_centres, ball.isolate_tumor_batched = centres_of, isolate
 
 
-def _train_losses_and_grads(state, batch, lmap, cfg, clip_only=False):
+def _train_losses_and_grads(state, batch, lmap, cfg, clip_only=False,
+                            model_genesis=False):
     """One forward and backward from `state` (no update): every loss term as
     a float, the gradient of every parameter the loss reaches, and the Ball
     Loss's trace."""
@@ -1362,6 +1382,7 @@ def _train_losses_and_grads(state, batch, lmap, cfg, clip_only=False):
     state.model.zero_grad(set_to_none=True)
     with _ball_trace() as trace:
         overall, losses = loss_fn(state.model, batch, lmap, cfg,
+                                  model_genesis=model_genesis,
                                   clip_only=clip_only)
     overall.backward()
     grads = {k: p.grad.detach().clone()
@@ -1411,12 +1432,7 @@ def _kernels_vs_plain(dev, margs, batch, lmap, cfg, clip_only=False):
     got32, ref32 = run(state32, batch), run(state32, batch, plain=True)
     image = batch["image"].float()
 
-    def nudge(seed, step):  # x·(1 ± step), the signs drawn from `seed`
-        sign = (torch.rand(image.shape, device=dev, generator=torch.Generator(
-            device=dev).manual_seed(seed)) > 0.5).float() * 2 - 1
-        return image * (1 + step * sign)
-
-    nudged = run(state32, {**batch, "image": nudge(3, 2.0 ** -22)},
+    nudged = run(state32, {**batch, "image": _nudge(image, 3, 2.0 ** -22)},
                  plain=True)
     del state32
     state = bench_train.build_state(dev, False, margs)
@@ -1426,7 +1442,8 @@ def _kernels_vs_plain(dev, margs, batch, lmap, cfg, clip_only=False):
     # three draws of the signs
     nudged16 = []
     for seed in (3, 4, 5):
-        b = {**batch, "image": nudge(seed, 2.0 ** -8).to(batch["image"].dtype)}
+        b = {**batch,
+             "image": _nudge(image, seed, 2.0 ** -8).to(batch["image"].dtype)}
         nudged16.append(run(state, b, plain=True))
     del state
     torch.cuda.synchronize()
@@ -1458,28 +1475,9 @@ def _kernels_vs_plain(dev, margs, batch, lmap, cfg, clip_only=False):
             agree["losses"][k]["float32_witness_moved"] = witness_moved
         if not ok:
             fails.append(f"loss {k}: {agree['losses'][k]}")
-    rho = _grad_rel_l2(nudged[1], ref32[1])
-    tol32 = max(TRAIN32_TOL, 4.0 * rho)
-    top = max(g.norm().item() for g in ref32[1].values())
-    worst, bad = 0.0, []
-    for k, r in ref32[1].items():
-        err = (got32[1][k] - r).norm().item()
-        bound = tol32 * (r.norm().item() + TRAIN_FLOOR * top)
-        worst = max(worst, err / bound)
-        if not (math.isfinite(err) and err <= bound):
-            bad.append(k)
-    agree["float32"] = dict(parameters=len(ref32[1]), tol=tol32,
-                            one_rounding_of_the_input_rel_l2=rho,
-                            rho_max=RHO_MAX,
-                            floor=TRAIN_FLOOR, worst_err_over_bound=worst,
-                            rel_l2_all=_grad_rel_l2(got32[1], ref32[1]),
-                            failed=bad[:10])
-    if not rho <= RHO_MAX:
-        fails.append(f"float32 gradients: one rounding of the input moves "
-                     f"them by {rho} > {RHO_MAX}; the bound means nothing")
-    if bad:
-        fails.append(f"float32 gradients: {len(bad)} parameters over the "
-                     f"bound, e.g. {bad[:5]}")
+    agree["float32"], f32_fails = _float32_grads_vs_plain(
+        got32[1], ref32[1], nudged[1])
+    fails += f32_fails
     noise = _grad_rel_l2(ref16[1], ref32[1])
     witness = [_grad_rel_l2(n[1], ref16[1]) for n in nudged16]
     rel16 = _grad_rel_l2(got16[1], ref16[1])
@@ -1498,6 +1496,61 @@ def _kernels_vs_plain(dev, margs, batch, lmap, cfg, clip_only=False):
         fails.append(f"bf16 gradients: {agree['bfloat16']}")
     torch.cuda.empty_cache()
     return agree, fails
+
+
+def _nudge(image, seed: int, step: float):
+    """x·(1 ± step), the signs drawn from `seed` on the image's device."""
+    import torch
+
+    sign = (torch.rand(image.shape, device=image.device,
+                       generator=torch.Generator(device=image.device)
+                       .manual_seed(seed)) > 0.5).float() * 2 - 1
+    return image * (1 + step * sign)
+
+
+def _float32_grads_vs_plain(got, ref, nudged, per_parameter=False):
+    """The float32 gradients through the kernels (`got`) against the plain
+    versions' (`ref`): per parameter ‖Δg‖ ≤ max(TRAIN32_TOL, 4ρ)·(‖g‖ +
+    TRAIN_FLOOR·max‖g‖), ρ the move of all the plain gradients under one
+    float32 rounding of the input (`nudged`), held under RHO_MAX. With
+    `per_parameter`, ρ is the larger of that and the move of the
+    parameter's own gradient under the same rounding, up to RHO_MAX: the
+    full-resolution convs' weight gradients move several times more than
+    the whole.
+    Returns the record and the failures."""
+    rho = _grad_rel_l2(nudged, ref)
+    tol32 = max(TRAIN32_TOL, 4.0 * rho)
+    top = max(g.norm().item() for g in ref.values())
+    ratios, moves, bad, fails = {}, {}, [], []
+    for k, r in ref.items():
+        err = (got[k] - r).norm().item()
+        moves[k] = ((nudged[k] - r).norm() / r.norm()).item()
+        tol = (max(tol32, 4.0 * min(moves[k], RHO_MAX)) if per_parameter
+               else tol32)
+        bound = tol * (r.norm().item() + TRAIN_FLOOR * top)
+        ratios[k] = err / bound
+        if not (math.isfinite(err) and err <= bound):
+            bad.append(k)
+    # the parameters nearest their bound: the kernels' relative distance
+    # and the move of the same gradient under the input's rounding
+    nearest = [dict(name=k, err_over_bound=ratios[k],
+                    rel_err=((got[k] - ref[k]).norm()
+                             / ref[k].norm()).item(),
+                    rel_move_one_rounding=moves[k])
+               for k in sorted(ratios, key=ratios.get)[-5:]]
+    rec = dict(parameters=len(ref), tol=tol32, per_parameter=per_parameter,
+               largest_parameter_move=max(moves.values()),
+               one_rounding_of_the_input_rel_l2=rho, rho_max=RHO_MAX,
+               floor=TRAIN_FLOOR, worst_err_over_bound=max(ratios.values()),
+               rel_l2_all=_grad_rel_l2(got, ref), failed=bad[:10],
+               nearest_bound=nearest)
+    if not rho <= RHO_MAX:
+        fails.append(f"float32 gradients: one rounding of the input moves "
+                     f"them by {rho} > {RHO_MAX}; the bound means nothing")
+    if bad:
+        fails.append(f"float32 gradients: {len(bad)} parameters over the "
+                     f"bound, e.g. {bad[:5]}")
+    return rec, fails
 
 
 def _grad_norm(grads):
@@ -3555,6 +3608,453 @@ def phase_mf_variants(dev):
     return failures
 
 
+# ------------------------------------- Model Genesis and the host pipelines
+GENESIS_STEPS = 4
+# lesions a report gives each organ, for the report-guided pseudo-labels of
+# the served probabilities; each organ's lesion channel and its mask classes
+GENESIS_REPORT = {"pancreas": 2, "liver": 1, "kidney": 0}
+GENESIS_LESION = {"pancreas": "pancreatic_lesion", "liver": "liver_lesion",
+                  "kidney": "kidney_lesion"}
+GENESIS_ORGAN = {"pancreas": ("pancreas",), "liver": ("liver",),
+                 "kidney": ("kidney_left", "kidney_right")}
+GENESIS_MSE_TOL = 1e-5  # a step's float32 MSE against a float64 recount
+PATH_ROWS = CONV_ROWS + DW_ROWS  # the kernels of MedFormer's step: rows 1-6
+
+
+def _genesis_vs_plain(dev, margs, batch, lmap):
+    """One Model-Genesis forward and backward in float32 through the kernels
+    against the plain versions, from one seeded single-head state: the loss
+    within 1e-4 relative, each parameter's gradient within the train
+    phase's float32 bound taken per parameter
+    (``_float32_grads_vs_plain(per_parameter=True)``)."""
+    import torch
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.losses import LossConfig
+    from rsuper_tpu_torch.ops.dispatch import plain_on_device
+
+    def run(b, plain=False):
+        with plain_on_device() if plain else nullcontext():
+            return _train_losses_and_grads(state, b, lmap, LossConfig(),
+                                           model_genesis=True)
+
+    state = bench_train.build_state(dev, False, margs, dtype=torch.float32)
+    got, ref = run(batch), run(batch, plain=True)
+    nudged = run({**batch, "image": _nudge(batch["image"].float(), 3,
+                                           2.0 ** -22)}, plain=True)
+    del state
+    rec, fails = _float32_grads_vs_plain(got[1], ref[1], nudged[1],
+                                         per_parameter=True)
+    loss, loss_ref = got[0]["genesis_loss"], ref[0]["genesis_loss"]
+    rec.update(genesis_loss=loss, genesis_loss_plain=loss_ref,
+               loss_tol=1e-4 * abs(loss_ref))
+    if not (math.isfinite(loss) and abs(loss - loss_ref) <= rec["loss_tol"]):
+        fails.append(f"genesis loss {loss} against plain {loss_ref}")
+    torch.cuda.empty_cache()
+    return rec, fails
+
+
+def phase_genesis(dev):
+    """The Model-Genesis mode and the baselines at the preset's sizes, on
+    the ``train_cli`` phase's synthetic cases:
+
+    * ``loop.train`` of the preset with ``model_genesis_pretrain`` and a
+      single-head model (``aux_loss=False``; default widths, 128³ × 2,
+      bf16) for GENESIS_STEPS steps, the last profiled, the launch counts
+      set to 0 just before and read just after: rows 1-6 launched, the
+      top-N rows not (no Ball Loss); each step's ``genesis_loss`` against
+      the MSE of that step's logits and labels recounted in float64
+      (GENESIS_MSE_TOL); ms an iteration, the step call, the loop's wait,
+      busy share, peak memory, launches a step;
+    * one genesis step's loss and gradients in float32 through the kernels
+      against the plain versions (``_genesis_vs_plain``) at the train
+      phase's mid and cut depths, where one float32 rounding of the input
+      moves the plain gradients by less than RHO_MAX; each parameter held
+      at 4 times the larger of that move and its own gradient's;
+    * the preset's own model (auxiliary heads) refuses the mode;
+    * ``refine_with_report`` on the lesion probabilities that
+      ``predict_masks_volume`` serves for a CT-Mask case with the seeded
+      model's head made confident (``_confident_heads``): at most the
+      reported number of lesions an organ, inside the organ, timed;
+    * ``run_daemon`` for one round over the cases, then
+      ``AugmentedRecordDataset.sample`` equal to the records it saved;
+      seconds a case."""
+    import numpy as np
+    import torch
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.baselines import (extract_lesion_candidates,
+                                            refine_with_report)
+    from rsuper_tpu_torch.config import load_config
+    from rsuper_tpu_torch.data import augment_daemon
+    from rsuper_tpu_torch.data.preprocess import load_case
+    from rsuper_tpu_torch.inference.predict import predict_masks_volume
+    from rsuper_tpu_torch.losses import LesionChannelMap, LossConfig
+    from rsuper_tpu_torch.losses import dispatcher
+    from rsuper_tpu_torch.models import get_model, init_params
+    from rsuper_tpu_torch.train import __main__ as cli
+    from rsuper_tpu_torch.train import build_train_step, loop
+    from rsuper_tpu_torch.train.validation import head_fn
+    from rsuper_tpu_torch.utils.device import card_line
+
+    t_phase = time.time()
+    failures, res = [], {"card": card_line(), "crop": list(AUG_CROP),
+                         "batch": 2, "steps": GENESIS_STEPS}
+    counted = wrappers()
+    margs = dict(load_config(PRESET).model_args)
+    single = {**margs, "aux_loss": False}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        masks, reports, csv = write_cli_cases(root)
+        args = ["--preset", PRESET, "--data_root", str(masks),
+                "--report_root", str(reports), "--reports", str(csv),
+                "--cp_path", str(root / "exp"), "--unique_name", "genesis",
+                "--iter_per_epoch", str(GENESIS_STEPS), "--epochs", "2",
+                "--device", dev.type]
+        with _preset(model_genesis_pretrain=True, model_args=single):
+            run = cli.build_run(args)
+        recorded, inner = [], dispatcher.model_genesis_loss
+
+        def recording(restored, target):  # keeps the step's tensors alive
+            out = inner(restored, target)
+            recorded.append((restored.detach(), target.detach(),
+                             out["genesis_loss"].detach()))
+            return out
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for w in counted.values():
+            w.launches = 0
+        dispatcher.model_genesis_loss = recording
+        try:
+            t0 = time.time()
+            state = loop.train(run.cfg, run.model, run.dataset,
+                               max_steps=GENESIS_STEPS, profile_steps=1,
+                               device=dev)
+            torch.cuda.synchronize()
+            res["run_s"] = time.time() - t0
+        finally:
+            dispatcher.model_genesis_loss = inner
+        launches = {k: w.launches for k, w in counted.items()}
+        res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        exp = root / "exp" / "genesis"
+        phases = [r for r in _metrics_log(exp) if "phase/step_ms" in r][-1]
+        names, busy_ms = _trace_kernels(exp / "trace" / "trace.json")
+        mse = []
+        for restored, target, loss in recorded:
+            want = ((restored.double() - target.double()) ** 2).mean().item()
+            mse.append(dict(genesis_loss=loss.item(), float64=want,
+                            rel=abs(loss.item() - want) / want,
+                            logits=list(restored.shape),
+                            labels=list(target.shape)))
+        del recorded
+        res.update(
+            ms_per_step=phases["phase/iteration_median_ms"],
+            step_call_ms=phases["phase/step_median_ms"],
+            loader_wait_ms=phases["phase/load_median_ms"],
+            loader_item_ms=phases["phase/loader_item_ms"],
+            device_busy_ms=busy_ms, device_ops=len(names),
+            device_busy_share_of_step=busy_ms / phases[
+                "phase/iteration_median_ms"],
+            launches_per_step={k: n / GENESIS_STEPS
+                               for k, n in launches.items()},
+            steps_mse=mse, mse_tol=GENESIS_MSE_TOL)
+        if state.step != GENESIS_STEPS or len(mse) != GENESIS_STEPS:
+            failures.append(f"genesis: {state.step} steps, {len(mse)} "
+                            f"losses, expected {GENESIS_STEPS}")
+        for m in mse:
+            if not (math.isfinite(m["genesis_loss"])
+                    and m["rel"] <= GENESIS_MSE_TOL
+                    and m["logits"] == m["labels"]
+                    == [2, *AUG_CROP, len(run.classes)]):
+                failures.append(f"genesis: a step's loss {m}")
+        for k in KERNELS:
+            want = k in PATH_ROWS
+            if (launches[k] > 0) != want:
+                failures.append(f"genesis: {k} launched {launches[k]} times,"
+                                f" {'expected' if want else 'none'} expected")
+        del state
+        torch.cuda.empty_cache()
+
+        # the kernels against the plain versions on one genesis batch, at
+        # the train phase's cut depths: at full depth the seeded single-head
+        # model moves its float32 gradients by more than RHO_MAX under one
+        # rounding of this batch's input, and no bound holds there
+        lmap = LesionChannelMap.from_classes(bench_train.CLASSES)
+        batch = bench_train.synthetic_batch(AUG_CROP[0], 2, device=dev)
+        for key, depth in (("mid_depth", MID_DEPTH), ("cut_depth", CUT_DEPTH)):
+            res[f"kernels_vs_plain_{key}"], fails = _genesis_vs_plain(
+                dev, {**single, **depth}, batch, lmap)
+            failures += [f"genesis {key}: {f}" for f in fails]
+        # the preset's model has auxiliary heads: the mode refuses it, as
+        # the JAX package fails on it
+        aux = bench_train.build_state(dev, False, margs)
+        small = {k: v[:, :32, :32, :32] for k, v in batch.items()
+                 if v.dim() == 5}
+        try:
+            build_train_step(lmap, LossConfig(), model_genesis=True)(aux,
+                                                                     small)
+            res["aux_heads_refused"] = None
+            failures.append("genesis: the preset's aux heads were accepted")
+        except ValueError as e:
+            res["aux_heads_refused"] = str(e)
+            if "single-head model (aux_loss=False)" not in str(e):
+                failures.append(f"genesis: aux heads refused with {e}")
+        del aux, batch, small
+        torch.cuda.empty_cache()
+
+        # report-guided pseudo-labels on served probabilities
+        classes = json.loads((masks / "classes.json").read_text())
+        image, labels = load_case(str(masks / "BDMAP_M0.npz"),
+                                  num_classes=len(classes))
+        model = init_params(get_model("medformer", len(classes), margs,
+                                      dtype=torch.bfloat16), seed=0)
+        model = model.to(dev).eval()
+        _confident_heads(model, model, [(image, labels)])
+        chans = [classes.index(GENESIS_LESION[o]) for o in GENESIS_REPORT]
+        t0 = time.time()
+        _, probs = predict_masks_volume(
+            [head_fn(model)], image, classes, window=VAL_WINDOW,
+            batch=VAL_BATCH, prob_channels=chans, prob_wire="f16",
+            device=dev)
+        res["predict_s"] = time.time() - t0
+        del model
+        torch.cuda.empty_cache()
+        prob_maps = {o: probs[..., i].astype(np.float32)
+                     for i, o in enumerate(GENESIS_REPORT)}
+        organ_masks = {o: np.any([labels[classes.index(c)] for c in cs], 0)
+                       for o, cs in GENESIS_ORGAN.items()}
+        t0 = time.time()
+        refined = refine_with_report(prob_maps, GENESIS_REPORT, organ_masks)
+        res["refine_s"] = time.time() - t0
+        pseudo = {}
+        for o, n in GENESIS_REPORT.items():
+            mask, kept = extract_lesion_candidates(
+                prob_maps[o] * organ_masks[o], n) if n else (refined[o], 0)
+            pseudo[o] = dict(reported=n, kept=kept,
+                             voxels=int(refined[o].sum()),
+                             max_prob=float(prob_maps[o].max()))
+            if not (kept <= n and np.array_equal(mask, refined[o])
+                    and not (refined[o] & ~organ_masks[o]).any()
+                    and refined[o].shape == image.shape):
+                failures.append(f"genesis: pseudo-labels of {o}: "
+                                f"{pseudo[o]}")
+        res["pseudo_labels"] = pseudo
+
+        # the augmentation daemon over the cases
+        saved, sample = [], run.dataset.sample
+
+        def keep(i, rng=None):
+            rec = sample(i, rng)
+            saved.append((i, rec))
+            return rec
+
+        run.dataset.sample = keep
+        dest = str(root / "crops")
+        t0 = time.time()
+        augment_daemon.run_daemon(run.dataset, dest, seed=0, max_rounds=1)
+        res["daemon_s_per_case"] = (time.time() - t0) / len(run.dataset)
+        run.dataset.sample = sample
+        reader = augment_daemon.AugmentedRecordDataset(run.dataset, dest)
+        same = []
+        for i, rec in saved:
+            back = reader.sample(i)
+            same.append(all(np.array_equal(np.asarray(rec[k]), back[k])
+                            for k in back))
+        res["daemon_cases"], res["daemon_records_equal"] = len(saved), same
+        if len(saved) != len(run.dataset) or not all(same):
+            failures.append(f"genesis: the daemon's records {same}")
+    res["phase_s"] = time.time() - t_phase
+    log(json.dumps({"genesis": res}))
+    return failures
+
+
+HOST_ANSWERS = (  # a stub LLM's answers, one grammar of each step family
+    "lesion 1: type = PDAC; certainty = high; size = 2.3 x 1.8 cm; "
+    "organ = pancreas; location = head; attenuation = hypo;\nlesion 2: "
+    "type = cyst; certainty = high; size = u; organ = kidney; "
+    "location = left; attenuation = u;",
+    "No lesions mentioned.",
+    "liver tumor presence = yes; kidney tumor presence = no; "
+    "pancreas tumor presence = u;",
+    "malignant tumor in liver = yes; liver malignant tumor size = 22 mm;",
+    "liver tumor 1: type = HCC; certainty = high; size = 3.2 cm; "
+    "location = segment 8; arterial enhancement = yes; washout = yes; "
+    "capsule = no; threshold growth = u; LI-RADS = LR-5;",
+    "abnormalities = ['pancreatic duct dilation', 'liver cyst']; "
+    "synonyms = {'PDAC': ['pancreatic adenocarcinoma']}",
+    "first diagnosis report = 3;\npre-diagnosis reports = 1, 2;\n"
+    "tumor types: PDAC;\n- decision: exclude\nsame report = yes;",
+    "very likely malignancy in liver in the first exam = yes;",
+)
+HOST_REPORTS = 50
+
+
+class _StubLLM:
+    """An LLM client that answers from HOST_ANSWERS by a hash of the
+    prompt: no endpoint is contacted."""
+
+    def chat_batch(self, system, users):
+        import zlib
+
+        return [HOST_ANSWERS[zlib.crc32((system + u).encode())
+                             % len(HOST_ANSWERS)] for u in users]
+
+
+def phase_host_pipelines():
+    """The host pipelines, no device: ``report_extraction.run`` with a stub
+    client over a seeded CSV of HOST_REPORTS reports for every step of
+    ``STEPS``, each postprocessed to its CSV; ``organ_masks.maintenance``
+    on synthetic NIfTIs and packed cases (bladder repair of a tree and of
+    the stacks, the nnU-Net staging copy, the debug dump);
+    ``predict_suborgans``' discovery, resume and sharding; one
+    ``SanityDumper`` round. Fails unless every stage writes what it must
+    and pandas was never imported. Prints seconds a stage."""
+    import numpy as np
+
+    from rsuper_tpu_torch.data.nifti import read_nifti, write_nifti
+    from rsuper_tpu_torch.data.table import Table
+    from rsuper_tpu_torch.organ_masks import maintenance, predict_suborgans
+    from rsuper_tpu_torch.report_extraction import run as extraction
+    from rsuper_tpu_torch.utils.debug_dumps import SanityDumper
+
+    t_phase = time.time()
+    failures, res = [], {"reports": HOST_REPORTS, "steps": {}}
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        words = ["liver", "mass", "2 cm,", "pancreatic", "\"cyst\"", "\n",
+                 "kidney", "normal", "segment 7", "head", "lesion"]
+        rows = ["BDMAP_ID,Report Text,Assigned Number,Exam Started Date,"
+                "pancreatic cancer timeline"]
+        for i in range(HOST_REPORTS):
+            text = " ".join(rng.choice(words, int(rng.integers(3, 9))))
+            timeline = ("pre-diagnosis", "first positive", "")[i % 3]
+            rows.append(f"BDMAP_{i:05d},\"{text.replace(chr(34), 2 * chr(34))}"
+                        f"\",{i // 3},20{18 + i % 5}-01-01,{timeline}")
+        csv = root / "reports.csv"
+        csv.write_text("\n".join(rows) + "\n")
+        for step in sorted(extraction.STEPS):
+            out = root / "extraction" / step
+            t0 = time.time()
+            extraction.run_extraction(str(csv), str(out), _StubLLM(),
+                                      parts=2, part=0, step=step)
+            extraction.run_extraction(str(csv), str(out), _StubLLM(),
+                                      parts=2, part=1, step=step)
+            extraction.postprocess_answers(str(out), step=step)
+            tables = sorted(p.name for p in out.glob("*.csv"))
+            answered = sum(1 for p in out.glob("raw_answers_part*.jsonl")
+                           for _ in p.open())
+            res["steps"][step] = dict(s=time.time() - t0, answered=answered,
+                                      csv={t: len(Table.read_csv(
+                                          str(out / t))) for t in tables})
+            expect = HOST_REPORTS // 3 if step == "time_machine" \
+                else HOST_REPORTS
+            if answered < expect * 0.9 or not tables:
+                failures.append(f"host_pipelines: step {step}: "
+                                f"{res['steps'][step]}")
+        # a case with lesions or the no-lesion sentinel has a per-CT row
+        answers = extraction._collect_answers(str(root / "extraction" /
+                                                  "type_and_size"))
+        cases = sum(1 for a in answers.values()
+                    if extraction.parse_lesion_answer(a))
+        per_ct = res["steps"]["type_and_size"]["csv"]
+        if per_ct != {"per_ct.csv": cases, "per_tumor.csv": per_ct.get(
+                "per_tumor.csv", 0)} or not 0 < cases < HOST_REPORTS:
+            failures.append(f"host_pipelines: type_and_size wrote {per_ct} "
+                            f"for {cases} cases")
+
+        # organ-mask maintenance on synthetic NIfTIs and packed cases
+        t0 = time.time()
+        blob = np.zeros((48, 48, 48), np.uint8)
+        blob[8:30, 8:30, 8:30] = 1
+        blob[40:44, 40:44, 40:44] = 1  # a detached fragment
+        gall = np.zeros_like(blob)
+        gall[20:30, 20:30, 20:30] = 1
+        ids = []
+        for k in range(4):
+            seg = root / "tree" / f"BDMAP_{k}" / "segmentations"
+            seg.mkdir(parents=True)
+            write_nifti(str(seg / "bladder.nii.gz"), blob)
+            write_nifti(str(seg / "gall_bladder.nii.gz"), gall)
+            write_nifti(str(root / "tree" / f"BDMAP_{k}" / "ct.nii.gz"),
+                        rng.normal(size=blob.shape).astype(np.float32))
+            write_nifti(str(root / "tree" / f"BDMAP_{k}" /
+                            "combined_labels.nii.gz"), blob)
+            ids.append(f"BDMAP_{k}")
+        (root / "ids.csv").write_text("BDMAP ID\n" + "\n".join(ids) + "\n")
+        tree = maintenance.fix_bladder_tree(
+            str(root / "tree"), maintenance._read_id_list(
+                str(root / "ids.csv")))
+        fixed = read_nifti(str(root / "tree" / "BDMAP_0" / "segmentations" /
+                                "bladder.nii.gz")).data
+        want = blob.astype(bool) & ~gall.astype(bool)
+        want[40:44, 40:44, 40:44] = False
+        classes = ["background", "bladder", "gall_bladder"]
+        (root / "packed").mkdir()
+        for k in range(2):
+            np.savez_compressed(root / "packed" / f"BDMAP_{k}.npz",
+                                image=rng.normal(size=blob.shape)
+                                .astype(np.float32),
+                                labels=np.packbits(np.stack(
+                                    [np.zeros_like(blob), blob, gall]), 0),
+                                num_classes=np.int64(3))
+        packed = maintenance.fix_bladder_npz(
+            sorted(str(p) for p in (root / "packed").glob("*.npz")), classes)
+        staged = maintenance.copy_dataset(ids + ["BDMAP_X"],
+                                          str(root / "tree"),
+                                          str(root / "tree"),
+                                          str(root / "nnraw"), workers=4)
+        debug = maintenance.npz_to_debug_niis(
+            str(root / "packed"), classes, num=2,
+            out_root=str(root / "debug"))
+        res["maintenance_s"] = time.time() - t0
+        res["maintenance"] = dict(
+            tree=[s for _, s in tree], packed=[s for _, s in packed],
+            staged=staged, debug_files=len(debug))
+        if not (all(s == "ok" for _, s in tree + packed) and len(tree) == 4
+                and np.array_equal(fixed.astype(bool), want)
+                and sum(m.startswith("Copied") for m in staged) == 4
+                and len(debug) == 6):
+            failures.append(f"host_pipelines: maintenance "
+                            f"{res['maintenance']}")
+
+        t0 = time.time()
+        src = root / "cts"
+        src.mkdir()
+        for k in range(10):
+            (src / f"BDMAP_{k}.nii.gz").write_bytes(b"x")
+        (root / "preds").mkdir()
+        (root / "preds" / "BDMAP_3.nii.gz").write_bytes(b"y")
+        fi, fo = predict_suborgans.filter_existing_outputs(
+            *predict_suborgans.collect_cases(str(src), str(root / "preds")))
+        shards = [predict_suborgans.split_files(fi, fo, 4, p)[0]
+                  for p in range(4)]
+        res["suborgans_s"] = time.time() - t0
+        res["suborgan_shards"] = [len(s) for s in shards]
+        if sum(shards, []) != fi or len(fi) != 9:
+            failures.append(f"host_pipelines: suborgan shards {shards}")
+
+        t0 = time.time()
+        dumper = SanityDumper(str(root / "sanity"), limit=1)
+        lab = np.zeros((2, 32, 32, 32, 3), np.float32)
+        lab[0, 4:9, 4:9, 4:9, 1] = 1
+        for _ in range(2):
+            dumper.dump({"label": lab, "unk": lab[..., 0]},
+                        class_names=["bg", "organ", "lesion"])
+        dumped = sorted(p.name for p in (root / "sanity").rglob("*.nii.gz"))
+        res["sanity_s"] = time.time() - t0
+        res["sanity_files"] = dumped
+        if dumped != ["label_organ.nii.gz", "unk_bg.nii.gz"]:
+            failures.append(f"host_pipelines: sanity dumps {dumped}")
+    res["pandas_imported"] = "pandas" in sys.modules
+    if res["pandas_imported"]:
+        failures.append("host_pipelines: pandas was imported")
+    res["phase_s"] = time.time() - t_phase
+    log(json.dumps({"host_pipelines": res}))
+    return failures
+
+
 def main() -> int:
     import torch
 
@@ -3604,6 +4104,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     failures += phase_dim2(dev)
     failures += phase_mf_variants(dev)
+    torch.cuda.empty_cache()
+    failures += phase_genesis(dev)
+    failures += phase_host_pipelines()
     # each kernel's count comes from the path it was written for: the
     # forward kernels from the predict phase, the backward ones from the
     # training steps (which launch the forward kernels too)

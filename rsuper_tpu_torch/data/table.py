@@ -24,8 +24,8 @@ For the evaluation it also builds a table from rows of Python values as
 does: a float column's cells as Python's ``repr`` (numpy's shortest
 round-trip text, which pandas writes), NaN as an empty cell, an int column
 with a missing cell as float (``3.0``). ``merge`` (inner, on one key, in the
-left table's row order), ``concat``, ``drop_duplicates`` (first kept) and
-``sort_values`` (stable) are pandas' for these tables.
+left table's row order), ``concat``, ``drop_duplicates`` (first or last
+kept) and ``sort_values`` (stable) are pandas' for these tables.
 """
 
 from __future__ import annotations
@@ -200,8 +200,11 @@ class Column:
         return out
 
     def isin(self, items: Iterable[Any]) -> List[bool]:
+        """``Series.isin``: a missing cell is in `items` when `items` holds
+        a missing value."""
         s = set(items)
-        return [(not isna(v)) and v in s for v in self.values]
+        has_na = any(isna(v) for v in s)
+        return [has_na if isna(v) else v in s for v in self.values]
 
     def unique(self) -> List[Any]:
         """Distinct cells in order of first appearance."""
@@ -327,15 +330,22 @@ class Table:
                 out[k] = Column(values, "object")
         return Table(out)
 
-    def drop_duplicates(self, subset: str) -> "Table":
-        """The first row of each value of `subset`."""
+    def drop_duplicates(self, subset, keep: str = "first") -> "Table":
+        """The first (``keep="last"``: the last) row of each value of
+        `subset`, a column or a sequence of columns; the kept rows in
+        their order."""
+        cols = [subset] if isinstance(subset, str) else list(subset)
+        keys = [tuple(("nan",) if isna(v) else v for v in row)
+                for row in zip(*(self[c].values for c in cols))]
+        if keep not in ("first", "last"):
+            raise ValueError(f"keep must be 'first' or 'last', got {keep!r}")
+        rows = range(self._n) if keep == "first" else reversed(range(self._n))
         seen, idx = set(), []
-        for i, v in enumerate(self[subset]):
-            key = ("nan",) if isna(v) else v
-            if key not in seen:
-                seen.add(key)
+        for i in rows:
+            if keys[i] not in seen:
+                seen.add(keys[i])
                 idx.append(i)
-        return self.take(idx)
+        return self.take(sorted(idx))
 
     def sort_values(self, by: str) -> "Table":
         """Rows sorted by `by` (stable; missing cells last)."""

@@ -12,10 +12,11 @@ classification branch's and the CLIP loss into one ``overall`` scalar.
 * ``clip_only``: symmetric InfoNCE between ``model_output['clip']`` and
   the report embeddings, nothing else;
 * ``cfg.classification_branch``: the classification branch's BCE on lesion
-  presence is added when the output has ``'classification'``.
-
-The ``model_genesis`` mode raises ``NotImplementedError`` (``ROADMAP.md``
-§1 item 5).
+  presence is added when the output has ``'classification'``;
+* ``model_genesis``: the float32 MSE between the one segmentation head and
+  the label (``losses/genesis.py``), nothing else. The JAX package fails on
+  a model with auxiliary heads there (a list has no ``astype``); the port
+  raises ``ValueError`` and sums no heads of its own.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from .ball import BallLossConfig, ball_loss, lesion_masks_cf
 from .classification import classification_loss
+from .genesis import model_genesis_loss
 from .info_nce import symmetric_info_nce
 from .lesions import LesionChannelMap
 from .seg import (adaptive_tversky_dice, get_known_voxels,
@@ -85,8 +87,13 @@ def calculate_loss(model_output: Dict[str, Any], label, unk_voxels,
     `class_weights` optional (B, C); `report_embeddings` (B, F), read by
     ``clip_only`` only."""
     if model_genesis:
-        raise NotImplementedError("calculate_loss(model_genesis=True) is not "
-                                  "ported yet: ROADMAP.md §1 item 5")
+        restored = model_output["segmentation"]
+        if isinstance(restored, (tuple, list)):
+            raise ValueError(
+                "calculate_loss(model_genesis=True) needs a single-head model "
+                "(aux_loss=False): the restoration loss reads one output, "
+                f"the model gave {len(restored)} heads")
+        return model_genesis_loss(restored, label)
     if clip_only:
         loss = symmetric_info_nce(model_output["clip"], report_embeddings)
         return {"contrastive_loss": loss, "overall": loss}

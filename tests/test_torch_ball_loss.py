@@ -50,6 +50,7 @@ from rsuper_tpu_torch.losses import ball
 from rsuper_tpu_torch.models import params_from_flax, train_state_from_jax
 from rsuper_tpu_torch.ops import balls
 from rsuper_tpu_torch.train import build_train_step, loss_fn
+from tests.test_torch_loop import _one_intra_op_thread  # noqa: F401
 from tests.test_torch_train import CLASSES as STEP_CLASSES
 from tests.test_torch_train import (GRAD_FLOOR, OPT, TINY,
                                     _adam_state, _flat_np, _flax_params,

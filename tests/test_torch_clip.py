@@ -41,6 +41,7 @@ from rsuper_tpu.data import reports as jrep
 from rsuper_tpu.data.sampler import OrganBatchSampler as JOrganBatchSampler
 from rsuper_tpu.losses import classification as jcls
 from rsuper_tpu.losses import dispatcher as jdisp
+from rsuper_tpu.losses import genesis as jgen
 from rsuper_tpu.losses import info_nce as jnce
 from rsuper_tpu.models.medformer import MedFormer as JaxMedFormer
 from rsuper_tpu_torch.data import clip
@@ -297,9 +298,24 @@ def test_calculate_loss_classification_branch_matches_jax():
 
 
 def test_model_genesis_still_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="model_genesis.*item 5"):
-        calculate_loss({"segmentation": _t(DATA["logits"])}, _t(DATA["label"]),
-                       None, None, None, None, LMAP_T, model_genesis=True)
+    """``calculate_loss(model_genesis=True)`` equals JAX's
+    ``model_genesis_loss`` of the head and the label; with auxiliary heads
+    both packages raise."""
+    got = calculate_loss({"segmentation": _t(DATA["logits"])},
+                         _t(DATA["label"]), None, None, None, None, LMAP_T,
+                         model_genesis=True)
+    ref = jgen.model_genesis_loss(_j(DATA["logits"]), _j(DATA["label"]))
+    for k in ("genesis_loss", "overall"):
+        _check_value(float(got[k]), float(ref[k]), "float32", k)
+    heads = [DATA["logits"], DATA["aux"]]
+    with pytest.raises(ValueError, match="single-head.*aux_loss=False"):
+        calculate_loss({"segmentation": [_t(h) for h in heads]},
+                       _t(DATA["label"]), None, None, None, None, LMAP_T,
+                       model_genesis=True)
+    with pytest.raises(AttributeError):
+        jdisp.calculate_loss({"segmentation": [_j(h) for h in heads]},
+                             _j(DATA["label"]), None, None, None, None,
+                             LMAP_J, model_genesis=True)
 
 
 # --------------------------------------------------------------- the heads

@@ -54,7 +54,19 @@ def _sources():
                 "models/vnet.py", "models/unetr.py", "models/swin_unetr.py",
                 "models/nnformer.py", "models/dim2.py",
                 "models/dim2_zoo.py", "data/dataset2d.py",
-                "inference/sliding_window2d.py"):
+                "inference/sliding_window2d.py", "losses/genesis.py",
+                "losses/legacy.py", "losses/matcher.py",
+                "baselines/__init__.py", "baselines/model_genesis.py",
+                "baselines/pseudo_labels.py", "data/augment_daemon.py",
+                "utils/debug_dumps.py", "organ_masks/__init__.py",
+                "organ_masks/labels.py", "organ_masks/dataset_prep.py",
+                "organ_masks/maintenance.py",
+                "organ_masks/predict_suborgans.py",
+                "report_extraction/__init__.py",
+                "report_extraction/prompts.py",
+                "report_extraction/parse.py",
+                "report_extraction/metadata.py",
+                "report_extraction/client.py", "report_extraction/run.py"):
         assert f"rsuper_tpu_torch/{new}" in names
     return files
 
@@ -139,6 +151,7 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         sliding_window_inference, sliding_window_probs_device)
     from rsuper_tpu_torch.inference.sliding_window2d import \
         sliding_window_inference_2d
+    from rsuper_tpu_torch.organ_masks import predict_suborgans
     from rsuper_tpu_torch.train.validation import validate_cases_2d
 
     vol = np.zeros((8, 8, 8), np.float32)
@@ -166,6 +179,9 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: sliding_window_inference_2d(fn, vol, 2, window=(8, 8)),
         lambda: validate_cases_2d(fn, [(vol, np.ones((2, 8, 8, 8)))], 2,
                                   window=(8, 8)),
+        lambda: predict_suborgans.main(["--pth", str(tmp_path), "--outdir",
+                                        str(tmp_path / "o"),
+                                        "--checkpoint", "c"]),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

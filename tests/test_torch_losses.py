@@ -324,11 +324,16 @@ def test_loss_config_matches_jax_defaults():
 
 @pytest.mark.parametrize("mode", ["model_genesis"])
 def test_unported_modes_raise(mode):
-    x = _t(DATA["logits"])
-    args = (_t(DATA["label"]), _t(DATA["unk"]), _t(DATA["segment_mask"]),
-            _t(DATA["volumes"]), _t(DATA["diameters"]), LMAP_T)
-    cfg = LossConfig(loss="dice",
-                     classification_branch=mode == "classification_branch")
-    kw = {} if mode == "classification_branch" else {mode: True}
-    with pytest.raises(NotImplementedError, match=mode):
-        calculate_loss({"segmentation": x}, *args, cfg, **kw)
+    """With every batch tensor given, the mode equals the JAX dispatcher's:
+    ``model_genesis_loss`` of the head and the label, nothing else."""
+    args = (DATA["label"], DATA["unk"], DATA["segment_mask"],
+            DATA["volumes"], DATA["diameters"])
+    cfg = LossConfig(loss="dice")
+    got = calculate_loss({"segmentation": _t(DATA["logits"])},
+                         *map(_t, args), LMAP_T, cfg, **{mode: True})
+    ref = jdisp.calculate_loss({"segmentation": _j(DATA["logits"])},
+                               *map(_j, args), LMAP_J,
+                               jdisp.LossConfig(loss="dice"), **{mode: True})
+    assert sorted(got) == sorted(ref) == ["genesis_loss", "overall"]
+    for k in ref:
+        _check_value(float(got[k]), float(ref[k]), "float32", k)

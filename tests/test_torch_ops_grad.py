@@ -27,6 +27,7 @@ import torch
 from rsuper_tpu.ops import conv_cf as jconv
 from rsuper_tpu.ops import dwconv as jdw
 from rsuper_tpu_torch.ops import conv_cf, dwconv
+from test_torch_loop import _one_intra_op_thread  # noqa: F401
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -35,6 +35,7 @@ from rsuper_tpu_torch.data.nifti import read_nifti, write_nifti
 from rsuper_tpu_torch.inference import predict as tpredict
 from rsuper_tpu_torch.inference import sliding_window as tsw
 from rsuper_tpu_torch.models import get_model, load_flax_params
+from test_torch_loop import _one_intra_op_thread  # noqa: F401
 
 TINY = dict(  # the small widths of tests/test_torch_port.py (copied)
     base_chan=4,

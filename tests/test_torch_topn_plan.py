@@ -23,6 +23,7 @@ import torch
 from rsuper_tpu.ops import pallas_topn as jpallas
 from rsuper_tpu.ops import selection as jsel
 from rsuper_tpu_torch.ops import topn
+from tests.test_torch_loop import _one_intra_op_thread  # noqa: F401
 from tests.test_torch_selection import BATCHED, CASES
 
 R_ALL = list(range(1, topn._RMAX + 1))

@@ -46,6 +46,7 @@ from rsuper_tpu_torch.train import (build_eval_step, build_train_step,
                                     create_train_state, loss_fn,
                                     make_optimizer, warmup_poly_schedule)
 from rsuper_tpu_torch.train.optim import clip_by_global_norm
+from test_torch_loop import _one_intra_op_thread  # noqa: F401
 
 TINY = dict(
     base_chan=4,
