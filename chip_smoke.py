@@ -172,6 +172,20 @@ Phases, in order (any failure exits non-zero):
              maintenance tools on synthetic NIfTIs, the sub-organ
              predictor's discovery and sharding, one sanity dump; pandas
              never imported.
+16. ddp    — data parallelism on the one card: the training CLI as a
+             one-rank NCCL job (``--dist_*``, ``--zero_opt``, ``--zero_ema``)
+             at the preset's sizes for 3 steps against three plain runs of
+             the same seed (first-step losses bit-equal; then parameters,
+             EMA and losses within 4× the plain runs' own spread of one of
+             them: the upsampling's backward adds with atomics); NCCL's refusal of two ranks on one
+             device, written down; two gloo ranks on card 0 (the workers
+             ``chip_smoke.py --ddp-worker ...`` that it launches) at the
+             train phase's batch of 2, one item a rank: float32 losses and
+             averaged gradients against one process at batch 2 (the train
+             phase's ρ rule, per parameter), 3 bf16 steps replicated and 3
+             with ZeRO-1 (ms a step, all-reduce ms and bytes, peak memory
+             and optimizer-state bytes a rank, launches a rank a step), one
+             CLIP step; every logged loss bit-equal on the two ranks.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. It imports nothing of JAX or of
@@ -4055,6 +4069,452 @@ def phase_host_pipelines():
     return failures
 
 
+# ------------------------------------------------------ data parallelism
+DDP_STEPS = 3  # steps of each data-parallel training run
+DDP_SIZE = 96  # the two-rank runs: the train phase's crops at global batch 2
+DDP_TIMEOUT = 420  # seconds a launched rank may take
+# (a): the NCCL run within this many times the plain runs' own spread
+# (the train phase's 4× rule on a measured noise; `_ddp_cli_world1`)
+DDP_NOISE_FACTOR = 4.0
+# the float32 check at full width and MID_DEPTH: at full depth one rounding
+# of the input moved the seeded model's gradients by ρ = 1.72e-2 on an
+# H100, near RHO_MAX
+DDP_F32_ARGS = {**MODEL_ARGS, **MID_DEPTH}
+DDP_PROBE_TIMEOUT = 90  # seconds the NCCL probe's ranks may take
+# a data-parallel step launches rows 1-6 on every rank, and row 8 on the
+# rank whose item holds the reported tumours (rank 0: bench.py's item 0)
+DDP_TOPN = "topn_threshold_multi_batched"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextmanager
+def _recording_steps():
+    """Inside the block, every training step built by ``train/loop.py``
+    appends its losses (floats) to the list it yields."""
+    from rsuper_tpu_torch.train import loop
+
+    seen, build = [], loop.build_train_step
+
+    def wrapped(*args, **kwargs):
+        step = build(*args, **kwargs)
+
+        def recorded(state, batch):
+            state, losses = step(state, batch)
+            seen.append({k: float(v) for k, v in losses.items()})
+            return state, losses
+
+        return recorded
+
+    loop.build_train_step = wrapped
+    try:
+        yield seen
+    finally:
+        loop.build_train_step = build
+
+
+def _max_abs(a: dict, b: dict) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def _ddp_cli_world1(root: Path, res: dict, failures: list) -> None:
+    """(a) The training CLI as a one-rank NCCL job with ZeRO-1 of the
+    optimizer and the EMA copy, against three plain CLI runs of the same
+    seed. The first step's losses must be equal, bit for bit (the same
+    parameters and batch); PyTorch's trilinear upsampling adds its backward
+    with atomics, so later steps differ between plain runs in the last bits
+    of the parameters, which bf16 amplifies in the losses (on an H100,
+    8.2e-4 and 2.5e-3 between two plain runs' losses in two runs of the
+    phase, the NCCL run 1.1e-3 to 4.1e-3 from either): the parameters, the
+    EMA copy and every step's losses of the NCCL run must lie within
+    DDP_NOISE_FACTOR times the largest distance between two plain runs of
+    the nearest plain run."""
+    import torch
+
+    from rsuper_tpu_torch.train.__main__ import main as train_main
+
+    masks, reports, csv = write_cli_cases(root)
+    base = ["--preset", PRESET, "--data_root", str(masks), "--report_root",
+            str(reports), "--reports", str(csv), "--cp_path",
+            str(root / "exp"), "--iter_per_epoch", str(DDP_STEPS),
+            "--epochs", "1", "--num_workers", "1",
+            "--max_steps", str(DDP_STEPS)]
+    job = ["--dist_coordinator", f"127.0.0.1:{_free_port()}",
+           "--dist_num_processes", "1", "--dist_process_id", "0",
+           "--local_device_ids", "0", "--zero_opt", "--zero_ema"]
+    runs = {}
+    for name, extra in (("plain", []), ("nccl_zero", job), ("plain2", []),
+                        ("plain3", [])):
+        t0 = time.time()
+        with _recording_steps() as seen:
+            state = train_main(base + ["--unique_name", name, *extra])
+        torch.cuda.synchronize()
+        saved = torch.load(root / "exp" / name / "latest",
+                           weights_only=True, map_location="cpu")
+        runs[name] = dict(losses=[s["overall"] for s in seen],
+                          params=saved["params"], ema=saved["ema_params"],
+                          opt=saved["opt_state"], step=state.step,
+                          seconds=time.time() - t0,
+                          files=sorted(os.listdir(root / "exp" / name)))
+        del state
+        torch.cuda.empty_cache()
+
+    def apart(a, b):
+        return dict(params=_max_abs(a["params"], b["params"]),
+                    ema=_max_abs(a["ema"], b["ema"]),
+                    losses=max(abs(x - y) for x, y in zip(a["losses"],
+                                                          b["losses"])))
+
+    plains = ("plain", "plain2", "plain3")
+    pairs = {f"{a}_{b}": apart(runs[a], runs[b])
+             for i, a in enumerate(plains) for b in plains[i + 1:]}
+    nccl = {p: apart(runs["nccl_zero"], runs[p]) for p in plains}
+    spread = {k: max(d[k] for d in pairs.values()) for k in nccl["plain"]}
+    nearest = {k: min(d[k] for d in nccl.values()) for k in spread}
+    a, b = runs["plain"], runs["nccl_zero"]
+    moments = sorted(a["opt"]["state"]) == sorted(b["opt"]["state"]) and all(
+        a["opt"]["state"][i][n].shape == v.shape
+        for i, st in b["opt"]["state"].items() for n, v in st.items())
+    first = {k: v["losses"][0] for k, v in runs.items()}
+    res["nccl_world1"] = dict(
+        flags=job, steps=DDP_STEPS, crop=list(AUG_CROP), batch=2,
+        losses={k: v["losses"] for k, v in runs.items()},
+        nccl_vs_plain=nccl, plain_vs_plain=pairs, nearest=nearest,
+        spread=spread, noise_factor=DDP_NOISE_FACTOR, bit_equal_to_a_plain_run=any(
+            all(v == 0 for v in d.values()) for d in nccl.values()),
+        checkpoint_layout_as_plain=moments,
+        seconds={k: v["seconds"] for k, v in runs.items()},
+        files=b["files"])
+    if len(set(first.values())) != 1:
+        failures.append(f"ddp (a): first-step losses differ: {first}")
+    for k in spread:
+        if not nearest[k] <= DDP_NOISE_FACTOR * spread[k]:
+            failures.append(f"ddp (a): the one-rank NCCL run's {k} lie "
+                            f"{nearest[k]} from the nearest plain run, the "
+                            f"plain runs at most {spread[k]} apart")
+    if not (b["step"] == a["step"] == DDP_STEPS and moments
+            and "metrics.jsonl" in b["files"]):
+        failures.append(f"ddp (a): steps {b['step']}, checkpoint layout "
+                        f"{moments}, files {b['files']}")
+
+
+def _launch_ranks(role: str, out: Path, timeout: float):
+    """Two ``chip_smoke.py --ddp-worker`` processes of `role` on card 0;
+    returns each one's exit code (None if it was killed at the timeout)
+    and output tail."""
+    import subprocess
+
+    port = str(_free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker", role,
+         str(r), port, str(out)], cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    t_end = time.time() + timeout
+    codes, tails = [], []
+    for p in procs:
+        try:
+            text, _ = p.communicate(timeout=max(1.0, t_end - time.time()))
+            codes.append(p.returncode)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text, _ = p.communicate()
+            codes.append(None)
+        tails.append(text[-3000:])
+    return codes, tails
+
+
+def _ddp_nccl_probe(rank: int, port: str, out: Path) -> int:
+    """Two NCCL ranks on card 0: NCCL refuses a communicator with two ranks
+    on one device; the error is written down."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    rec = {"rank": rank}
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=2, rank=rank,
+                                timeout=datetime.timedelta(seconds=60))
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        rec.update(refused=False, value=t.item())
+    except Exception as e:  # the refusal is the expected outcome
+        rec.update(refused=True, error=f"{type(e).__name__}: "
+                   f"{' '.join(str(e).split())[:400]}")
+    (out / f"nccl_probe{rank}.json").write_text(json.dumps(rec))
+    sys.stdout.flush()
+    os._exit(0)  # a refused communicator is not torn down cleanly
+
+
+def _clip_batch(size: int, batch: int, dev):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    return {"image": torch.randn((batch, size, size, size, 1), generator=g,
+                                 device=dev).to(torch.bfloat16),
+            "report_embedding": torch.randn((batch, CLIP_FEATS), generator=g,
+                                            device=dev)}
+
+
+def _opt_bytes(opt) -> int:
+    return sum(v.numel() * v.element_size() for st in opt.opt.state.values()
+               for v in st.values() if hasattr(v, "numel") and v.dim())
+
+
+def _ddp_gloo_rank(rank: int, port: str, out: Path) -> int:
+    """One of two gloo ranks on card 0 (CUDA tensors, gloo stages them
+    through the host): the float32 step's global losses and averaged
+    gradients at the train phase's batch of 2 (this rank's item), then
+    DDP_STEPS bf16 steps replicated and DDP_STEPS with ZeRO-1 of the
+    optimizer and the EMA copy (ms a step, all-reduce ms and bytes, peak
+    memory, optimizer-state bytes, launches), then one CLIP step."""
+    import torch
+    import torch.distributed as dist
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.losses import LesionChannelMap, LossConfig
+    from rsuper_tpu_torch.parallel import mesh
+    from rsuper_tpu_torch.train import optim, state as tstate, step as tstep
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    dp = mesh.DataParallel(rank=rank, world=2)
+    lmap = LesionChannelMap.from_classes(bench_train.CLASSES)
+    cfg = LossConfig()
+    full = bench_train.synthetic_batch(DDP_SIZE, 2, device=dev)
+    mine = {k: v[rank:rank + 1] for k, v in full.items()}
+    rec = {"rank": rank}
+
+    # float32: the global losses and the averaged gradients
+    s32 = bench_train.build_state(dev, False, DDP_F32_ARGS,
+                                  dtype=torch.float32)
+    mine32 = {**mine, "image": mine["image"].float()}
+    losses = tstep.gradients(s32.model, mine32, lmap, cfg, group=dp)
+    grads = {k: p.grad.detach() for k, p in s32.model.named_parameters()}
+    rec["float32_losses"] = {k: float(v) for k, v in losses.items()}
+    rec["float32_grad_sum"] = float(sum(g.double().sum() for g in
+                                        grads.values()))
+    if rank == 0:
+        torch.save({k: g.cpu() for k, g in grads.items()},
+                   out / "grads32.pt")
+    del s32, grads
+    torch.cuda.empty_cache()
+
+    # bf16: the timed steps, replicated then ZeRO-1
+    timed = {"ms": 0.0, "bytes": 0, "calls": 0}
+    reduce = tstep.all_reduce_mean_
+
+    def timed_reduce(tensors, group, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = reduce(tensors, group, *a, **kw)
+        torch.cuda.synchronize()
+        timed["ms"] += 1e3 * (time.perf_counter() - t0)
+        timed["bytes"] += n
+        timed["calls"] += 1
+        return n
+
+    tstep.all_reduce_mean_ = timed_reduce
+    counted = wrappers()
+    for zero in (False, True):
+        st = bench_train.build_state(dev, False, MODEL_ARGS)
+        if zero:
+            axes = mesh.zero_partition(dict(st.model.named_parameters()), 2)
+            st = tstate.create_train_state(
+                st.model, optim.ZeroOptimizer(st.optimizer,
+                                              list(axes.values()), dp),
+                dp=dp, zero_ema=True)
+        step = tstep.build_train_step(lmap, cfg, group=dp)
+        st, _ = step(st, mine)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in counted.values():
+            w.launches = 0
+        timed.update(ms=0.0, bytes=0, calls=0)
+        history, t0 = [], time.perf_counter()
+        for _ in range(DDP_STEPS):
+            st, ls = step(st, mine)
+            history.append({k: float(v) for k, v in ls.items()})
+        torch.cuda.synchronize()
+        key = "zero" if zero else "replicated"
+        rec[key] = dict(
+            ms_per_step=1e3 * (time.perf_counter() - t0) / DDP_STEPS,
+            all_reduce_ms_per_step=timed["ms"] / DDP_STEPS,
+            all_reduce_bytes_per_step=timed["bytes"] / DDP_STEPS,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            optimizer_state_bytes=_opt_bytes(st.optimizer),
+            ema_bytes=sum(v.numel() * v.element_size()
+                          for v in st.ema_params.values()),
+            losses=history,
+            launches_per_step={k: w.launches / DDP_STEPS
+                               for k, w in counted.items()})
+        del st, step
+        torch.cuda.empty_cache()
+    tstep.all_reduce_mean_ = reduce
+
+    # one CLIP step of the model with its CLIP head
+    sc = bench_train.build_state(dev, False, {**MODEL_ARGS, "clip_branch": True,
+                                              "clip_feats": CLIP_FEATS})
+    cb = _clip_batch(DDP_SIZE, 2, dev)
+    step = tstep.build_train_step(lmap, cfg, clip_only=True, group=dp)
+    sc, ls = step(sc, {k: v[rank:rank + 1] for k, v in cb.items()})
+    rec["clip_losses"] = {k: float(v) for k, v in ls.items()}
+    del sc
+    dist.barrier()
+    dist.destroy_process_group()
+    (out / f"gloo{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def _ddp_worker(argv) -> int:
+    """``chip_smoke.py --ddp-worker ROLE RANK PORT OUT``: one rank that the
+    ddp phase launches."""
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: CUDA is not available; nothing was run")
+        return 2
+    role, rank, port, out = argv[0], int(argv[1]), argv[2], Path(argv[3])
+    sys.path.insert(0, str(ROOT))
+    if role == "nccl_probe":
+        return _ddp_nccl_probe(rank, port, out)
+    return _ddp_gloo_rank(rank, port, out)
+
+
+def phase_ddp(dev):
+    """Data parallelism on the one card: (a) the training CLI as a one-rank
+    NCCL job (``--dist_*``, ``--zero_opt``, ``--zero_ema``) at the preset's
+    sizes for DDP_STEPS steps against three plain runs of the same seed
+    (``_ddp_cli_world1``: the first step's losses bit-equal, then within
+    DDP_NOISE_FACTOR times the plain runs' own spread); (b) two ranks on card 0: NCCL's refusal of two ranks on
+    one device, written down; two gloo ranks (CUDA tensors, staged through
+    the host by gloo) of the train phase's step at global batch 2, one item
+    a rank: in float32 (full width, MID_DEPTH) their global losses and
+    averaged gradients against one process at batch 2 (losses 1e-4 relative, the Ball Loss's terms at
+    the witness's spread where the nudged run moves them; gradients by the
+    train phase's per-parameter ρ rule), then DDP_STEPS bf16 steps
+    replicated and DDP_STEPS with ZeRO-1 (ms a step, all-reduce ms and
+    bytes a step, peak memory and optimizer-state bytes a rank, launches of
+    rows 1-6 a rank a step, and of row 8 on rank 0, whose item holds the
+    reported tumours; rank 1's has none and skips the Ball Loss's search)
+    and one CLIP step; every logged loss equal, bit for bit, on the two
+    ranks. gloo's times are not NCCL's."""
+    import torch
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.losses import LesionChannelMap, LossConfig
+    from rsuper_tpu_torch.train import step as tstep
+    from rsuper_tpu_torch.utils.device import card_line
+
+    failures, res = [], {"card": card_line()}
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        _ddp_cli_world1(root / "cli", res, failures)
+
+        out = root / "ranks"
+        out.mkdir()
+        codes, tails = _launch_ranks("nccl_probe", out, DDP_PROBE_TIMEOUT)
+        probe = [json.loads((out / f"nccl_probe{r}.json").read_text())
+                 if (out / f"nccl_probe{r}.json").exists()
+                 else {"rank": r, "exit": codes[r], "tail": tails[r][-400:]}
+                 for r in range(2)]
+        res["nccl_two_ranks_one_card"] = probe
+        log(json.dumps({"ddp_nccl_probe": probe}))
+
+        t0 = time.time()
+        codes, tails = _launch_ranks("gloo", out, DDP_TIMEOUT)
+        res["gloo_ranks_s"] = time.time() - t0
+        if codes != [0, 0]:
+            failures.append(f"ddp (b): the gloo ranks exited {codes}: "
+                            + " | ".join(t[-1500:] for t in tails))
+            log(json.dumps({"ddp": res}))
+            return failures
+        ranks = [json.loads((out / f"gloo{r}.json").read_text())
+                 for r in range(2)]
+        g32 = {k: v.to(dev) for k, v in
+               torch.load(out / "grads32.pt", weights_only=True).items()}
+
+    # the one-process reference at batch 2, and one rounding of its input
+    lmap = LesionChannelMap.from_classes(bench_train.CLASSES)
+    cfg = LossConfig()
+    full = bench_train.synthetic_batch(DDP_SIZE, 2, device=dev)
+    full = {**full, "image": full["image"].float()}
+    ref = {}
+    for key, image in (("ref", full["image"]),
+                       ("nudged", _nudge(full["image"], 3, 2.0 ** -22))):
+        s32 = bench_train.build_state(dev, False, DDP_F32_ARGS,
+                                      dtype=torch.float32)
+        losses = tstep.gradients(s32.model, {**full, "image": image}, lmap,
+                                 cfg)
+        ref[key] = ({k: float(v) for k, v in losses.items()},
+                    {k: p.grad.detach().clone()
+                     for k, p in s32.model.named_parameters()})
+        del s32
+    torch.cuda.empty_cache()
+    agree, fails = _float32_grads_vs_plain(g32, ref["ref"][1],
+                                           ref["nudged"][1],
+                                           per_parameter=True)
+    failures += [f"ddp (b) float32: {f}" for f in fails]
+    got = ranks[0]["float32_losses"]
+    terms = {}
+    for k, r in ref["ref"][0].items():
+        tol = 1e-4 * abs(r)
+        moved = abs(ref["nudged"][0][k] - r)
+        if k.startswith("ball_loss") and moved > 0:
+            tol = max(tol, BF16_NOISE_FACTOR * moved)
+        terms[k] = dict(two_ranks=got[k], one_process=r, tol=tol)
+        if not abs(got[k] - r) <= tol:
+            failures.append(f"ddp (b) float32 loss {k}: {terms[k]}")
+    res["float32_vs_one_process"] = dict(size=DDP_SIZE, batch=2,
+                                         model_args=DDP_F32_ARGS,
+                                         losses=terms, gradients=agree)
+    # the ranks' reports: the same bits on both
+    same = (ranks[0]["float32_losses"] == ranks[1]["float32_losses"]
+            and ranks[0]["float32_grad_sum"] == ranks[1]["float32_grad_sum"]
+            and ranks[0]["clip_losses"] == ranks[1]["clip_losses"]
+            and all(ranks[0][k]["losses"] == ranks[1][k]["losses"]
+                    for k in ("replicated", "zero")))
+    if not same:
+        failures.append("ddp (b): the two ranks logged different losses")
+    for r in ranks:
+        for key in ("replicated", "zero"):
+            rows = PATH_ROWS + ((DDP_TOPN,) if r["rank"] == 0 else ())
+            lost = [k for k in rows
+                    if r[key]["launches_per_step"].get(k, 0) <= 0]
+            if lost:
+                failures.append(f"ddp (b) rank {r['rank']} {key}: {lost} "
+                                "not launched")
+            if not all(math.isfinite(v) for h in r[key]["losses"]
+                       for v in h.values()):
+                failures.append(f"ddp (b) rank {r['rank']} {key}: losses "
+                                f"{r[key]['losses']}")
+        if not math.isfinite(r["clip_losses"]["contrastive_loss"]):
+            failures.append(f"ddp (b): CLIP losses {r['clip_losses']}")
+    res["gloo_two_ranks"] = dict(
+        size=DDP_SIZE, global_batch=2, local_batch=1,
+        losses_bit_equal_across_ranks=same,
+        ranks=[{k: v for k, v in r.items() if k != "float32_grad_sum"}
+               for r in ranks])
+    res["seconds"] = time.time() - t_phase
+    log(json.dumps({"ddp": res}))
+    return failures
+
+
+
 def main() -> int:
     import torch
 
@@ -4107,6 +4567,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     failures += phase_genesis(dev)
     failures += phase_host_pipelines()
+    torch.cuda.empty_cache()
+    failures += phase_ddp(dev)
     # each kernel's count comes from the path it was written for: the
     # forward kernels from the predict phase, the backward ones from the
     # training steps (which launch the forward kernels too)
@@ -4127,4 +4589,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        sys.exit(_ddp_worker(sys.argv[2:]))
     sys.exit(main())

@@ -126,6 +126,17 @@ class AugmentDraws:
     noise_std: np.ndarray
     noise: torch.Tensor
 
+    def take(self, rows: np.ndarray) -> "AugmentDraws":
+        """The draws of the items at `rows` of the batch: a data-parallel
+        rank augments its items with the global batch's draws at their
+        places (``parallel.multihost.local_rows``)."""
+        rows = np.asarray(rows)
+        return AugmentDraws(**{
+            f.name: getattr(self, f.name)[
+                torch.from_numpy(rows).to(self.noise.device)
+                if f.name == "noise" else rows]
+            for f in dataclasses.fields(self)})
+
 
 def draw_augment(gen_host: torch.Generator, gen_dev: torch.Generator,
                  B: int, crop_size: Sequence[int], scale=(0.0, 0.0, 0.0),

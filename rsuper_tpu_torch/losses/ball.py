@@ -20,7 +20,14 @@ kernel launch a slot). Where the JAX package uses ``lax.while_loop`` and
 ``lax.cond`` on traced values, the control flow here is Python's on values
 read from the device: which branches a batch needs and how many slots are
 live (read once a call), and whether the dilation fall-back must go on (read
-once a round). ``host_reads()`` counts those transfers. The pseudo-masks are
+once a round). ``host_reads()`` counts those transfers. These reads decide
+per item, so a data-parallel rank that sees only its items builds the same
+pseudo-masks as one process on the global batch: the fall-back loop freezes
+every item that stops growing and an item's test reads its own masks only;
+a slot past an item's last tumour, or a branch the item does not take,
+changes nothing of that item's result (its masks are multiplied by zero or
+dropped by ``torch.where``). The ranks' counts of reads may differ; the
+loss itself runs no collective. The pseudo-masks are
 supervision targets: they are built under ``torch.no_grad()``, and gradients
 flow only through the BCE and Dice terms on the logits.
 """

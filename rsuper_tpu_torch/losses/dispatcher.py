@@ -17,6 +17,15 @@ classification branch's and the CLIP loss into one ``overall`` scalar.
   the label (``losses/genesis.py``), nothing else. The JAX package fails on
   a model with auxiliary heads there (a list has no ``astype``); the port
   raises ``ValueError`` and sums no heads of its own.
+
+With a data-parallel `group` (``parallel.mesh.DataParallel``) each term is
+this rank's share of the global batch's: its mean over the ranks is the
+term of the global batch, value and gradient. Every term is a mean over
+the batch's items, so a rank takes the mean over its own, except where a
+term couples the items: the adaptive-Tversky alpha sums FP and FN over the
+ranks, and the CLIP loss takes every rank's embeddings as negatives
+(``info_nce.symmetric_info_nce_share``). The Ball Loss needs nothing of the
+group: its host-side control flow decides per item (``losses/ball.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import torch
 from .ball import BallLossConfig, ball_loss, lesion_masks_cf
 from .classification import classification_loss
 from .genesis import model_genesis_loss
-from .info_nce import symmetric_info_nce
+from .info_nce import symmetric_info_nce, symmetric_info_nce_share
 from .lesions import LesionChannelMap
 from .seg import (adaptive_tversky_dice, get_known_voxels,
                   masked_bce_with_logits)
@@ -78,14 +87,16 @@ def calculate_loss(model_output: Dict[str, Any], label, unk_voxels,
                    lmap: LesionChannelMap, cfg: LossConfig = LossConfig(),
                    class_weights=None, model_genesis: bool = False,
                    clip_only: bool = False,
-                   report_embeddings=None) -> Dict[str, torch.Tensor]:
+                   report_embeddings=None,
+                   group=None) -> Dict[str, torch.Tensor]:
     """Every active loss of one training step, as a dict of float32 scalars
     with an ``'overall'`` key (their differentiable sum).
 
     Volumetric tensors are channels-last (B, D, H, W, C); `tumor_volumes`
     (B, T); `tumor_diameters` (B, T, 3), read by the Ball Loss only;
     `class_weights` optional (B, C); `report_embeddings` (B, F), read by
-    ``clip_only`` only."""
+    ``clip_only`` only; `group` the data-parallel group whose global batch
+    the terms are shares of (module docstring)."""
     if model_genesis:
         restored = model_output["segmentation"]
         if isinstance(restored, (tuple, list)):
@@ -95,7 +106,12 @@ def calculate_loss(model_output: Dict[str, Any], label, unk_voxels,
                 f"the model gave {len(restored)} heads")
         return model_genesis_loss(restored, label)
     if clip_only:
-        loss = symmetric_info_nce(model_output["clip"], report_embeddings)
+        if group is not None:
+            loss = symmetric_info_nce_share(model_output["clip"],
+                                            report_embeddings, group)
+        else:
+            loss = symmetric_info_nce(model_output["clip"],
+                                      report_embeddings)
         return {"contrastive_loss": loss, "overall": loss}
     result = model_output["segmentation"]
     heads: Sequence = result if isinstance(result, (tuple, list)) else [result]
@@ -143,8 +159,8 @@ def calculate_loss(model_output: Dict[str, Any], label, unk_voxels,
         seg = masked_bce_with_logits(
             logits, label, known, class_weights=class_weights
         ) + adaptive_tversky_dice(
-            logits, label, known, sigmoid=True, class_weights=class_weights
-        )
+            logits, label, known, sigmoid=True, class_weights=class_weights,
+            group=group)
         loss_seg_total = loss_seg_total + w * cfg.seg_loss * seg
 
     losses["segmentation"] = loss_seg_total

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.morphology import dilate_cf
+from ..parallel.mesh import sum_over_ranks
 
 _SPATIAL = (1, 2, 3)
 
@@ -61,11 +62,14 @@ def masked_bce_with_logits(logits, targets, known_voxels,
 
 def adaptive_tversky_dice(preds, targets, known_voxels, *,
                           sigmoid: bool = True, class_weights=None,
-                          reduce: bool = True,
-                          smooth: float = 1e-5) -> torch.Tensor:
+                          reduce: bool = True, smooth: float = 1e-5,
+                          group=None) -> torch.Tensor:
     """Tversky Dice with alpha = FP/(FP+FN) per class over the whole batch,
     clamped to [0.2, 0.8]. preds/targets/known: (B, D, H, W, C). Returns a
-    scalar (`reduce`) or (B, C)."""
+    scalar (`reduce`) or (B, C). With a data-parallel `group`
+    (``parallel.mesh.DataParallel``) the whole batch is the global one: FP
+    and FN are summed over the ranks, the gradient through alpha included,
+    and the mean is over this rank's items."""
     p = torch.sigmoid(preds) if sigmoid else preds
     t = targets.to(p.dtype)
     k = known_voxels.to(p.dtype)
@@ -79,6 +83,8 @@ def adaptive_tversky_dice(preds, targets, known_voxels, *,
     f32 = torch.float32
     fp_c = torch.sum(fp, dim=(0,) + _SPATIAL, dtype=f32)
     fn_c = torch.sum(fn, dim=(0,) + _SPATIAL, dtype=f32)
+    if group is not None:
+        fp_c, fn_c = sum_over_ranks(torch.stack([fp_c, fn_c]), group)
     alpha = torch.clamp(fp_c / (fp_c + fn_c + smooth), 0.2, 0.8)  # (C,)
     beta = 1.0 - alpha
 

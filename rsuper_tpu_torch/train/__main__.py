@@ -22,10 +22,18 @@ in DIR; a case without one gets zeros), over batches that share one crop
 organ. A 2D configuration (``--preset slices/resunet_2d``, or
 ``--dimension 2d`` / a 2D ``training_size``) trains a 2D model on axial
 slices of the CT-Mask cases (``SliceDataset``) and validates slice by
-slice; it refuses CT-Report cases, as the JAX CLI does. The options the
-port does not have yet (``--zero_opt``, ``--zero_ema``, ``--spatial_shard``
-> 1, the ``--dist_*`` flags) raise ``NotImplementedError`` naming their
-item of ``ROADMAP.md`` §1.
+slice; it refuses CT-Report cases, as the JAX CLI does.
+
+Several GPUs train data-parallel, one process a GPU (``parallel/``): with
+``--dist_coordinator HOST:PORT --dist_num_processes N --dist_process_id R
+[--local_device_ids D]`` this process is rank R of N (its card D, NCCL; on
+``--device cpu``, gloo); without them, on a host that sees G > 1 cards, the
+CLI spawns ``gcd(batch_size, G)`` ranks itself, as the JAX loop builds its
+data axis over that many devices. Each rank loads ``batch_size / N`` items
+of every global batch; the step is the global batch's. ``--zero_opt`` and
+``--zero_ema`` split the optimizer state and the EMA copy over the ranks
+(ZeRO-1). ``--spatial_shard`` > 1 is not ported yet and raises
+``NotImplementedError`` naming its item of ``ROADMAP.md`` §1.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import dataclasses
 import glob
 import json
 import os
+import sys
 from typing import TYPE_CHECKING
 
 if TYPE_CHECKING:  # the CLI imports torch only once the flags are parsed
@@ -106,17 +115,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    """Raise for the flags that are not config fields; ``check_config``
-    raises for the fields."""
-    from .loop import unported
-
-    for flag in ("dist_coordinator", "dist_num_processes", "dist_process_id",
-                 "local_device_ids"):
-        if getattr(args, flag) is not None:
-            raise unported(f"--{flag}", "multi_gpu")
-
-
 def discover_cases(root):
     """All preprocessed cases under `root`: (case_id, path) from *.npz."""
     out = []
@@ -174,14 +172,29 @@ class _HeldOut:
                 yield load_case(c.path, num_classes=self.num_classes)
 
 
+def _config(args) -> TrainConfig:
+    """The run's config from the preset, the YAML and the flags; raises
+    for the options the port does not have."""
+    from ..config import load_config
+    from .loop import check_config
+
+    overrides = {k: v for k, v in vars(args).items()
+                 if k not in _NOT_CONFIG and v is not None}
+    for flag in ("resume", "class_weights", "clip_pretrain", "zero_opt",
+                 "zero_ema"):
+        if not getattr(args, flag):
+            overrides.pop(flag, None)
+    cfg = load_config(args.preset, args.config, overrides)
+    check_config(cfg)
+    return cfg
+
+
 def build_run(argv=None) -> Run:
     """Parse `argv` and build the run: config, cases and their split (a
     fold's with ``--k_fold``), dataset and the seeded model."""
     args = parse_args(argv)
-    _refuse_unported(args)
     import torch
 
-    from ..config import load_config
     from ..data.class_weights import class_proportions
     from ..data.clip import ClipRecordAdapter, ReportEmbeddingStore
     from ..data.dataset import (RSuperDataConfig, RSuperDataset,
@@ -193,16 +206,8 @@ def build_run(argv=None) -> Run:
     from ..models import get_model, init_params
     from ..utils.device import resolve_device
     from .crossval import fold_dir_name
-    from .loop import check_config
 
-    overrides = {k: v for k, v in vars(args).items()
-                 if k not in _NOT_CONFIG and v is not None}
-    for flag in ("resume", "class_weights", "clip_pretrain", "zero_opt",
-                 "zero_ema"):
-        if not getattr(args, flag):
-            overrides.pop(flag, None)
-    cfg = load_config(args.preset, args.config, overrides)
-    check_config(cfg)
+    cfg = _config(args)
     device = resolve_device(args.device)
 
     classes = cfg.classes or load_classes(cfg.data_root)
@@ -287,9 +292,83 @@ def build_run(argv=None) -> Run:
                base_name=base_name)
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawned_rank(rank: int, argv, world: int, port: int) -> None:
+    """One rank of the local spawner (``torch.multiprocessing.spawn``)."""
+    main(list(argv) + ["--dist_coordinator", f"127.0.0.1:{port}",
+                       "--dist_num_processes", str(world),
+                       "--dist_process_id", str(rank),
+                       "--local_device_ids", str(rank)])
+
+
+def _local_ranks(args) -> int:
+    """How many ranks to spawn on this host without ``--dist_*``: on CUDA,
+    ``gcd(batch_size, cards)`` (the JAX loop's data axis, with its line
+    when that leaves cards idle); 1 on the CPU or one card."""
+    import torch
+
+    from ..parallel.mesh import data_parallel_size
+    from ..utils.device import resolve_device
+
+    if resolve_device(args.device).type != "cuda":
+        return 1
+    n = torch.cuda.device_count()
+    if n <= 1:
+        return 1
+    cfg = _config(args)
+    k = data_parallel_size(cfg.batch_size, n)
+    if k < n:
+        print(f"[train] using a {k}x1 (data x model) mesh over {n} devices "
+              f"(batch {cfg.batch_size})", flush=True)
+    return k
+
+
 def main(argv=None):
     """Train; with ``--k_fold``, validate the fold and summarise the folds.
-    Returns the final TrainState."""
+    Returns the final TrainState (None in the process that spawned local
+    ranks)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    if args.dist_coordinator is None:
+        if any(getattr(args, f) is not None for f in (
+                "dist_num_processes", "dist_process_id", "local_device_ids")):
+            raise ValueError("--dist_num_processes, --dist_process_id and "
+                             "--local_device_ids need --dist_coordinator")
+        k = _local_ranks(args)
+        if k > 1:
+            import torch.multiprocessing as mp
+
+            mp.spawn(_spawned_rank, nprocs=k, join=True,
+                     args=(argv, k, _free_port()))
+            return None
+        return _train(argv)
+    if args.dist_num_processes is None or args.dist_process_id is None:
+        raise ValueError("--dist_coordinator needs --dist_num_processes and "
+                         "--dist_process_id")
+    import torch.distributed as dist
+
+    from ..parallel.multihost import init_distributed
+
+    rank, world, device = init_distributed(
+        args.dist_coordinator, args.dist_num_processes, args.dist_process_id,
+        args.local_device_ids, device=args.device)
+    print(f"[dist] process {rank}/{world} connected", flush=True)
+    try:
+        return _train(argv + ["--device", str(device)])
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(argv):
+    """Build the run and train it (one rank of a job, or one process)."""
+    from ..parallel.multihost import is_primary
     from .crossval import summarize_cross_validation, write_fold_results
     from .loop import train
     from .validation import run_validation, validation_model
@@ -306,6 +385,8 @@ def main(argv=None):
         results = run_validation(validation_model(state.model), state, cfg,
                                  run.held_out(), len(run.classes),
                                  device=run.device)
+        if not is_primary():
+            return state
         write_fold_results(f"{cfg.cp_path}/{cfg.unique_name}", args.fold,
                            args.k_fold, run.classes, results)
         out = summarize_cross_validation(cfg.cp_path, run.base_name,

@@ -8,8 +8,14 @@ copy's ``state_dict``s and the step (a converted reference checkpoint,
 ``save_params``, holds the parameters alone). It is written to a temporary
 file in the same directory, flushed to disk and ``os.replace``d, so a run
 cut mid-write never leaves a torn ``latest``. Saves are synchronous: when
-``_save`` returns, the checkpoint is durable, so ``wait()`` has nothing to
-wait for. Only a save creates the directory: reading never does.
+``_save`` returns, the checkpoint is durable. Only a save creates the
+directory: reading never does.
+
+In a data-parallel job every rank takes part in a save (a ZeRO-split
+optimizer state or EMA copy is gathered whole) and rank 0 alone writes, so
+a ``zero_opt``/``zero_ema`` run writes what a replicated run writes, and
+either resumes the other; ``wait()`` holds every rank until rank 0's
+writes are done.
 """
 
 from __future__ import annotations
@@ -21,7 +27,9 @@ import pickle
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.multihost import is_primary
 from .state import TrainState
 
 
@@ -57,16 +65,20 @@ class CheckpointManager:
         return os.path.join(self.directory, tag)
 
     def wait(self) -> None:
-        """Every save is durable when it returns; nothing is pending."""
+        """A save is durable when it returns; in a data-parallel job every
+        rank waits here for rank 0's."""
+        if dist.is_available() and dist.is_initialized():
+            dist.barrier()
 
     def _save(self, tag: str, state: TrainState) -> None:
         payload = {
             "params": state.model.state_dict(),
-            "opt_state": state.optimizer.opt.state_dict(),
-            "ema_params": state.ema_params,
+            "opt_state": state.optimizer.state_dict(),
+            "ema_params": state.full_ema(),
             "step": int(state.step),
         }
-        _write(self._path(tag), payload)
+        if is_primary():
+            _write(self._path(tag), payload)
 
     def save_epoch(self, state: TrainState, epoch: int,
                    metric: Optional[float] = None) -> None:
@@ -83,13 +95,11 @@ class CheckpointManager:
         payload = torch.load(self._path(tag), map_location=device,
                              weights_only=True)
         state.model.load_state_dict(payload["params"])
-        state.optimizer.opt.load_state_dict(payload["opt_state"])
+        state.optimizer.load_state_dict(payload["opt_state"])
         if state.ema_params is not None:
             if payload["ema_params"] is None:
                 raise ValueError(f"{self._path(tag)} holds no EMA copy")
-            with torch.no_grad():
-                for k, v in state.ema_params.items():
-                    v.copy_(payload["ema_params"][k])
+            state.load_ema(payload["ema_params"])
         state.step = int(payload["step"])
         return state
 

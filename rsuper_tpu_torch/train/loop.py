@@ -21,6 +21,19 @@ initialised by the caller; ``pretrained`` then loads a donor's before
 its test cases and keeps the best checkpoint by mean Dice. The options of
 the JAX loop that the port does not have yet raise ``NotImplementedError``
 naming their item of ``ROADMAP.md`` §1 before anything runs.
+
+Once ``torch.distributed`` is initialised (``parallel.multihost``, the
+training CLI's ``--dist_*`` flags or its local spawner) the loop runs one
+data-parallel rank of the global batch, as the JAX loop runs one process of
+its mesh: the samplers give rank r the items r, r + world, ... of every
+global batch (``shard=r``), the rank augments them with the global batch's
+draws at their places, the step averages the gradients over the ranks and
+reports the global batch's losses (``train/step.py``), so the NaN guard
+trips on every rank at once. ``zero_opt`` and ``zero_ema`` split the
+optimizer state and the EMA copy over the ranks (ZeRO-1,
+``train/optim.py``, ``train/state.py``); rank 0 writes the checkpoints,
+whole; every rank validates. In a single process the two options change
+nothing, as on a one-device mesh.
 """
 
 from __future__ import annotations
@@ -38,20 +51,22 @@ from ..data.pipeline import (AugmentDraws, DevicePrefetcher, PrefetchLoader,
                              device_augment, draw_augment, to_device)
 from ..data.sampler import ChunkedSampler, OrganBatchSampler
 from ..losses import LesionChannelMap
+from ..parallel.mesh import DataParallel, current, zero_partition
+from ..parallel.multihost import local_rows
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger, dump_config, setup_logger
 from ..utils.meters import AverageMeter
 from ..utils.profiling import PhaseTimer, TraceCapture
 from .checkpoint import (CheckpointManager, load_pretrained_params,
                          parse_class_list)
-from .optim import make_optimizer
+from .optim import ZeroOptimizer, make_optimizer
 from .state import TrainState, create_train_state
 from .step import build_train_step
 from .validation import run_validation, validation_model
 
 # the items of ROADMAP.md §1 that hold what the port does not have yet
 ROADMAP = {
-    "multi_gpu": "ROADMAP.md §1 item 8 (multi-GPU)",
+    "multi_gpu": "ROADMAP.md §1 item 8 (multi-GPU: spatial sharding)",
 }
 
 Draws = Callable[[int, int, int], AugmentDraws]
@@ -63,34 +78,39 @@ def unported(what: str, item: str) -> NotImplementedError:
 
 def check_config(cfg: TrainConfig) -> None:
     """Raise for each option of the JAX loop the port does not have."""
-    for name, item in (("zero_opt", "multi_gpu"), ("zero_ema", "multi_gpu")):
-        if getattr(cfg, name):
-            raise unported(name, item)
     if cfg.spatial_shard > 1:
         raise unported(f"spatial_shard={cfg.spatial_shard}", "multi_gpu")
 
 
-def _epoch_indices(cfg: TrainConfig, dataset,
-                   start_epoch: int) -> Callable[[int], np.ndarray]:
-    """`epoch → dataset indices` of the run. CLIP pretraining draws
-    organ-homogeneous batches from the dataset's ``crop_organs``
-    (``OrganBatchSampler``: a batch depends on the seed and the global step
-    alone); otherwise the ``ChunkedSampler``'s cycles, the epochs before
-    `start_epoch` replayed so a resumed run sees the same indices."""
+def _epoch_indices(cfg: TrainConfig, dataset, start_epoch: int,
+                   dp: Optional[DataParallel] = None
+                   ) -> Callable[[int], np.ndarray]:
+    """`epoch → dataset indices` of the run, this rank's in a job of
+    several ranks (shard = rank of world shards, as the JAX loop's shard =
+    process index; one process takes the config's shard). CLIP
+    pretraining draws organ-homogeneous batches from the dataset's
+    ``crop_organs`` (``OrganBatchSampler``: a batch depends on the seed and
+    the global step alone); otherwise the ``ChunkedSampler``'s cycles, the
+    epochs before `start_epoch` replayed so a resumed run sees the same
+    indices."""
+    world = 1 if dp is None else dp.world
+    shard, shards = ((cfg.shard_index, cfg.data_shards) if world == 1
+                     else (dp.rank, world))
     if cfg.clip_pretrain:
-        # a loader batch must be exactly one global organ batch: with more
-        # data shards on this one process it would span several steps' batches
-        # and mix organs (the JAX loop's condition)
-        if cfg.data_shards != 1:
+        # a loader batch must be exactly one rank's slice of one global
+        # organ batch: with more data shards than ranks it would span
+        # several steps' batches and mix organs (the JAX loop's condition)
+        if shards != world:
             raise ValueError("clip_pretrain requires data_shards == process "
-                             f"count (got {cfg.data_shards} shards over 1 "
+                             f"count (got {shards} shards over {world} "
                              "process)")
         organ = OrganBatchSampler(dataset.crop_organs(), cfg.batch_size,
-                                  seed=cfg.seed, shard=cfg.shard_index)
+                                  seed=cfg.seed, shard=shard,
+                                  num_shards=shards)
         return lambda e: organ.epoch_indices(e, cfg.iter_per_epoch)
     sampler = ChunkedSampler(
         len(dataset), cfg.iter_per_epoch * cfg.batch_size,
-        shard=cfg.shard_index, num_shards=cfg.data_shards, seed=cfg.seed,
+        shard=shard, num_shards=shards, seed=cfg.seed,
     )
     for e in range(start_epoch):
         sampler.epoch_indices(e)
@@ -133,6 +153,11 @@ def train(
     `seeded_draws`)."""
     check_config(cfg)
     device = resolve_device(device)
+    dp = current()
+    world = 1 if dp is None else dp.world
+    # this rank's places in the global batch (raises unless world divides it)
+    rows = None if world == 1 else local_rows(cfg.batch_size, dp.rank, world)
+    local_bs = cfg.batch_size // world
     if len(dataset) == 0:
         raise ValueError("no training cases: check --data_root, "
                          "--report_root and --reports")
@@ -148,7 +173,11 @@ def train(
         model.parameters(), cfg.optimizer, cfg.base_lr, cfg.warmup_epochs,
         cfg.epochs, cfg.iter_per_epoch, cfg.weight_decay, cfg.betas,
         clip_norm=cfg.clip_norm)
-    state = create_train_state(model, opt, ema=cfg.ema)
+    if cfg.zero_opt and dp is not None:
+        axes = zero_partition(dict(model.named_parameters()), world)
+        opt = ZeroOptimizer(opt, list(axes.values()), dp)
+    state = create_train_state(model, opt, ema=cfg.ema, dp=dp,
+                               zero_ema=cfg.zero_ema)
 
     ckpt = CheckpointManager(exp_dir, save_every=cfg.save_every)
     if cfg.pretrained:
@@ -166,8 +195,8 @@ def train(
     step_fn = build_train_step(lmap, cfg.loss_config(),
                                ema_alpha=cfg.ema_alpha,
                                model_genesis=cfg.model_genesis_pretrain,
-                               clip_only=cfg.clip_pretrain)
-    epoch_indices = _epoch_indices(cfg, dataset, start_epoch)
+                               clip_only=cfg.clip_pretrain, group=dp)
+    epoch_indices = _epoch_indices(cfg, dataset, start_epoch, dp)
     draws = draws or seeded_draws(cfg, device)
     # host augmentation: the loader's workers augment (reference-style), and
     # the device only casts; else the loader packs and the device augments.
@@ -183,7 +212,7 @@ def train(
             rotate=tuple(cfg.rotate), translate=tuple(cfg.translate))
 
     tracer = None
-    if profile_steps:
+    if profile_steps and (dp is None or dp.rank == 0):
         start = 10 if max_steps is None else max(0, min(
             10, max_steps - profile_steps))
         tracer = TraceCapture(f"{exp_dir}/trace", start_step=start,
@@ -207,9 +236,10 @@ def train(
             return batch
         if host_transform is not None:
             return to_step_dtype(batch, dtype)
+        d = draws(epoch, index, cfg.batch_size)
         with timer.phase("augment"):
             return device_augment(
-                batch, draws(epoch, index, cfg.batch_size),
+                batch, d if rows is None else d.take(rows),
                 crop_size=tuple(cfg.training_size), out_dtype=dtype,
                 num_classes=len(cfg.classes))
 
@@ -229,7 +259,7 @@ def train(
     try:
         for epoch in range(start_epoch, cfg.epochs):
             loader = PrefetchLoader(
-                dataset, cfg.batch_size, epoch_indices(epoch),
+                dataset, local_bs, epoch_indices(epoch),
                 num_workers=cfg.num_workers, transform=host_transform,
             )
             batches = iter(loader)
@@ -298,7 +328,7 @@ def train(
                     ckpt.wait()
                     logger.info("stopped at step %d: phases=%s", state.step,
                                 log_phases(loader))
-                    return state
+                    return state.gather_ema()
 
             source.close()
             batches.close()
@@ -322,7 +352,7 @@ def train(
             logger.info("epoch %d done: %s phases=%s", epoch, loss_meter,
                         log_phases(loader))
         ckpt.wait()
-        return state
+        return state.gather_ema()
     finally:
         if source is not None:  # stops a prefetcher's feeder first
             source.close()

@@ -13,14 +13,26 @@ of ``rsuper_tpu/train/optim.py``, which builds them from optax).
 
 The learning rate is set from the step counter before every update, so the
 optimizer holds no schedule state of its own.
+
+``ZeroOptimizer`` is ZeRO-1 over the data-parallel ranks (the JAX loop's
+``zero_opt``): each rank keeps the optimizer's state for its slice of the
+large parameters only (``parallel.mesh.zero_partition``), updates that
+slice from the averaged gradient after the global-norm clip of the whole
+gradient, and gathers the updated slices into the parameters, in buckets.
+The update is elementwise, so it gives the bits of the replicated update.
+Its ``state_dict`` is the whole state in the replicated optimizer's
+layout.
 """
 
 from __future__ import annotations
 
+import inspect
 import math
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
+
+from ..parallel.mesh import DataParallel, gather_shards, shard
 
 
 def warmup_poly_schedule(base_lr: float, warmup_epochs: int, max_epochs: int,
@@ -66,16 +78,95 @@ class Optimizer:
     def params(self):
         return [p for g in self.opt.param_groups for p in g["params"]]
 
+    def _clip(self, params) -> None:
+        if self.clip_norm is not None:
+            clip_by_global_norm([p.grad for p in params if p.grad is not None],
+                                self.clip_norm)
+
     def step(self, count: int) -> None:
         """One update from the parameters' ``.grad``; `count` is the number
         of updates made before this one."""
-        if self.clip_norm is not None:
-            clip_by_global_norm(
-                [p.grad for p in self.params if p.grad is not None],
-                self.clip_norm)
+        self._clip(self.params)
         for group in self.opt.param_groups:
             group["lr"] = self.schedule(count)
         self.opt.step()
+
+    def state_dict(self) -> dict:
+        return self.opt.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state)
+
+
+class ZeroOptimizer(Optimizer):
+    """ZeRO-1 over `dp`'s ranks: `base`'s optimizer rebuilt on this rank's
+    slices of the parameters that `axes` splits (one axis or None a
+    parameter, in `base`'s order; ``parallel.mesh.zero_partition``), the
+    whole parameter where None."""
+
+    def __init__(self, base: Optimizer, axes: List[Optional[int]],
+                 dp: DataParallel):
+        self.full = base.params
+        self.axes = list(axes)
+        self.dp = dp
+        self.slices = [
+            p if a is None else torch.nn.Parameter(
+                shard(p.detach(), a, dp).clone())
+            for p, a in zip(self.full, self.axes)]
+        cls = type(base.opt)
+        # the defaults hold keys the constructor does not take (AdamW's
+        # decoupled_weight_decay)
+        accepted = inspect.signature(cls).parameters
+        opt = cls(self.slices, **{k: v for k, v in base.opt.defaults.items()
+                                  if k in accepted})
+        super().__init__(opt, base.schedule, base.clip_norm)
+
+    def step(self, count: int) -> None:
+        """Clip the whole averaged gradient, update this rank's slices and
+        gather them into the parameters. A slice is taken from its
+        parameter before each update, so parameters loaded in place (a
+        warm start, a resume) need nothing more."""
+        self._clip(self.full)
+        with torch.no_grad():
+            for p, s, a in zip(self.full, self.slices, self.axes):
+                if a is not None:
+                    s.copy_(shard(p, a, self.dp))
+                    s.grad = shard(p.grad, a, self.dp).contiguous()
+        for group in self.opt.param_groups:
+            group["lr"] = self.schedule(count)
+        self.opt.step()
+        split = [i for i, a in enumerate(self.axes) if a is not None]
+        whole = gather_shards([self.slices[i] for i in split],
+                              [self.axes[i] for i in split], self.dp)
+        with torch.no_grad():
+            for i, w in zip(split, whole):
+                self.full[i].copy_(w)
+                self.slices[i].grad = None
+
+    def state_dict(self) -> dict:
+        """The whole state, gathered, in the layout of the replicated
+        optimizer's ``state_dict`` (every rank must call it)."""
+        sd = self.opt.state_dict()
+        state = {i: dict(st) for i, st in sd["state"].items()}
+        split = [(i, k) for i, st in state.items() if self.axes[i] is not None
+                 for k, v in st.items() if torch.is_tensor(v) and v.dim()]
+        whole = gather_shards([state[i][k] for i, k in split],
+                              [self.axes[i] for i, _ in split], self.dp)
+        for (i, k), w in zip(split, whole):
+            state[i][k] = w
+        return {**sd, "state": state}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Load a whole state (either mode's checkpoint): this rank keeps
+        its slices."""
+        sd = {"param_groups": state["param_groups"], "state": {}}
+        for i, st in state["state"].items():
+            a = self.axes[int(i)]
+            sd["state"][i] = {
+                k: shard(v, a, self.dp).clone()
+                if a is not None and torch.is_tensor(v) and v.dim() else v
+                for k, v in st.items()}
+        self.opt.load_state_dict(sd)
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], name: str = "adamw",

@@ -4,8 +4,16 @@ volumes and on the 2D pathway's slices. The model computes in its ``dtype`` (bf1
 parameters, optimizer state and loss accumulations; it casts by hand, there
 is no ``torch.autocast``. The CLIP step (``clip_only``) runs the encoder and
 its heads only. A 2D batch's outputs and masks are lifted to depth-1
-volumes, so the 3D loss stack serves both. The mesh and spatial sharding
-are not ported yet.
+volumes, so the 3D loss stack serves both.
+
+With a data-parallel `group` (``parallel.mesh.DataParallel``) a rank runs
+its items (``batch_size / world`` of the global batch): its loss terms are
+its shares of the global batch's (``losses/dispatcher.py``), its backward
+gives its share of the gradient, and the gradients are averaged over the
+ranks in buckets (``parallel.mesh.all_reduce_mean_``). Every rank then holds
+the gradient of the global batch's loss, the step the JAX package takes on
+a mesh of that many data devices, and reports the global terms, the same
+bits on every rank. Spatial sharding is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from typing import Any, Dict
 import torch
 
 from ..losses import LesionChannelMap, LossConfig, calculate_loss
+from ..parallel.mesh import all_reduce_mean_, mean_over_ranks
 from .state import TrainState
 
 
@@ -26,14 +35,15 @@ def _lift_2d(x):
 
 def loss_fn(model, batch: Dict[str, Any], lmap: LesionChannelMap,
             cfg: LossConfig, model_genesis: bool = False,
-            clip_only: bool = False):
+            clip_only: bool = False, group=None):
     """(overall loss, dict of every loss term) of one batch: ``image``
     (B, D, H, W, 1), ``label``, ``unk``, ``segment_mask`` (B, D, H, W, C),
     ``volumes`` (B, T), ``diameters`` (B, T, 3), optional ``class_weights``
     and, for ``clip_only``, ``report_embedding`` (B, F). A 2D batch has
     (B, H, W, ·) images and masks, lifted after the model with
     ``_lift_2d``. A ``clip_only`` step runs the model's encoder and heads
-    alone (the CLIP loss reads nothing of the decoder)."""
+    alone (the CLIP loss reads nothing of the decoder). With `group`, the
+    terms are this rank's shares of the global batch's."""
     if clip_only:
         out = model.branches(model.encoder(batch["image"])[4])
     else:
@@ -51,30 +61,47 @@ def loss_fn(model, batch: Dict[str, Any], lmap: LesionChannelMap,
         batch.get("volumes"), batch.get("diameters"), lmap, cfg,
         class_weights=batch.get("class_weights"),
         model_genesis=model_genesis, clip_only=clip_only,
-        report_embeddings=batch.get("report_embedding"))
+        report_embeddings=batch.get("report_embedding"), group=group)
     return losses["overall"], losses
+
+
+def gradients(model, batch: Dict[str, Any], lmap: LesionChannelMap,
+              cfg: LossConfig, model_genesis: bool = False,
+              clip_only: bool = False, group=None) -> Dict[str, Any]:
+    """Every parameter's ``.grad`` from one batch and the detached loss
+    terms. A parameter the loss does not reach (the decoder of a CLIP step,
+    a head no term reads) gets a zero gradient, as the JAX step's gradient
+    of the whole tree has: AdamW would skip it, weight decay included. With
+    `group` the gradients are averaged over the ranks and the terms are the
+    global batch's, the same on every rank."""
+    model.zero_grad(set_to_none=True)
+    overall, losses = loss_fn(model, batch, lmap, cfg, model_genesis,
+                              clip_only, group)
+    overall.backward()
+    params = list(model.parameters())
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if group is None:
+        return {k: v.detach() for k, v in losses.items()}
+    all_reduce_mean_([p.grad for p in params], group)
+    terms = mean_over_ranks(torch.stack([v.detach().float()
+                                         for v in losses.values()]), group)
+    return dict(zip(losses, terms.unbind()))
 
 
 def build_train_step(lmap: LesionChannelMap, cfg: LossConfig = LossConfig(),
                      ema_alpha: float = 0.99, model_genesis: bool = False,
-                     clip_only: bool = False):
+                     clip_only: bool = False, group=None):
     """Returns ``step(state, batch) -> (state, losses)``. The state is
-    updated in place; the losses come back detached."""
+    updated in place; the losses come back detached (with `group`, the
+    global batch's)."""
 
     def train_step(state: TrainState, batch):
-        state.model.zero_grad(set_to_none=True)
-        overall, losses = loss_fn(state.model, batch, lmap, cfg,
-                                  model_genesis, clip_only)
-        overall.backward()
-        # a parameter the loss does not reach (the decoder of a CLIP step, a
-        # head no term reads) updates with a zero gradient, as the JAX step's
-        # gradient of the whole tree does: AdamW would skip it, weight decay
-        # included
-        for p in state.model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        losses = gradients(state.model, batch, lmap, cfg, model_genesis,
+                           clip_only, group)
         state.apply_gradients(ema_alpha=ema_alpha)
-        return state, {k: v.detach() for k, v in losses.items()}
+        return state, losses
 
     return train_step
 

@@ -149,8 +149,10 @@ def run_validation(val_model: torch.nn.Module, state, cfg, cases: Sequence,
     loaded into `val_model` (``validation_model``), whose final head is
     evaluated at ``cfg.training_size`` windows: 3D ones in batches of 4,
     or, on the 2D pathway (``cfg.is_2d``), the slices' windows in batches
-    of 8 (``validate_cases_2d``)."""
-    weights = state.ema_params if cfg.ema else dict(
+    of 8 (``validate_cases_2d``). In a data-parallel job every rank
+    validates every case, as the JAX package's processes do, and gets the
+    same metric (a ZeRO-split EMA copy is gathered whole first)."""
+    weights = state.full_ema() if cfg.ema else dict(
         state.model.named_parameters())
     with torch.no_grad():
         val_model.load_state_dict(weights)

@@ -1,7 +1,9 @@
 """Logging and the metrics sink (the port's own copy of
-``rsuper_tpu/utils/logging.py``, for one process): a python logger writing
-``train.log``, the config snapshot ``config.txt``, and scalars appended to
-``metrics.jsonl`` and to a TensorBoard event file."""
+``rsuper_tpu/utils/logging.py``): a python logger writing ``train.log``, the
+config snapshot ``config.txt``, and scalars appended to ``metrics.jsonl``
+and to a TensorBoard event file. In a data-parallel job of several ranks
+each rank writes ``train.rank{i}.log`` and ``metrics.rank{i}.jsonl``, and
+rank 0 alone the TensorBoard file (every rank logs the same scalars)."""
 
 from __future__ import annotations
 
@@ -12,6 +14,15 @@ import os
 import time
 from typing import Any, Dict
 
+from ..parallel.multihost import process_info
+
+
+def _rank_suffix() -> str:
+    """'' in one process; '.rank{i}' in a job of several ranks, so that the
+    ranks' files in one experiment directory do not interleave."""
+    rank, world = process_info()
+    return f".rank{rank}" if world > 1 else ""
+
 
 def setup_logger(exp_dir: str, name: str = "rsuper") -> logging.Logger:
     """The run's logger, writing to ``<exp_dir>/train.log`` and stderr. A
@@ -19,7 +30,8 @@ def setup_logger(exp_dir: str, name: str = "rsuper") -> logging.Logger:
     os.makedirs(exp_dir, exist_ok=True)
     logger = logging.getLogger(name)
     logger.setLevel(logging.INFO)
-    path = os.path.abspath(os.path.join(exp_dir, "train.log"))
+    path = os.path.abspath(os.path.join(exp_dir,
+                                        f"train{_rank_suffix()}.log"))
     fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
     for h in list(logger.handlers):
         if isinstance(h, logging.FileHandler) and h.baseFilename != path:
@@ -50,9 +62,9 @@ class MetricsLogger:
 
     def __init__(self, exp_dir: str, tensorboard: bool = True):
         os.makedirs(exp_dir, exist_ok=True)
-        self.path = os.path.join(exp_dir, "metrics.jsonl")
+        self.path = os.path.join(exp_dir, f"metrics{_rank_suffix()}.jsonl")
         self.tb = None
-        if tensorboard:
+        if tensorboard and process_info()[0] == 0:
             from .tb_events import EventWriter
 
             self.tb = EventWriter(os.path.join(exp_dir, "tb"))

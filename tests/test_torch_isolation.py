@@ -66,7 +66,9 @@ def _sources():
                 "report_extraction/prompts.py",
                 "report_extraction/parse.py",
                 "report_extraction/metadata.py",
-                "report_extraction/client.py", "report_extraction/run.py"):
+                "report_extraction/client.py", "report_extraction/run.py",
+                "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/multihost.py"):
         assert f"rsuper_tpu_torch/{new}" in names
     return files
 
@@ -152,6 +154,7 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from rsuper_tpu_torch.inference.sliding_window2d import \
         sliding_window_inference_2d
     from rsuper_tpu_torch.organ_masks import predict_suborgans
+    from rsuper_tpu_torch.parallel import init_distributed
     from rsuper_tpu_torch.train.validation import validate_cases_2d
 
     vol = np.zeros((8, 8, 8), np.float32)
@@ -182,6 +185,11 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: predict_suborgans.main(["--pth", str(tmp_path), "--outdir",
                                         str(tmp_path / "o"),
                                         "--checkpoint", "c"]),
+        lambda: train_cli.main(["--data_root", str(tmp_path),
+                                "--dist_coordinator", "127.0.0.1:1",
+                                "--dist_num_processes", "1",
+                                "--dist_process_id", "0"]),
+        lambda: init_distributed("127.0.0.1:1", 1, 0),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
