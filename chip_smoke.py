@@ -1896,6 +1896,9 @@ def _organs(shape, rng, report: bool):
     return out
 
 
+_CASES: dict = {}  # seed → a directory holding the written cases
+
+
 def write_cli_cases(root: Path, seed: int = 0):
     """Two CT-Mask and two CT-Report cases through the port's own
     ``preprocess_case``: CT phantoms in HU of 152 × 172 × 136 voxels of
@@ -1903,7 +1906,21 @@ def write_cli_cases(root: Path, seed: int = 0):
     the 148 × 168 × 168 load size), a NIfTI a labelled organ, the sorted
     class lists, and the per-tumour report CSV (the columns of
     ``tests/test_data.py:_report_rows``): a head tumour, a body/tail one and
-    a left-kidney one."""
+    a left-kidney one. The files depend on `seed` alone: they are written
+    once a run and copied into `root` for every later phase."""
+    import atexit
+    import shutil
+
+    if seed not in _CASES:
+        _CASES[seed] = Path(tempfile.mkdtemp(prefix="cli_cases_"))
+        atexit.register(shutil.rmtree, _CASES[seed], True)
+        _write_cli_cases(_CASES[seed], seed)
+    shutil.copytree(_CASES[seed], root, dirs_exist_ok=True)
+    return root / "masks", root / "reports", root / "reports.csv"
+
+
+def _write_cli_cases(root: Path, seed: int):
+    """``write_cli_cases``' files, written into `root`."""
     import numpy as np
 
     from rsuper_tpu_torch.data.nifti import write_nifti
@@ -4127,14 +4144,13 @@ def _ddp_cli_world1(root: Path, res: dict, failures: list) -> None:
     """(a) The training CLI as a one-rank NCCL job with ZeRO-1 of the
     optimizer and the EMA copy, against three plain CLI runs of the same
     seed. The first step's losses must be equal, bit for bit (the same
-    parameters and batch); PyTorch's trilinear upsampling adds its backward
-    with atomics, so later steps differ between plain runs in the last bits
-    of the parameters, which bf16 amplifies in the losses (on an H100,
-    8.2e-4 and 2.5e-3 between two plain runs' losses in two runs of the
-    phase, the NCCL run 1.1e-3 to 4.1e-3 from either): the parameters, the
-    EMA copy and every step's losses of the NCCL run must lie within
-    DDP_NOISE_FACTOR times the largest distance between two plain runs of
-    the nearest plain run."""
+    parameters and batch). Where the three plain runs are bit-equal (the
+    resize's backward is a contraction, no atomics), the NCCL run must be
+    too; where an op still adds with atomics, later steps differ between
+    plain runs in the last bits of the parameters, which bf16 amplifies in
+    the losses, and the parameters, the EMA copy and every step's losses of
+    the NCCL run must lie within DDP_NOISE_FACTOR times the largest
+    distance between two plain runs of the nearest plain run."""
     import torch
 
     from rsuper_tpu_torch.train.__main__ import main as train_main
@@ -4182,7 +4198,9 @@ def _ddp_cli_world1(root: Path, res: dict, failures: list) -> None:
         a["opt"]["state"][i][n].shape == v.shape
         for i, st in b["opt"]["state"].items() for n, v in st.items())
     first = {k: v["losses"][0] for k, v in runs.items()}
+    plains_equal = all(v == 0 for d in pairs.values() for v in d.values())
     res["nccl_world1"] = dict(
+        plain_runs_bit_equal=plains_equal,
         flags=job, steps=DDP_STEPS, crop=list(AUG_CROP), batch=2,
         losses={k: v["losses"] for k, v in runs.items()},
         nccl_vs_plain=nccl, plain_vs_plain=pairs, nearest=nearest,
@@ -4193,7 +4211,10 @@ def _ddp_cli_world1(root: Path, res: dict, failures: list) -> None:
         files=b["files"])
     if len(set(first.values())) != 1:
         failures.append(f"ddp (a): first-step losses differ: {first}")
-    for k in spread:
+    if plains_equal and not all(v == 0 for v in nccl["plain"].values()):
+        failures.append(f"ddp (a): the plain runs are bit-equal, the "
+                        f"one-rank NCCL run lies {nccl['plain']} from them")
+    for k in () if plains_equal else spread:
         if not nearest[k] <= DDP_NOISE_FACTOR * spread[k]:
             failures.append(f"ddp (a): the one-rank NCCL run's {k} lie "
                             f"{nearest[k]} from the nearest plain run, the "
@@ -4202,6 +4223,122 @@ def _ddp_cli_world1(root: Path, res: dict, failures: list) -> None:
             and "metrics.jsonl" in b["files"]):
         failures.append(f"ddp (a): steps {b['step']}, checkpoint layout "
                         f"{moments}, files {b['files']}")
+
+
+# the decoder's resizes at the preset's 128³ × 2: UpBlockMF_0/1 and _2
+# (channels-last, half-pixel), UpBlockMF_3 (channel-first) and the aux
+# head (32³ → 128³, 16 classes): (layout, input shape, output size)
+DECODER_RESIZES = (("cl", (2, 8, 8, 8, 320), (16, 16, 16)),
+                   ("cl", (2, 16, 16, 16, 256), (32, 32, 32)),
+                   ("cl", (2, 32, 32, 32, 128), (64, 64, 64)),
+                   ("cf", (2, 64, 64, 64, 64), (128, 128, 128)),
+                   ("cl", (2, 32, 32, 32, 16), (128, 128, 128)))
+
+
+def _resize_vjp_dense(g, shape, align_corners: bool):
+    """The resize's backward as one float32 matmul an axis with the whole
+    (n_out × n_in) ``interp_matrix``: the same transpose as the port's
+    taps, for their check and their clock."""
+    import torch
+
+    from rsuper_tpu_torch.models import layers
+
+    t = g.float()
+    for axis, n_in in zip((2, 3, 4), shape):
+        m = layers.interp_matrix(t.shape[axis], n_in, align_corners,
+                                 torch.float32, g.device)
+        t = (t.movedim(axis, -1) @ m).movedim(-1, axis)
+    return t.to(g.dtype)
+
+
+def _resize_backward_twice(dev) -> dict:
+    """The port's resize backward (``layers._Resize``: taps, float32
+    accumulation) at each of the decoder's shapes, in bf16, on one seeded
+    input and cotangent: two passes bit-equal; within one bf16 rounding of
+    the dense contraction (``_resize_vjp_dense``); its ms and peak extra
+    memory beside the dense form's and ``F.interpolate``'s own backward
+    (atomics: whether it gave the same bits twice is recorded)."""
+    import torch
+    import torch.nn.functional as F
+
+    from rsuper_tpu_torch.models import layers
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = []
+
+    def clock(fn):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        return dict(ms=time_ms(fn, 5), peak_extra_mib=peak)
+
+    for layout, shape, size in DECODER_RESIZES:
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        if layout == "cf":  # (B, D, C, H, W)
+            x = x.permute(0, 1, 4, 2, 3).contiguous()
+        fn = (layers.resize_trilinear_cf if layout == "cf"
+              else layers.resize_trilinear)
+        perm = (0, 2, 1, 3, 4) if layout == "cf" else (0, 4, 1, 2, 3)
+        xa = x.clone().requires_grad_()
+        y = fn(xa, size)
+        gy = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
+        xb = x.clone().requires_grad_()
+        yb = F.interpolate(xb.permute(*perm), size=size, mode="trilinear",
+                           align_corners=False)
+        gyb = gy.permute(*perm)
+        port = lambda: torch.autograd.grad(  # noqa: E731
+            y, xa, gy, retain_graph=True)[0]
+        library = lambda: torch.autograd.grad(  # noqa: E731
+            yb, xb, gyb, retain_graph=True)[0]
+        dense = lambda: _resize_vjp_dense(  # noqa: E731
+            gyb, xb.permute(*perm).shape[2:], False)
+        p1, p2 = port(), port()
+        l1, l2 = library(), library()
+        want = dense().permute(*[perm.index(i) for i in range(5)])
+        err = (p1.float() - want.float()).abs()
+        bound = 2.0 ** -7 * want.float().abs() + 1e-5 * float(
+            want.float().abs().max())
+        out.append(dict(
+            layout=layout, shape=list(shape), size=list(size),
+            port_bit_equal=bool(torch.equal(p1, p2)),
+            interpolate_bit_equal=bool(torch.equal(l1, l2)),
+            port_vs_dense_max_abs=float(err.max()),
+            port_within_a_rounding_of_dense=bool((err <= bound).all()),
+            port=clock(port), dense=clock(dense), interpolate=clock(library)))
+        del xa, y, xb, yb, p1, p2, l1, l2, want, err, bound
+    torch.cuda.empty_cache()
+    return out
+
+
+def _step_determinism(dev) -> dict:
+    """One plain bf16 step of the preset's model (128³ × 2, ``remat``)
+    twice from the same parameters and batch: the parameters whose
+    gradients differ, in the backward's order (the first names the op
+    nearest the loss that adds in no fixed order)."""
+    import torch
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.losses import LesionChannelMap, LossConfig
+    from rsuper_tpu_torch.train import step as tstep
+
+    batch = bench_train.synthetic_batch(SPATIAL_SIZE, 2, device=dev)
+    lmap = LesionChannelMap.from_classes(bench_train.CLASSES)
+    grads = []
+    for _ in range(2):
+        st = bench_train.build_state(dev, True, MODEL_ARGS)
+        tstep.gradients(st.model, batch, lmap, LossConfig())
+        grads.append({k: p.grad.detach().clone()
+                      for k, p in st.model.named_parameters()})
+        del st
+    torch.cuda.empty_cache()
+    names = list(grads[0])[::-1]  # the decoder's end first
+    differ = [k for k in names if not torch.equal(grads[0][k], grads[1][k])]
+    return dict(parameters=len(names), differing=len(differ),
+                first_differing=differ[:8])
 
 
 def _launch_ranks(role: str, out: Path, timeout: float):
@@ -4391,6 +4528,8 @@ def _ddp_worker(argv) -> int:
     sys.path.insert(0, str(ROOT))
     if role == "nccl_probe":
         return _ddp_nccl_probe(rank, port, out)
+    if role == "spatial":
+        return _spatial_rank(rank, port, out)
     return _ddp_gloo_rank(rank, port, out)
 
 
@@ -4411,7 +4550,11 @@ def phase_ddp(dev):
     rows 1-6 a rank a step, and of row 8 on rank 0, whose item holds the
     reported tumours; rank 1's has none and skips the Ball Loss's search)
     and one CLIP step; every logged loss equal, bit for bit, on the two
-    ranks. gloo's times are not NCCL's."""
+    ranks. gloo's times are not NCCL's. Before (a): the resize's backward
+    twice at the decoder's shapes (bit-equal, within a rounding of the dense
+    contraction, timed beside it and ``F.interpolate``'s own) and one plain
+    step twice (the parameters whose
+    gradients differ)."""
     import torch
 
     from rsuper_tpu_torch import bench_train
@@ -4421,6 +4564,13 @@ def phase_ddp(dev):
 
     failures, res = [], {"card": card_line()}
     t_phase = time.time()
+    res["resize_backward_twice"] = _resize_backward_twice(dev)
+    if not all(r["port_bit_equal"] and r["port_within_a_rounding_of_dense"]
+               for r in res["resize_backward_twice"]):
+        failures.append(f"ddp: the resize's backward gave other bits on a "
+                        f"second pass or left the dense contraction: "
+                        f"{res['resize_backward_twice']}")
+    res["step_determinism"] = _step_determinism(dev)
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         _ddp_cli_world1(root / "cli", res, failures)
@@ -4514,6 +4664,272 @@ def phase_ddp(dev):
     return failures
 
 
+SPATIAL_STEPS = 3  # timed steps of the sharded MedFormer, after a warm-up
+SPATIAL_RES_STEPS = 2  # timed steps of the sharded ResUNet
+SPATIAL_SIZE = 128  # the presets' crops
+SPATIAL_TIMEOUT = 420  # seconds a launched rank may take
+RESUNET_ARGS = {"base_chan": 32, "block": "BasicBlock", "norm": "in"}
+
+
+def _resunet_state(dev):
+    """The ``abdomenatlas/resunet_3d`` preset's model (bf16, seeded) with
+    ``bench.py``'s optimizer."""
+    import torch
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.models import get_model, init_params
+    from rsuper_tpu_torch.train import create_train_state, make_optimizer
+
+    model = get_model("resunet", len(bench_train.CLASSES), RESUNET_ARGS,
+                      dtype=torch.bfloat16)
+    model = init_params(model, seed=0).to(dev).train()
+    opt = make_optimizer(model.parameters(), base_lr=6e-4, warmup_epochs=0,
+                         max_epochs=100, steps_per_epoch=1000)
+    return create_train_state(model, opt)
+
+
+def _spatial_rank(rank: int, port: str, out: Path) -> int:
+    """One of two gloo ranks on card 0, a 1 × 2 grid (one data rank, the
+    depth split over two): (a) the default MedFormer in bf16 with ``remat``
+    at the preset's 128³ crops, global batch 2 (``bench.py``'s batch),
+    SPATIAL_STEPS steps after a warm-up: ms a step, the collectives by kind,
+    peak memory, launches, the shapes at which rows 1-6 launched; (c) the
+    ResUNet preset likewise, SPATIAL_RES_STEPS steps; (b) the float32 step
+    at ``MID_DEPTH``, 96³ × 2: the global losses and reduced gradients."""
+    import torch
+    import torch.distributed as dist
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.losses import LesionChannelMap, LossConfig
+    from rsuper_tpu_torch.parallel import mesh, spatial
+    from rsuper_tpu_torch.train import step as tstep
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    dp = mesh.grid(2)
+    lmap = LesionChannelMap.from_classes(bench_train.CLASSES)
+    cfg = LossConfig()
+    rec = {"rank": rank, "place": [dp.rank, dp.world, dp.spatial.rank,
+                                   dp.spatial.size]}
+    counted = wrappers()
+    batch = bench_train.synthetic_batch(SPATIAL_SIZE, 2, device=dev)
+
+    def timed_steps(key, st, steps):
+        """`steps` timed steps after a warm-up, then one more step with
+        every collective timed between two synchronisations (its ms by
+        kind; the timed steps run without those synchronisations)."""
+        step = tstep.build_train_step(lmap, cfg, group=dp)
+        st, _ = step(st, batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in counted.values():
+            w.launches = 0
+        spatial.reset_traffic()
+        history, t0 = [], time.perf_counter()
+        for _ in range(steps):
+            st, ls = step(st, batch)
+            history.append({k: float(v) for k, v in ls.items()})
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        traffic = {k: dict(calls=v["calls"] / steps, bytes=v["bytes"] / steps)
+                   for k, v in spatial.TRAFFIC.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {k: w.launches / steps for k, w in counted.items()}
+        spatial.reset_traffic()
+        spatial.TIMED = True
+        try:
+            t1 = time.perf_counter()
+            st, _ = step(st, batch)
+            torch.cuda.synchronize()
+            clocked = 1e3 * (time.perf_counter() - t1)
+        finally:
+            spatial.TIMED = False
+        for k, v in spatial.TRAFFIC.items():
+            traffic[k]["ms_clocked_step"] = v["ms"]
+        rec[key] = dict(
+            steps=steps, ms_per_step=ms, ms_clocked_step=clocked,
+            collectives_per_step=traffic, peak_mem_gib=peak,
+            launches_per_step=launches, losses=history)
+
+    with _launch_shapes() as shapes:
+        timed_steps("medformer", bench_train.build_state(
+            dev, True, MODEL_ARGS), SPATIAL_STEPS)
+    rec["shapes"] = {k: sorted(v) for k, v in shapes.items()}
+    torch.cuda.empty_cache()
+    timed_steps("resunet", _resunet_state(dev), SPATIAL_RES_STEPS)
+    torch.cuda.empty_cache()
+
+    s32 = bench_train.build_state(dev, False, DDP_F32_ARGS,
+                                  dtype=torch.float32)
+    b32 = bench_train.synthetic_batch(DDP_SIZE, 2, device=dev)
+    b32 = {**b32, "image": b32["image"].float()}
+    losses = tstep.gradients(s32.model, b32, lmap, cfg, group=dp)
+    grads = {k: p.grad.detach() for k, p in s32.model.named_parameters()}
+    rec["float32_losses"] = {k: float(v) for k, v in losses.items()}
+    rec["float32_grad_sum"] = float(sum(g.double().sum()
+                                        for g in grads.values()))
+    if rank == 0:
+        torch.save({k: g.cpu() for k, g in grads.items()},
+                   out / "spatial_grads32.pt")
+    dist.barrier()
+    mesh.forget_grids()
+    dist.destroy_process_group()
+    (out / f"spatial{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def _one_process_step(dev, state, steps: int = 1):
+    """ms a step and peak memory of one process at the phase's batch."""
+    import torch
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.losses import LesionChannelMap, LossConfig
+    from rsuper_tpu_torch.train import step as tstep
+
+    batch = bench_train.synthetic_batch(SPATIAL_SIZE, 2, device=dev)
+    step = tstep.build_train_step(
+        LesionChannelMap.from_classes(bench_train.CLASSES), LossConfig())
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    return dict(ms_per_step=1e3 * (time.perf_counter() - t0) / steps,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def phase_spatial(dev):
+    """Spatial sharding on the one card: two gloo ranks (CUDA tensors,
+    staged through the host; NCCL refuses two ranks on one card, see the
+    ddp phase) in a 1 × 2 grid split every volume's depth
+    (``_spatial_rank``): (a) the default MedFormer, bf16, ``remat``, 128³ ×
+    2: ms a step a rank, collective ms and bytes a step by kind, peak
+    memory a rank against one process at the same batch, launches of rows
+    1-6 and 8 a rank a step (each > 0); (b) float32 at ``MID_DEPTH``, 96³
+    × 2: the global losses (1e-4 relative, the Ball Loss's terms at the
+    witness's spread where the nudged run moves them) and gradients against
+    one process by the per-parameter ρ rule; (c) the ResUNet preset at
+    128³ × 2 with the same lines (row 8 > 0); (d) rows 1-6 against their
+    plain versions at every halo-slab shape (a) launched them at. Every
+    logged loss bit-equal on the two ranks. gloo's times are not NCCL's."""
+    import torch
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.losses import LesionChannelMap, LossConfig
+    from rsuper_tpu_torch.train import step as tstep
+    from rsuper_tpu_torch.utils.device import card_line
+
+    failures, res = [], {"card": card_line()}
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        t0 = time.time()
+        codes, tails = _launch_ranks("spatial", out, SPATIAL_TIMEOUT)
+        res["ranks_s"] = time.time() - t0
+        if codes != [0, 0]:
+            failures.append(f"spatial: the gloo ranks exited {codes}: "
+                            + " | ".join(t[-1500:] for t in tails))
+            log(json.dumps({"spatial": res}))
+            return failures
+        ranks = [json.loads((out / f"spatial{r}.json").read_text())
+                 for r in range(2)]
+        g32 = {k: v.to(dev) for k, v in torch.load(
+            out / "spatial_grads32.pt", weights_only=True).items()}
+
+    # (b) the one-process float32 reference at batch 2, and one rounding
+    lmap = LesionChannelMap.from_classes(bench_train.CLASSES)
+    cfg = LossConfig()
+    full = bench_train.synthetic_batch(DDP_SIZE, 2, device=dev)
+    full = {**full, "image": full["image"].float()}
+    ref = {}
+    for key, image in (("ref", full["image"]),
+                       ("nudged", _nudge(full["image"], 3, 2.0 ** -22))):
+        s32 = bench_train.build_state(dev, False, DDP_F32_ARGS,
+                                      dtype=torch.float32)
+        losses = tstep.gradients(s32.model, {**full, "image": image}, lmap,
+                                 cfg)
+        ref[key] = ({k: float(v) for k, v in losses.items()},
+                    {k: p.grad.detach().clone()
+                     for k, p in s32.model.named_parameters()})
+        del s32
+    torch.cuda.empty_cache()
+    agree, fails = _float32_grads_vs_plain(g32, ref["ref"][1],
+                                           ref["nudged"][1],
+                                           per_parameter=True)
+    failures += [f"spatial (b) float32: {f}" for f in fails]
+    terms = {}
+    for k, r in ref["ref"][0].items():
+        tol = 1e-4 * abs(r)
+        moved = abs(ref["nudged"][0][k] - r)
+        if k.startswith("ball_loss") and moved > 0:
+            tol = max(tol, BF16_NOISE_FACTOR * moved)
+        got = ranks[0]["float32_losses"][k]
+        terms[k] = dict(two_ranks=got, one_process=r, tol=tol)
+        if not abs(got - r) <= tol:
+            failures.append(f"spatial (b) float32 loss {k}: {terms[k]}")
+    res["float32_vs_one_process"] = dict(size=DDP_SIZE, batch=2,
+                                         model_args=DDP_F32_ARGS,
+                                         losses=terms, gradients=agree)
+    del g32, ref
+
+    # one process at the same batch: ms a step and peak memory
+    res["one_process"] = {
+        "medformer": _one_process_step(dev, bench_train.build_state(
+            dev, True, MODEL_ARGS)),
+        "resunet": _one_process_step(dev, _resunet_state(dev))}
+    torch.cuda.empty_cache()
+
+    # (d) rows 1-6 at the halo-slab shapes the sharded step launched
+    shapes = {}
+    for r in ranks:
+        for name, seen in r["shapes"].items():
+            shapes.setdefault(name, set()).update(
+                (tuple(s), dt) for s, dt in seen)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = [_row_at_shape(name, shape, dt, gen, dev)
+            for name in PATH_ROWS for shape, dt in sorted(shapes.get(name,
+                                                                     ()))]
+    torch.cuda.empty_cache()
+    missing = [n for n in PATH_ROWS if not shapes.get(n)]
+    if missing:
+        failures.append(f"spatial (d): {missing} launched at no shape")
+    for row in rows:
+        if not row["ok"]:
+            failures.append(f"spatial (d): {row}")
+
+    same = (ranks[0]["float32_losses"] == ranks[1]["float32_losses"]
+            and ranks[0]["float32_grad_sum"] == ranks[1]["float32_grad_sum"]
+            and all(ranks[0][k]["losses"] == ranks[1][k]["losses"]
+                    for k in ("medformer", "resunet")))
+    if not same:
+        failures.append("spatial: the two ranks logged different losses")
+    for r in ranks:
+        for key, rows_yes in (("medformer", PATH_ROWS + (DDP_TOPN,)),
+                              ("resunet", (DDP_TOPN,))):
+            lost = [k for k in rows_yes
+                    if r[key]["launches_per_step"].get(k, 0) <= 0]
+            if lost:
+                failures.append(f"spatial ({'a' if key == 'medformer' else 'c'}"
+                                f") rank {r['rank']}: {lost} not launched")
+            if not all(math.isfinite(v) for h in r[key]["losses"]
+                       for v in h.values()):
+                failures.append(f"spatial rank {r['rank']} {key}: losses "
+                                f"{r[key]['losses']}")
+    res.update(
+        size=SPATIAL_SIZE, global_batch=2, grid="1x2",
+        losses_bit_equal_across_ranks=same,
+        ranks=[{k: v for k, v in r.items()
+                if k not in ("shapes", "float32_grad_sum")} for r in ranks],
+        halo_slab_rows=rows, seconds=time.time() - t_phase)
+    log(json.dumps({"spatial": res}))
+    return failures
+
 
 def main() -> int:
     import torch
@@ -4569,6 +4985,8 @@ def main() -> int:
     failures += phase_host_pipelines()
     torch.cuda.empty_cache()
     failures += phase_ddp(dev)
+    torch.cuda.empty_cache()
+    failures += phase_spatial(dev)
     # each kernel's count comes from the path it was written for: the
     # forward kernels from the predict phase, the backward ones from the
     # training steps (which launch the forward kernels too)

@@ -41,8 +41,11 @@ class TrainConfig:
     clip_norm: float = 1.0
     ema: bool = True
     ema_alpha: float = 0.99
-    # multi-device and host-augmentation options of the JAX package; the
-    # port's loop raises NotImplementedError when one is set (ROADMAP.md §1)
+    # multi-device and host-augmentation options of the JAX package:
+    # ZeRO-1 over the data ranks, the depth split over spatial_shard ranks
+    # (the MedFormer and UNet archs; the others raise NotImplementedError
+    # naming ROADMAP.md §1 item 10), augmentation in the loader's workers
+    # and the device prefetcher
     zero_opt: bool = False
     zero_ema: bool = False
     spatial_shard: int = 1

@@ -58,7 +58,7 @@ def _gather_local_grad(x: torch.Tensor, group: DataParallel) -> torch.Tensor:
     """Every rank's rows in rank order; the gradient reaches this rank's
     own rows only (the reference's gather)."""
     parts = [torch.empty_like(x) for _ in range(group.world)]
-    dist.all_gather(parts, x.detach().contiguous())
+    dist.all_gather(parts, x.detach().contiguous(), group=group.group)
     parts[group.rank] = x
     return torch.cat(parts)
 

@@ -16,12 +16,26 @@ match the flax tree so ``models/params.py`` can carry a JAX checkpoint over:
   (``ConvTranspose``).
 
 Instance norm (eps 1e-4) and flax's activations in the conv blocks;
-trilinear resizing with half-pixel centres, or with ``align_corners`` for
-MedFormer's ``torch_port`` numerics; LayerNorm eps as the caller gives it.
+trilinear resizing (half-pixel centres, or ``align_corners`` for
+MedFormer's ``torch_port`` numerics) whose backward is the transpose of
+each axis's interpolation, a fixed sum of taps (no atomics: the same bits
+every run);
+LayerNorm eps as the caller gives it.
+
+Spatial sharding (``parallel/spatial.py``): the conv blocks, the instance
+norms and the resizes take an optional ``spatial`` (a ``Spatial``, this
+rank's place in its model group) and then compute on the rank's run of
+depth planes (axis 1 in both layouts). A conv exchanges halo planes with
+its neighbours (``same_pads``' depth pads; the 3³ kernels take one plane
+each side and their own SAME padding at the volume's faces), a norm sums
+its statistics over the group, a half-pixel resize takes one halo plane
+each side (the face clamps as ``F.interpolate`` clamps), an align-corners
+one resizes the gathered volume.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -30,6 +44,8 @@ from torch import nn
 
 from ..ops.conv_cf import conv3x3x3_cf, in_relu_conv3x3x3_cf
 from ..ops.dwconv import depthwise_conv3x3x3
+from ..parallel.spatial import (gather_depth, halo_exchange, reduce_sum,
+                                shard_depth)
 
 
 # ----------------------------------------------------------- normalisation
@@ -38,46 +54,64 @@ class _InstanceNorm(torch.autograd.Function):
     (``rsuper_tpu/models/layers.py`` ``_instance_norm_fwd/_bwd``): the
     backward is dx = inv·(dy − E[dy] − y·E[dy·y]) from the saved output y
     and 1/σ, float32 means; autograd of the one-pass forward would
-    differentiate E[x²] − E[x]², which cancels badly where σ ≪ |μ|."""
+    differentiate E[x²] − E[x]², which cancels badly where σ ≪ |μ|. With
+    `sp` the depth (axis 1, one of `axes`) is sharded: the sums, the count
+    and the backward's means span the model group."""
 
     @staticmethod
-    def forward(ctx, x, axes, eps):
+    def forward(ctx, x, axes, eps, sp):
         n = math.prod(x.shape[a] for a in axes)
         x32 = x.float()
         s1 = x32.sum(dim=axes, keepdim=True)
         s2 = (x32 * x32).sum(dim=axes, keepdim=True)
+        if sp is not None:
+            s1, s2 = reduce_sum(torch.stack([s1, s2]), sp).unbind()
+            n *= sp.size
         mean = s1 / n
         var = torch.clamp(s2 / n - mean * mean, min=0.0)
         inv = torch.rsqrt(var + eps)
         y = ((x32 - mean) * inv).to(x.dtype)
         ctx.save_for_backward(y, inv)
-        ctx.axes = axes
+        ctx.axes, ctx.sp, ctx.n = axes, sp, n
         return y
 
     @staticmethod
     def backward(ctx, dy):
         y, inv = ctx.saved_tensors
-        m1 = dy.float().mean(dim=ctx.axes, keepdim=True)
-        m2 = (dy * y).float().mean(dim=ctx.axes, keepdim=True)
+        if ctx.sp is None:
+            m1 = dy.float().mean(dim=ctx.axes, keepdim=True)
+            m2 = (dy * y).float().mean(dim=ctx.axes, keepdim=True)
+        else:
+            sums = reduce_sum(torch.stack([
+                dy.float().sum(dim=ctx.axes, keepdim=True),
+                (dy * y).float().sum(dim=ctx.axes, keepdim=True)]), ctx.sp)
+            m1, m2 = (sums / ctx.n).unbind()
         dx = inv * (dy.float() - m1 - y.float() * m2)
-        return dx.to(dy.dtype), None, None
+        return dx.to(dy.dtype), None, None, None
 
 
-def instance_norm_axes(x: torch.Tensor, spatial_axes, eps: float = 1e-4):
+def instance_norm_axes(x: torch.Tensor, spatial_axes, eps: float = 1e-4,
+                       spatial=None):
     """Per-sample normalisation over `spatial_axes` (no affine): float32
     one-pass stats, var = max(E[x²] − E[x]², 0), output in x's type; the
-    closed-form backward of ``_InstanceNorm``."""
-    return _InstanceNorm.apply(x, tuple(spatial_axes), eps)
+    closed-form backward of ``_InstanceNorm``. With `spatial` the depth
+    (axis 1, among `spatial_axes`) is sharded over the model group."""
+    axes = tuple(spatial_axes)
+    if spatial is not None and 1 not in axes:
+        raise ValueError(f"a sharded instance norm reduces over the depth "
+                         f"axis 1, got axes {axes}")
+    return _InstanceNorm.apply(x, axes, eps, spatial)
 
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-4):
+def instance_norm(x: torch.Tensor, eps: float = 1e-4, spatial=None):
     """Channels-last (B, *spatial, C) instance norm."""
-    return instance_norm_axes(x, range(1, x.dim() - 1), eps)
+    return instance_norm_axes(x, range(1, x.dim() - 1), eps, spatial)
 
 
-def instance_norm_cf(x: torch.Tensor, eps: float = 1e-4):
+def instance_norm_cf(x: torch.Tensor, eps: float = 1e-4, spatial=None):
     """Depth-major channel-first (B, D, C, H, W) instance norm."""
-    return instance_norm_axes(x, (1,) + tuple(range(3, x.dim())), eps)
+    return instance_norm_axes(x, (1,) + tuple(range(3, x.dim())), eps,
+                              spatial)
 
 
 # -------------------------------------------------------------- primitives
@@ -94,7 +128,8 @@ class Conv1(nn.Module):
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self.dtype, self.nd = dtype, nd
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
+        # pointwise: a sharded input needs no halo
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
@@ -118,8 +153,14 @@ class DepthwiseConv3(nn.Module):
         self.bias = nn.Parameter(torch.empty(c)) if use_bias else None
         self.dtype = dtype
 
-    def forward(self, x):
-        y = depthwise_conv3x3x3(x.to(self.dtype), self.kernel)
+    def forward(self, x, spatial=None):
+        x = x.to(self.dtype)
+        if spatial is None:
+            y = depthwise_conv3x3x3(x, self.kernel)
+        else:  # a one-plane halo; the kernel's padding serves the faces
+            y = depthwise_conv3x3x3(halo_exchange(x, 1, 1, spatial, "drop"),
+                                    self.kernel)
+            y = y.narrow(1, spatial.halo(1, 1)[0], x.shape[1])
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
@@ -153,7 +194,10 @@ class Conv(nn.Module):
     ``weight`` in torch layout (C_out, C_in / groups, *kernel), optional
     ``bias``. `nd` spatial axes: 3 (``F.conv3d``) or 2 (``F.conv2d``, the
     2D models). The channels-last tensor is handed to cuDNN as a
-    channels-last view, so no layout copy is made."""
+    channels-last view, so no layout copy is made. With `spatial` the
+    depth is sharded: the halo of the depth's SAME pads comes from the
+    neighbours (zeros beyond the faces), and the local depth must divide
+    by the stride so that the shards' outputs are the volume's."""
 
     def __init__(self, c_in: int, features: int, kernel_size=3, strides=1,
                  use_bias: bool = True, dtype=torch.float32, groups: int = 1,
@@ -167,10 +211,20 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self.dtype = dtype
 
-    def forward(self, x):
-        x = x.to(self.dtype).movedim(-1, 1)
+    def forward(self, x, spatial=None):
+        x = x.to(self.dtype)
+        if spatial is not None:
+            d, k, s = x.shape[1], self.kernel[0], self.strides[0]
+            if d % s:
+                raise ValueError(f"a sharded conv of depth stride {s} needs "
+                                 f"a local depth it divides, got {d}")
+            x = halo_exchange(x, *same_pads(d * spatial.size, k, s),
+                              spatial)
+        x = x.movedim(-1, 1)
         pads = [same_pads(n, k, s) for n, k, s in
                 zip(x.shape[2:], self.kernel, self.strides)]
+        if spatial is not None:  # the depth's pads are the halo
+            pads[0] = (0, 0)
         if all(lo == hi for lo, hi in pads):
             padding = tuple(lo for lo, _ in pads)
         else:  # F.pad's order: last axis first
@@ -221,11 +275,12 @@ class ConvTranspose(nn.Module):
 
 
 def make_norm(norm: str):
-    """'in' → instance norm (eps 1e-4), 'none' → identity."""
+    """'in' → instance norm (eps 1e-4), 'none' → identity; each takes
+    ``(x, spatial=None)``."""
     if norm == "in":
-        return instance_norm
+        return lambda x, spatial=None: instance_norm(x, spatial=spatial)
     if norm == "none":
-        return lambda x: x
+        return lambda x, spatial=None: x
     raise ValueError(f"unsupported norm {norm!r} (use 'in' or 'none')")
 
 
@@ -268,11 +323,11 @@ class ConvNormAct(nn.Module):
         self.norm, self.act = make_norm(norm), make_act(act)
         self.preact = preact
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         conv = getattr(self, self._conv)
         if self.preact:
-            return conv(self.act(self.norm(x)))
-        return self.act(self.norm(conv(x)))
+            return conv(self.act(self.norm(x, spatial)), spatial)
+        return self.act(self.norm(conv(x, spatial), spatial))
 
 
 class BasicBlock(nn.Module):
@@ -293,9 +348,9 @@ class BasicBlock(nn.Module):
             self.ConvNormAct_2 = ConvNormAct(c_in, features, kernel_size,
                                              strides, **kw)
 
-    def forward(self, x):
-        out = self.ConvNormAct_1(self.ConvNormAct_0(x))
-        return out + (self.ConvNormAct_2(x) if self.shortcut else x)
+    def forward(self, x, spatial=None):
+        out = self.ConvNormAct_1(self.ConvNormAct_0(x, spatial), spatial)
+        return out + (self.ConvNormAct_2(x, spatial) if self.shortcut else x)
 
 
 class Bottleneck(nn.Module):
@@ -315,9 +370,11 @@ class Bottleneck(nn.Module):
             self.ConvNormAct_3 = ConvNormAct(c_in, features, kernel_size,
                                              strides, **kw)
 
-    def forward(self, x):
-        out = self.ConvNormAct_2(self.ConvNormAct_1(self.ConvNormAct_0(x)))
-        return out + (self.ConvNormAct_3(x) if self.shortcut else x)
+    def forward(self, x, spatial=None):
+        out = x
+        for i in range(3):
+            out = getattr(self, f"ConvNormAct_{i}")(out, spatial)
+        return out + (self.ConvNormAct_3(x, spatial) if self.shortcut else x)
 
 
 class DepthwiseSeparableConv(nn.Module):
@@ -339,9 +396,9 @@ class DepthwiseSeparableConv(nn.Module):
             self.Conv_1 = Conv1(c_in, features, use_bias, dtype)
             self._convs = ("Conv_0", "Conv_1")
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         depthwise, pointwise = (getattr(self, n) for n in self._convs)
-        return pointwise(depthwise(x))
+        return pointwise(depthwise(x, spatial))
 
 
 class SEBlock(nn.Module):
@@ -382,7 +439,9 @@ class _InvertedResidual(nn.Module):
         for i, conv in enumerate(convs):
             self.add_module(f"ConvNormAct_{i}", conv)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
+        if spatial is not None:  # the models' check_spatial refuses these
+            raise NotImplementedError("a sharded squeeze-and-excitation block")
         out = x
         for i in range(self.n_main - 1):
             out = getattr(self, f"ConvNormAct_{i}")(out)
@@ -525,10 +584,11 @@ class CFConv3(nn.Module):
         self.kernel = nn.Parameter(torch.empty(3, 3, 3, c_in, features))
         self.fuse_in_relu, self.dtype = fuse_in_relu, dtype
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         if self.fuse_in_relu:
-            return in_relu_conv3x3x3_cf(x.to(self.dtype), self.kernel)
-        return conv3x3x3_cf(x.to(self.dtype), self.kernel)
+            return in_relu_conv3x3x3_cf(x.to(self.dtype), self.kernel,
+                                        spatial=spatial)
+        return conv3x3x3_cf(x.to(self.dtype), self.kernel, spatial=spatial)
 
 
 class CFConv1(Conv1):
@@ -550,8 +610,8 @@ class ConvNormActCF(nn.Module):
         super().__init__()
         self.Conv_0 = CFConv3(c_in, features, fuse_in_relu=True, dtype=dtype)
 
-    def forward(self, x):
-        return self.Conv_0(x)
+    def forward(self, x, spatial=None):
+        return self.Conv_0(x, spatial)
 
 
 class BasicBlockCF(nn.Module):
@@ -570,34 +630,119 @@ class BasicBlockCF(nn.Module):
         if self.pair:
             self.ConvNormAct_2 = ConvNormActCF(c_in, features, dtype)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         if self.pair:
             k0 = self.ConvNormAct_0.Conv_0.kernel
             k2 = self.ConvNormAct_2.Conv_0.kernel
             both = in_relu_conv3x3x3_cf(x.to(self.ConvNormAct_0.Conv_0.dtype),
-                                        torch.cat([k0, k2], dim=-1))
+                                        torch.cat([k0, k2], dim=-1),
+                                        spatial=spatial)
             out, x = both[:, :, :self.features], both[:, :, self.features:]
         else:
-            out = self.ConvNormAct_0(x)
-        return self.ConvNormAct_1(out) + x
+            out = self.ConvNormAct_0(x, spatial)
+        return self.ConvNormAct_1(out, spatial) + x
 
 
 # ---------------------------------------------------------------- resizing
-def resize_trilinear(x: torch.Tensor, size,
-                     align_corners: bool = False) -> torch.Tensor:
+def interp_matrix(n_out: int, n_in: int, align_corners: bool,
+                  dtype=torch.float32, device=None) -> torch.Tensor:
+    """(n_out, n_in): row j holds the weights with which ``F.interpolate``'s
+    linear mode makes output j of an axis (two taps a row, the identity
+    where the sizes agree): the linear mode applied to the identity."""
+    eye = torch.eye(n_in, dtype=dtype, device=device)[None]
+    return F.interpolate(eye, size=n_out, mode="linear",
+                         align_corners=align_corners)[0].T
+
+
+@functools.lru_cache(maxsize=64)
+def interp_taps(n_out: int, n_in: int, align_corners: bool,
+                dtype=torch.float32, device=None):
+    """The columns of ``interp_matrix`` as K taps each: (K, n_in) rows
+    ``j`` (ascending) and weights ``w`` with ``m[:, i] = Σ_k w[k, i]
+    e_{j[k, i]}``, K the most outputs an input feeds (a column with fewer
+    is padded with weight 0). Kept per shape: built on `device` once."""
+    m = interp_matrix(n_out, n_in, align_corners, dtype, device)
+    nz = (m != 0).to(torch.int8)
+    k = max(int(nz.sum(0).max()), 1)
+    rows = torch.sort(nz, dim=0, descending=True, stable=True).indices[:k]
+    return rows, m.gather(0, rows)
+
+
+class _Resize(torch.autograd.Function):
+    """``F.interpolate(trilinear)`` of (B, C, D, H, W) with the transpose
+    ``jax.image.resize`` has for its backward: an axis at a time, each
+    input plane the sum of the outputs it feeds times their weights
+    (``interp_taps``; a gather and a multiply-add a tap, in a fixed order),
+    accumulated in float32 (float64 for float64). The gradient is the same
+    bits every run: ``F.interpolate``'s own backward adds with atomics on
+    CUDA."""
+
+    @staticmethod
+    def forward(ctx, x, size, align_corners):
+        ctx.shape, ctx.align_corners = x.shape[2:], align_corners
+        return F.interpolate(x, size=tuple(size), mode="trilinear",
+                             align_corners=align_corners)
+
+    @staticmethod
+    def backward(ctx, g):
+        acc = torch.float64 if g.dtype == torch.float64 else torch.float32
+        t = g
+        for axis, n_in in zip((2, 3, 4), ctx.shape):
+            rows, w = interp_taps(t.shape[axis], n_in, ctx.align_corners,
+                                  acc, g.device)
+            view = [1] * t.dim()
+            view[axis] = n_in
+            out = t.index_select(axis, rows[0]) * w[0].view(view)
+            for j, wk in zip(rows[1:], w[1:]):
+                out.addcmul_(t.index_select(axis, j), wk.view(view))
+            t = out
+        return t.to(g.dtype), None, None
+
+
+def _resize_sharded(x: torch.Tensor, size, align_corners: bool, sp,
+                    to_first, from_first) -> torch.Tensor:
+    """The resize of a depth-sharded (B, D, ·, ·, ·) tensor to the local
+    `size`: half-pixel centres read one plane beyond the rank's run at an
+    integer depth ratio r (a one-plane halo, dropped at the faces, where
+    the resize clamps; then r planes a side cropped); align-corners ones
+    the gathered volume."""
+    whole = (size[0] * sp.size, *size[1:])
+    if align_corners:
+        y = from_first(_Resize.apply(to_first(gather_depth(x, sp)), whole,
+                                     True))
+        return shard_depth(y, sp)
+    r, rem = divmod(size[0], x.shape[1])
+    if rem or r < 1:
+        raise ValueError(f"a sharded resize needs an integer depth ratio, "
+                         f"got {x.shape[1]} → {size[0]} planes")
+    halo = 1 if r > 1 else 0
+    slab = halo_exchange(x, halo, halo, sp, "drop")
+    y = from_first(_Resize.apply(to_first(slab),
+                                 (r * slab.shape[1], *size[1:]), False))
+    return y.narrow(1, r * sp.halo(halo, halo)[0], size[0])
+
+
+def resize_trilinear(x: torch.Tensor, size, align_corners: bool = False,
+                     spatial=None) -> torch.Tensor:
     """Trilinear resize of (B, D, H, W, C) to spatial `size`: half-pixel
     centres (``jax.image.resize(method="linear")``; equal for upsampling),
     or with `align_corners` output i reads input i·(n_in−1)/(n_out−1), as
-    the reference's torch model upsamples (JAX ``_resize_axes_ac``)."""
-    y = F.interpolate(x.permute(0, 4, 1, 2, 3), size=tuple(size),
-                      mode="trilinear", align_corners=align_corners)
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    the reference's torch model upsamples (JAX ``_resize_axes_ac``). With
+    `spatial` the depth of `x` and of `size` is the rank's run."""
+    to_first = lambda t: t.permute(0, 4, 1, 2, 3)  # noqa: E731
+    from_first = lambda t: t.permute(0, 2, 3, 4, 1).contiguous()  # noqa
+    if spatial is not None:
+        return _resize_sharded(x, size, align_corners, spatial, to_first,
+                               from_first)
+    return from_first(_Resize.apply(to_first(x), size, align_corners))
 
 
-def resize_trilinear_cf(x: torch.Tensor, size,
-                        align_corners: bool = False) -> torch.Tensor:
+def resize_trilinear_cf(x: torch.Tensor, size, align_corners: bool = False,
+                        spatial=None) -> torch.Tensor:
     """`resize_trilinear` for (B, D, C, H, W) tensors: D, H and W are
     resampled, C is not."""
-    y = F.interpolate(x.permute(0, 2, 1, 3, 4), size=tuple(size),
-                      mode="trilinear", align_corners=align_corners)
-    return y.permute(0, 2, 1, 3, 4).contiguous()
+    swap = lambda t: t.permute(0, 2, 1, 3, 4)  # noqa: E731
+    back = lambda t: t.permute(0, 2, 1, 3, 4).contiguous()  # noqa: E731
+    if spatial is not None:
+        return _resize_sharded(x, size, align_corners, spatial, swap, back)
+    return back(_Resize.apply(swap(x), size, align_corners))

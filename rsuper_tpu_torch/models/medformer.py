@@ -30,6 +30,18 @@ eps 1e-5 in the norms the reference does not build through ``ConvNormAct``
 model's ``torch_port`` option. The instance norms of the conv blocks keep
 1e-4 either way.
 
+With a ``spatial`` argument (``parallel/spatial.py``) the model computes
+on the rank's run of depth planes, as the JAX model does under
+``spatial_constraint``: the stem, ``DownBlockMF_0``, ``UpBlockMF_2``,
+``UpBlockMF_3`` and ``outc`` run depth-sharded (halo exchanges around the
+conv kernels, cross-shard sums in the norms); ``x1`` is gathered to whole
+volumes before ``DownBlockMF_1``, so the attention stages, the semantic
+maps, the heads and ``UpBlockMF_0``/``_1`` run replicated on every rank of
+the model group; ``UpBlockMF_2`` takes its rank's planes of the upsampled
+replicated input. The logits come back sharded, the aux head whole.
+``check_spatial`` refuses the configurations whose sharded stages hold
+attention or channels-last conv blocks.
+
 The JAX model's ``cf_fullres`` and ``cf_halfres`` choose the TPU's layout
 and leave its function and parameter tree unchanged (which
 ``tests/test_models.py`` asserts); the port accepts them and routes as
@@ -66,6 +78,7 @@ from .layers import (
     resize_trilinear,
     resize_trilinear_cf,
 )
+from ..parallel.spatial import UNPORTED_SPATIAL, gather_depth, shard_depth
 
 
 class SemanticMapGeneration(nn.Module):
@@ -261,20 +274,23 @@ class PatchMerging(nn.Module):
         self.down_scale, self.norm_eps = tuple(down_scale), norm_eps
         self.cf_input = cf_input
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         sd, sh, sw = self.down_scale
+        if spatial is not None and x.shape[1] % sd:
+            raise ValueError(f"a sharded patch merge by {sd} in depth needs "
+                             f"a local depth it divides, got {x.shape[1]}")
         if self.cf_input:
             b, d, c, h, w = x.shape
             x = x.reshape(b, d // sd, sd, c, h // sh, sh, w // sw, sw)
-            x = instance_norm_axes(x, (1, 4, 6), self.norm_eps)
+            x = instance_norm_axes(x, (1, 4, 6), self.norm_eps, spatial)
             x = x.permute(0, 1, 4, 6, 2, 5, 7, 3)
         else:
             b, d, h, w, c = x.shape
             x = x.reshape(b, d // sd, sd, h // sh, sh, w // sw, sw, c)
-            x = instance_norm_axes(x, (1, 3, 5), self.norm_eps)
+            x = instance_norm_axes(x, (1, 3, 5), self.norm_eps, spatial)
             x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)
         x = x.reshape(b, d // sd, h // sh, w // sw, sd * sh * sw * c)
-        return getattr(self, self.proj)(x)
+        return getattr(self, self.proj)(x, spatial)
 
 
 def _conv_blocks(module: nn.Module, n: int, c_in: int, out_dim: int,
@@ -330,12 +346,14 @@ class DownBlockMF(nn.Module):
                 act=act)
         self.trans_num, self.map_generate = trans_num, map_generate
 
-    def forward(self, x):
-        x = self.PatchMerging_0(x)
+    def forward(self, x, spatial=None):
+        """With `spatial` (a stage of conv blocks alone, ``cf_output``) x
+        and the output are the rank's depth planes."""
+        x = self.PatchMerging_0(x, spatial)
         if self.cf_convs:
             x = to_cf(x, False)
         for name in self.blocks:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, spatial)
         if self.cf_output:
             return x, None
         x = to_cl(x, self.cf_convs)
@@ -381,13 +399,24 @@ class UpBlockMF(nn.Module):
         self.trans_num = trans_num
         self.map_shortcut, self.align_corners = map_shortcut, torch_port
 
-    def forward(self, x_low, x_skip, map_low, map_skip=None):
+    def forward(self, x_low, x_skip, map_low, map_skip=None, spatial=None,
+                low_whole=False):
+        """With `spatial` (a channel-first stage, ``cf``) the skip and the
+        output are the rank's depth planes, and so is the low input unless
+        `low_whole`: then every rank holds it whole, and the rank takes its
+        planes of the upsampled volume."""
         if self.cf:  # the resize reads the low input through a view
             low = x_low if self.low_cf else x_low.permute(0, 1, 4, 2, 3)
             skip = to_cf(x_skip, self.skip_cf)
             sk = skip.shape
-            x = resize_trilinear_cf(low, (sk[1], sk[3], sk[4]),
-                                    self.align_corners).to(low.dtype)
+            if spatial is not None and low_whole:
+                x = shard_depth(resize_trilinear_cf(
+                    low, (sk[1] * spatial.size, sk[3], sk[4]),
+                    self.align_corners), spatial)
+            else:
+                x = resize_trilinear_cf(low, (sk[1], sk[3], sk[4]),
+                                        self.align_corners, spatial)
+            x = x.to(low.dtype)
             feat = torch.cat([x, skip.to(x.dtype)], dim=2)
         else:
             low, skip = to_cl(x_low, self.low_cf), to_cl(x_skip, self.skip_cf)
@@ -401,7 +430,7 @@ class UpBlockMF(nn.Module):
         if self.trans_num:
             feat, sem = self.BasicLayer_0(feat, sem)
         for name in self.blocks:
-            feat = getattr(self, name)(feat)
+            feat = getattr(self, name)(feat, spatial)
         return feat, sem
 
 
@@ -588,15 +617,29 @@ class MedFormer(nn.Module):
             return checkpoint(block, *args, use_reentrant=False)
         return block(*args)
 
-    def encoder(self, x):
+    def check_spatial(self) -> None:
+        """Raise ``NotImplementedError`` unless the stages that spatial
+        sharding splits (the stem, ``DownBlockMF_0``, ``UpBlockMF_2`` and
+        ``UpBlockMF_3``) all run channel-first conv blocks without
+        attention, as the default configuration does."""
+        if not (self.stem_cf and self.DownBlockMF_0.cf_output
+                and self.UpBlockMF_2.cf and self.UpBlockMF_3.cf):
+            raise NotImplementedError(
+                "spatial sharding of a MedFormer whose full- and "
+                "half-resolution stages hold attention or channels-last "
+                f"conv blocks is not ported yet: {UNPORTED_SPATIAL}")
+
+    def encoder(self, x, spatial=None):
         """The encoder: the skips ``x0`` … ``x3``, the deepest features
         ``x4`` and the three semantic maps, as a tuple in that order; a skip
-        is channel-first where ``skip_cf`` says so."""
+        is channel-first where ``skip_cf`` says so. With `spatial`, `x` and
+        ``x0``, ``x1`` are the rank's depth planes, the rest whole."""
         x = x.to(self.dtype)
-        x0 = self.Conv_0(to_cf(x, False) if self.stem_cf else x)
-        x0 = getattr(self, self.stem)(x0)
-        x1, _ = self._block("DownBlockMF_0", x0)
-        x2, map2 = self._block("DownBlockMF_1", x1)
+        x0 = self.Conv_0(to_cf(x, False) if self.stem_cf else x, spatial)
+        x0 = getattr(self, self.stem)(x0, spatial)
+        x1, _ = self._block("DownBlockMF_0", x0, spatial)
+        x2, map2 = self._block("DownBlockMF_1", x1 if spatial is None
+                               else gather_depth(x1, spatial))
         x3, map3 = self._block("DownBlockMF_2", x2)
         x4, map4 = self._block("DownBlockMF_3", x3)
         return x0, x1, x2, x3, x4, (map2, map3, map4)
@@ -612,8 +655,10 @@ class MedFormer(nn.Module):
             out[key] = getattr(self, f"{name}_branch")(feats)
         return out
 
-    def forward(self, x):
-        x0, x1, x2, x3, x4, maps = self.encoder(x)
+    def forward(self, x, spatial=None):
+        """With `spatial`, `x` and the logits are the rank's depth planes;
+        the aux head and the encoder heads are whole on every rank."""
+        x0, x1, x2, x3, x4, maps = self.encoder(x, spatial)
         heads = self.branches(x4)
         map2, map3, map4 = self.SemanticMapFusion_0(list(maps))
 
@@ -622,10 +667,18 @@ class MedFormer(nn.Module):
         aux = None
         if self.aux_loss:
             a = self.aux_out(out)
+            size = (x.shape[1] * (1 if spatial is None else spatial.size),
+                    *x.shape[2:4])
             aux = resize_trilinear(a.permute(0, 1, 3, 4, 2) if self.aux_cf
-                                   else a, x.shape[1:4], self.torch_port)
-        out, sem = self._block("UpBlockMF_2", out, x1, sem)
-        out, sem = self._block("UpBlockMF_3", out, x0, sem)
+                                   else a, size, self.torch_port)
+        if spatial is None:
+            out, sem = self._block("UpBlockMF_2", out, x1, sem)
+            out, sem = self._block("UpBlockMF_3", out, x0, sem)
+        else:
+            out, sem = self._block("UpBlockMF_2", out, x1, sem, None,
+                                   spatial, True)
+            out, sem = self._block("UpBlockMF_3", out, x0, sem, None,
+                                   spatial)
         logits = self.outc(out)
         if self.out_cf:
             logits = logits.permute(0, 1, 3, 4, 2)

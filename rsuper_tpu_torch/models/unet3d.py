@@ -11,6 +11,13 @@ concatenates the skip, and a 1×1×1 class head ``outc``. ``block=
 strided first block (flax SAME padding, ``layers.same_pads``) or, with
 ``pool``, a VALID max pool. ``aux_head`` adds the 1×1×1 ``aux_out`` head on
 the second decoder stage, resized to the input.
+
+With a ``spatial`` argument (``parallel/spatial.py``) every stage runs
+depth-sharded down to the deepest, as the JAX model does under
+``spatial_constraint``: the convs exchange halo planes, the norms sum
+over the model group, the strided convs and the pools need a local depth
+their stride divides, and the outputs come back sharded.
+``check_spatial`` refuses the blocks with squeeze-and-excitation.
 """
 
 from __future__ import annotations
@@ -21,7 +28,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.spatial import UNPORTED_SPATIAL
 from .layers import BLOCKS, Conv, Conv1, resize_trilinear
+
+# the blocks whose convs and norms take ``spatial``
+SPATIAL_BLOCKS = ("ConvNormAct", "BasicBlock", "Bottleneck")
 
 
 def _scale3(s):
@@ -59,11 +70,15 @@ class DownBlock(nn.Module):
                 kernel_size=kernel_size, strides=strides, norm=norm,
                 dtype=dtype))
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         if self.pool is not None:
+            if spatial is not None and x.shape[1] % self.pool[0]:
+                raise ValueError(f"a sharded pool by {self.pool[0]} in depth "
+                                 f"needs a local depth it divides, got "
+                                 f"{x.shape[1]}")
             x = max_pool(x, self.pool)
         for name in self.names:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, spatial)
         return x
 
 
@@ -79,11 +94,11 @@ class UpBlock(nn.Module):
                 c_low + c_skip if i == 0 else features, features,
                 kernel_size=kernel_size, norm=norm, dtype=dtype))
 
-    def forward(self, x_low, x_skip):
-        x = resize_trilinear(x_low, x_skip.shape[1:4])
+    def forward(self, x_low, x_skip, spatial=None):
+        x = resize_trilinear(x_low, x_skip.shape[1:4], spatial=spatial)
         x = torch.cat([x, x_skip.to(x.dtype)], dim=-1)
         for name in self.names:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, spatial)
         return x
 
 
@@ -99,7 +114,7 @@ class UNet3D(nn.Module):
         super().__init__()
         b = base_chan
         Block = _block(block)
-        self.aux_head, self.dtype = aux_head, dtype
+        self.aux_head, self.dtype, self.block = aux_head, dtype, block
         self.Conv_0 = Conv(1, b, 3, use_bias=False, dtype=dtype)
         self.stem = f"{block}_0"
         self.add_module(self.stem, Block(b, b, kernel_size=kernel_size[0],
@@ -120,17 +135,28 @@ class UNet3D(nn.Module):
             self.aux_out = Conv1(4 * b, num_classes, True, dtype)
         self.outc = Conv1(b, num_classes, True, dtype)
 
-    def forward(self, x):
+    def check_spatial(self) -> None:
+        """Raise ``NotImplementedError`` for the blocks that spatial
+        sharding does not split yet."""
+        if self.block not in SPATIAL_BLOCKS:
+            raise NotImplementedError(
+                f"spatial sharding of {self.block} UNets is not ported yet: "
+                f"{UNPORTED_SPATIAL}")
+
+    def forward(self, x, spatial=None):
+        """With `spatial`, `x` and every output are the rank's depth
+        planes."""
         x = x.to(self.dtype)
-        h = getattr(self, self.stem)(self.Conv_0(x))
+        h = getattr(self, self.stem)(self.Conv_0(x, spatial), spatial)
         skips = [h]
         for i in range(4):
-            h = getattr(self, f"DownBlock_{i}")(h)
+            h = getattr(self, f"DownBlock_{i}")(h, spatial)
             skips.append(h)
         out, aux = skips[-1], None
         for i in range(4):
-            out = getattr(self, f"UpBlock_{i}")(out, skips[3 - i])
+            out = getattr(self, f"UpBlock_{i}")(out, skips[3 - i], spatial)
             if self.aux_head and i == 1:
-                aux = resize_trilinear(self.aux_out(out), x.shape[1:4])
+                aux = resize_trilinear(self.aux_out(out), x.shape[1:4],
+                                       spatial=spatial)
         logits = self.outc(out)
         return {"segmentation": [logits, aux] if self.aux_head else logits}

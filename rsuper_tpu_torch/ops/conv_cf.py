@@ -25,6 +25,15 @@ contraction (the JAX package's form "f": a (C_out, 32) × (32, positions)
 product a tile row, forward and weight gradient each one launch a call,
 blocks marching in depth through a ring of staged input planes); float32
 and bf16 with 2 ≤ C_in ≤ 15 on the CUDA cores in float32.
+
+With ``spatial`` (``parallel/spatial.py``) the depth is sharded over a
+model group: the kernels run unchanged on the rank's planes with one halo
+plane of each neighbour (none at the volume's faces, where their own SAME
+padding serves), and the outputs of the halo planes are cropped. The fused
+prologue normalises with the whole volume's stats (``_in_stats_cf`` from
+sums over the group), halo planes included, and its backward takes the
+whole volume's means (``_in_relu_bwd``) after the halo planes' gradients
+went back to their owners.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build, dispatch
+from ..parallel.spatial import halo_exchange, halo_planes, halo_return, \
+    reduce_sum
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTE_CODES = {"cuda_core": 0, "tensor_core": 1, "stem": 2}
@@ -111,13 +122,17 @@ def _pack_w(w: torch.Tensor, dtype: torch.dtype, route: str) -> torch.Tensor:
     return wk
 
 
-def _in_stats_cf(x: torch.Tensor, eps: float) -> torch.Tensor:
+def _in_stats_cf(x: torch.Tensor, eps: float, sp=None) -> torch.Tensor:
     """Instance-norm stats of (B, D, C, H, W) x as (B, 2, C, 1) float32:
     [:, 0] = 1/σ and [:, 1] = −μ/σ. One-pass E[x²] − E[x]², clamped at 0,
-    as ``rsuper_tpu/ops/conv_cf.py:_in_stats_cf``."""
+    as ``rsuper_tpu/ops/conv_cf.py:_in_stats_cf``; with `sp` the whole
+    volume's, from the sums of the model group's shards."""
     n = x.shape[1] * x.shape[3] * x.shape[4]
     s1 = torch.sum(x, dim=(1, 3, 4), dtype=torch.float32)
     s2 = torch.sum(x * x, dim=(1, 3, 4), dtype=torch.float32)
+    if sp is not None:
+        s1, s2 = reduce_sum(torch.stack([s1, s2]), sp).unbind()
+        n *= sp.size
     mean = s1 / n
     var = torch.clamp(s2 / n - mean * mean, min=0.0)
     inv = torch.rsqrt(var + eps)
@@ -131,14 +146,17 @@ def _conv3_cf_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 1, 3, 4).to(x.dtype).contiguous()
 
 
+def _in_relu(x: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+    """relu(x·scale + shift) from `stats`, rounded to x's type."""
+    scale = stats[:, 0, :, 0][:, None, :, None, None]
+    shift = stats[:, 1, :, 0][:, None, :, None, None]
+    return torch.clamp(x.float() * scale + shift, min=0.0).to(x.dtype)
+
+
 def _in_relu_conv_plain(x: torch.Tensor, w: torch.Tensor,
                         eps: float) -> torch.Tensor:
     """IN → ReLU → SAME conv; the activation is rounded to x's type first."""
-    stats = _in_stats_cf(x, eps)
-    scale = stats[:, 0, :, 0][:, None, :, None, None]
-    shift = stats[:, 1, :, 0][:, None, :, None, None]
-    a = torch.clamp(x.float() * scale + shift, min=0.0).to(x.dtype)
-    return _conv3_cf_plain(a, w)
+    return _conv3_cf_plain(_in_relu(x, _in_stats_cf(x, eps)), w)
 
 
 def _wgrad_plain(x: torch.Tensor, dy: torch.Tensor, stats=None) -> torch.Tensor:
@@ -173,17 +191,26 @@ def _dgrad_plain(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _in_relu_bwd(x: torch.Tensor, stats: torch.Tensor,
-                 da: torch.Tensor) -> torch.Tensor:
+                 da: torch.Tensor, sp=None) -> torch.Tensor:
     """ReLU + instance-norm backward in closed form (the JAX package's
     ``_in_relu_conv_bwd_xla``): dx = scale·(g − E[g] − x̂·E[g·x̂]) with
-    g = da·1[x̂ > 0], float32, output in x's type. Plain PyTorch on every
-    device: it stands outside the kernels in the JAX package too."""
+    g = da·1[x̂ > 0], float32, output in x's type; with `sp` the means are
+    the whole volume's, from the sums of the model group's shards. Plain
+    PyTorch on every device: it stands outside the kernels in the JAX
+    package too."""
     scale = stats[:, 0, :, 0][:, None, :, None, None]
     shift = stats[:, 1, :, 0][:, None, :, None, None]
     xh = x.float() * scale + shift
     g = da.float() * (xh > 0)
-    m1 = g.mean(dim=(1, 3, 4), keepdim=True)
-    m2 = (g * xh).mean(dim=(1, 3, 4), keepdim=True)
+    if sp is None:
+        m1 = g.mean(dim=(1, 3, 4), keepdim=True)
+        m2 = (g * xh).mean(dim=(1, 3, 4), keepdim=True)
+    else:
+        n = x.shape[1] * x.shape[3] * x.shape[4] * sp.size
+        sums = reduce_sum(torch.stack([
+            g.sum(dim=(1, 3, 4), keepdim=True),
+            (g * xh).sum(dim=(1, 3, 4), keepdim=True)]), sp)
+        m1, m2 = (sums / n).unbind()
     return (scale * (g - m1 - xh * m2)).to(x.dtype)
 
 
@@ -359,49 +386,76 @@ class _Conv3CF(torch.autograd.Function):
 
 
 class _InReluConv3CF(torch.autograd.Function):
-    """``in_relu_conv3x3x3_cf`` on CUDA tensors. Backward: da by the dgrad
-    kernel, dw by the fused wgrad kernel, dx by the closed-form ReLU +
-    instance-norm backward."""
+    """``in_relu_conv3x3x3_cf`` on CUDA tensors, and on depth shards (`sp`;
+    the plain versions on the CPU): the whole volume's stats, the kernel on
+    the slab of x and its neighbours' raw halo planes, the halo planes'
+    outputs cropped. Backward: da by the dgrad kernel, the halo planes' da
+    returned to their owners, dx by the closed-form ReLU + instance-norm
+    backward with the whole volume's means; dw by the fused wgrad kernel on
+    the slab (with `sp` a partial of the group's)."""
 
     @staticmethod
-    def forward(ctx, x, w, eps):
-        stats = _in_stats_cf(x, eps)
-        ctx.save_for_backward(x, w, stats)
-        y = _launch(x, w, stats)
-        in_relu_conv3x3x3_cf.launches += 1
-        return y
+    def forward(ctx, x, w, eps, sp):
+        stats = _in_stats_cf(x, eps, sp)
+        slab = halo_planes(x.detach(), 1, 1, sp, "drop")
+        if dispatch.use_kernel(x, w):
+            y = _launch(slab, w, stats)
+            in_relu_conv3x3x3_cf.launches += 1
+        else:
+            y = _conv3_cf_plain(_in_relu(slab, stats), w)
+        ctx.save_for_backward(slab, w, stats)
+        ctx.sp, ctx.lo = sp, 0 if sp is None else sp.halo(1, 1)[0]
+        if slab.shape[1] == x.shape[1]:
+            return y
+        return y.narrow(1, ctx.lo, x.shape[1]).contiguous()
 
     @staticmethod
     def backward(ctx, dy):
-        x, w, stats = ctx.saved_tensors
-        dy = dy.contiguous()
+        slab, w, stats = ctx.saved_tensors
+        sp, lo, d = ctx.sp, ctx.lo, dy.shape[1]
+        if slab.shape[1] == d:
+            dy_slab = dy.contiguous()
+        else:
+            dy_slab = dy.new_zeros((dy.shape[0], slab.shape[1],
+                                    *dy.shape[2:]))
+            dy_slab.narrow(1, lo, d).copy_(dy)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _in_relu_bwd(x, stats, conv3x3x3_cf_dgrad(dy, w))
+            da = halo_return(conv3x3x3_cf_dgrad(dy_slab, w), 1, 1, sp,
+                             "drop")
+            dx = _in_relu_bwd(slab.narrow(1, lo, d), stats, da, sp)
         if ctx.needs_input_grad[1]:
-            dw = _round_dw(in_relu_conv3x3x3_cf_wgrad(x, dy, stats), x, w)
-        return dx, dw, None
+            dw = _round_dw(in_relu_conv3x3x3_cf_wgrad(slab, dy_slab, stats),
+                           slab, w)
+        return dx, dw, None, None
 
 
-def conv3x3x3_cf(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv3x3x3_cf(x: torch.Tensor, w: torch.Tensor,
+                 spatial=None) -> torch.Tensor:
     """SAME 3³ conv, no bias: x (B, D, C_in, H, W), w (3, 3, 3, C_in, C_out)
     → (B, D, C_out, H, W) in x's type, float32 accumulation. Differentiable:
-    autograd of the plain version on the CPU, the kernels on the card."""
+    autograd of the plain version on the CPU, the kernels on the card. With
+    `spatial` x is the rank's run of depth planes (module docstring)."""
     _check(x, w)
+    if spatial is not None:
+        y = conv3x3x3_cf(halo_exchange(x, 1, 1, spatial, "drop"), w)
+        return y.narrow(1, spatial.halo(1, 1)[0], x.shape[1])
     if not dispatch.use_kernel(x, w):
         return _conv3_cf_plain(x, w)
     return _Conv3CF.apply(x, w)
 
 
 def in_relu_conv3x3x3_cf(x: torch.Tensor, w: torch.Tensor,
-                         eps: float = 1e-4) -> torch.Tensor:
+                         eps: float = 1e-4, spatial=None) -> torch.Tensor:
     """``conv3x3x3_cf(relu(instance_norm(x)), w)`` with the normalisation
     and ReLU applied as the kernel stages its input (instance norm eps 1e-4,
-    no affine; stats from `_in_stats_cf`). Differentiable as `conv3x3x3_cf`."""
+    no affine; stats from `_in_stats_cf`). Differentiable as `conv3x3x3_cf`;
+    with `spatial` the stats and the backward's means are the whole
+    volume's (``_InReluConv3CF``)."""
     _check(x, w)
-    if not dispatch.use_kernel(x, w):
+    if spatial is None and not dispatch.use_kernel(x, w):
         return _in_relu_conv_plain(x, w, eps)
-    return _InReluConv3CF.apply(x, w, eps)
+    return _InReluConv3CF.apply(x, w, eps, spatial)
 
 
 for _fn in (conv3x3x3_cf, in_relu_conv3x3x3_cf, conv3x3x3_cf_dgrad,

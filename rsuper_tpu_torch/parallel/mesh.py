@@ -1,44 +1,53 @@
-"""The data axis as ``torch.distributed`` data parallelism (the port's
-counterpart of ``rsuper_tpu/parallel/mesh.py``).
+"""The ``(data, model)`` rank grid as ``torch.distributed`` process groups
+(the port's counterpart of ``rsuper_tpu/parallel/mesh.py``).
 
 The JAX package runs one program over a ``(data, model)`` mesh: the global
-batch is sharded over ``data`` and XLA computes the exact loss of the global
-batch and its exact gradient. The port runs one process a rank, each with
-``batch_size / world`` items, and gets the same step this way:
+batch is sharded over ``data``, each volume's depth over ``model``, and XLA
+computes the exact loss of the global batch and its exact gradient. The
+port runs one process a rank. Ranks form a ``data × model`` grid, rank =
+d·S + m for S = ``spatial_shard`` (the JAX mesh's reshape of its devices),
+with one ``data`` group (the ranks of one m) and one ``model`` group (the
+ranks of one d) per rank (``grid``). The ranks of model group d hold the
+same ``batch_size / data`` items, data rank d's, and split their depth
+(``parallel/spatial.py``). The step is then the JAX step:
 
-* every loss term of the global batch is the mean over the ranks of the
-  term that a rank computes on its items, once the terms that couple the
-  batch read the whole group: the adaptive-Tversky ``alpha`` sums its
-  counts over the ranks (``sum_over_ranks``), and the CLIP loss takes its
-  negatives from every rank's embeddings (``gather_rows``). Both carry
-  their gradient back across the ranks, so rank r's backward gives rank r's
-  share of the global gradient;
-* the gradients are then averaged over the ranks (``all_reduce_mean_``),
-  which gives every rank the gradient of the global-batch loss;
-* the logged terms are the mean over the ranks of the ranks' terms,
+* every loss term of the global batch is the mean over the data ranks of
+  the term that a data rank computes on its items, once the terms that
+  couple the batch read the whole data group: the adaptive-Tversky
+  ``alpha`` sums its counts over the data ranks (``sum_over_ranks``), and
+  the CLIP loss takes its negatives from every data rank's embeddings
+  (``gather_rows``). Both carry their gradient back across the ranks;
+* each rank's backward gives its share of the global gradient: with S > 1
+  a partial whose sum over the model group is the data rank's share
+  (``spatial.py``'s convention). ``all_reduce_mean_`` sums the gradients
+  over every rank and divides by the data ranks: the sum over the model
+  group and the mean over the data group, one ``all_reduce``;
+* the logged terms are the mean over the data ranks of their terms,
   summed in rank order (``mean_over_ranks``), so every rank logs the same
   bits.
 
 ZeRO-1 (``zero_partition``, ``shard``, ``gather_shards``,
 ``gather_tree``)
 keeps the optimizer state and, with ``zero_ema``, the EMA copy of each large
-parameter as one slice a rank, split along the axis that the JAX package's
-``zero_sharding_tree`` picks.
+parameter as one slice a data rank, split along the axis that the JAX
+package's ``zero_sharding_tree`` picks; the ranks of a model group hold the
+same slices.
 
 The collectives here are the port's own autograd functions on
 ``all_reduce`` and ``all_gather``, which NCCL and gloo (also on CUDA
-tensors) both have. Spatial sharding (the mesh's ``model`` axis) is not
-ported yet.
+tensors) both have; each names its process group.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Iterable, List, Mapping, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from .spatial import Spatial, collective
 
 # the gradient all-reduce goes in buckets of about this many bytes
 BUCKET_BYTES = 25 * 2 ** 20
@@ -46,21 +55,61 @@ BUCKET_BYTES = 25 * 2 ** 20
 
 @dataclasses.dataclass(frozen=True)
 class DataParallel:
-    """This process's place in the data-parallel group, the default process
-    group of ``torch.distributed``: its rank and the number of ranks. The
-    rank's device is the one its tensors are on (``torch.cuda.set_device``
-    of ``multihost.init_distributed``)."""
+    """This process's place in the rank grid: its ``rank`` in its data
+    group of ``world`` ranks and that group (``group``; None: the default
+    group, every rank), and with spatial sharding its place in its model
+    group (``spatial``: rank, size and group). The rank's device is the one
+    its tensors are on (``torch.cuda.set_device`` of
+    ``multihost.init_distributed``)."""
 
     rank: int = 0
     world: int = 1
+    group: Any = None
+    spatial: Optional[Spatial] = None
 
 
-def current() -> Optional[DataParallel]:
-    """The data-parallel group of this process once ``torch.distributed``
-    is initialised (also at world size 1), else None."""
+_GRIDS: Dict[int, DataParallel] = {}
+
+
+def grid(spatial_shard: int) -> DataParallel:
+    """This rank's place in the ``data × model`` grid of the job with
+    `spatial_shard` = S ranks a model group: rank = d·S + m. The groups
+    are made once a job (``dist.new_group`` on every rank, in the same
+    order) and kept; S = 1 is the default group."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if spatial_shard <= 1:
+        return DataParallel(rank=rank, world=world)
+    if world % spatial_shard:
+        raise ValueError(f"spatial_shard {spatial_shard} must divide the "
+                         f"{world} available devices")
+    if spatial_shard not in _GRIDS:
+        S, data = spatial_shard, world // spatial_shard
+        mine = {}
+        for m in range(S):  # data groups: the ranks of one m
+            g = dist.new_group([d * S + m for d in range(data)])
+            if rank % S == m:
+                mine["data"] = g
+        for d in range(data):  # model groups: the ranks of one d
+            g = dist.new_group([d * S + m for m in range(S)])
+            if rank // S == d:
+                mine["model"] = g
+        _GRIDS[S] = DataParallel(
+            rank=rank // S, world=data, group=mine["data"],
+            spatial=Spatial(rank=rank % S, size=S, group=mine["model"]))
+    return _GRIDS[spatial_shard]
+
+
+def current(spatial_shard: int = 1) -> Optional[DataParallel]:
+    """This process's place in the rank grid once ``torch.distributed`` is
+    initialised (also at world size 1), else None."""
     if not (dist.is_available() and dist.is_initialized()):
         return None
-    return DataParallel(rank=dist.get_rank(), world=dist.get_world_size())
+    return grid(spatial_shard)
+
+
+def forget_grids() -> None:
+    """Drop the kept groups (a job's end: ``destroy_process_group``)."""
+    _GRIDS.clear()
 
 
 def data_parallel_size(batch_size: int, n_devices: int) -> int:
@@ -123,7 +172,7 @@ def gather_shards(slices: Sequence[torch.Tensor],
     for bucket in _buckets(range(len(slices)), slices, bucket_bytes):
         flat = torch.cat([slices[i].reshape(-1) for i in bucket])
         parts = [torch.empty_like(flat) for _ in range(dp.world)]
-        dist.all_gather(parts, flat)
+        dist.all_gather(parts, flat, group=dp.group)
         offset = 0
         for i in bucket:
             n = slices[i].numel()
@@ -153,13 +202,13 @@ class _SumOverRanks(torch.autograd.Function):
     def forward(ctx, x, dp):
         ctx.dp = dp
         y = x.detach().clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=dp.group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g)
+        dist.all_reduce(g, group=ctx.dp.group)
         return g, None
 
 
@@ -178,13 +227,13 @@ class _GatherRows(torch.autograd.Function):
         ctx.dp, ctx.rows = dp, x.shape[0]
         x = x.detach().contiguous()
         parts = [torch.empty_like(x) for _ in range(dp.world)]
-        dist.all_gather(parts, x)
+        dist.all_gather(parts, x, group=dp.group)
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g)
+        dist.all_reduce(g, group=ctx.dp.group)
         return g.narrow(0, ctx.dp.rank * ctx.rows, ctx.rows), None
 
 
@@ -197,13 +246,15 @@ def gather_rows(x: torch.Tensor, dp: DataParallel) -> torch.Tensor:
 @torch.no_grad()
 def all_reduce_mean_(tensors: Iterable[torch.Tensor], dp: DataParallel,
                      bucket_bytes: int = BUCKET_BYTES) -> int:
-    """Average `tensors` over the ranks in place, in buckets of about
-    `bucket_bytes` (one flat buffer and one ``all_reduce`` a bucket);
-    returns the bytes reduced."""
+    """Sum `tensors` over every rank and divide by the data ranks, in
+    place: the mean over the data group of the sums over the model group
+    (the plain mean without spatial sharding). In buckets of about
+    `bucket_bytes` (one flat buffer and one ``all_reduce`` over the
+    default group a bucket); returns the bytes reduced."""
     tensors = list(tensors)
     for bucket in _buckets(tensors, tensors, bucket_bytes):
         flat = torch.cat([t.reshape(-1) for t in bucket])
-        dist.all_reduce(flat)
+        collective("reduce", flat, lambda: dist.all_reduce(flat))
         flat.mul_(1.0 / dp.world)
         for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
             t.copy_(part.view_as(t))
@@ -212,11 +263,11 @@ def all_reduce_mean_(tensors: Iterable[torch.Tensor], dp: DataParallel,
 
 @torch.no_grad()
 def mean_over_ranks(values: torch.Tensor, dp: DataParallel) -> torch.Tensor:
-    """The mean over the ranks of `values`, summed in rank order on every
-    rank, so that every rank holds the same bits."""
+    """The mean over the data ranks of `values`, summed in rank order on
+    every rank, so that every rank holds the same bits."""
     values = values.detach().contiguous()
     parts = [torch.empty_like(values) for _ in range(dp.world)]
-    dist.all_gather(parts, values)
+    dist.all_gather(parts, values, group=dp.group)
     total = parts[0]
     for p in parts[1:]:
         total = total + p

@@ -24,16 +24,19 @@ organ. A 2D configuration (``--preset slices/resunet_2d``, or
 slices of the CT-Mask cases (``SliceDataset``) and validates slice by
 slice; it refuses CT-Report cases, as the JAX CLI does.
 
-Several GPUs train data-parallel, one process a GPU (``parallel/``): with
+Several GPUs train together, one process a GPU (``parallel/``): with
 ``--dist_coordinator HOST:PORT --dist_num_processes N --dist_process_id R
 [--local_device_ids D]`` this process is rank R of N (its card D, NCCL; on
-``--device cpu``, gloo); without them, on a host that sees G > 1 cards, the
-CLI spawns ``gcd(batch_size, G)`` ranks itself, as the JAX loop builds its
-data axis over that many devices. Each rank loads ``batch_size / N`` items
-of every global batch; the step is the global batch's. ``--zero_opt`` and
-``--zero_ema`` split the optimizer state and the EMA copy over the ranks
-(ZeRO-1). ``--spatial_shard`` > 1 is not ported yet and raises
-``NotImplementedError`` naming its item of ``ROADMAP.md`` §1.
+``--device cpu``, gloo); with ``--dist_num_processes N`` > 1 alone the CLI
+spawns N ranks on this host (on the CPU too); with neither, on a host that
+sees G > 1 cards, it spawns ``gcd(batch_size, G / S)·S`` ranks, as the JAX
+loop builds its ``(data, model)`` mesh over that many devices.
+``--spatial_shard S`` splits every volume's depth over S ranks (a model
+group; the MedFormer and UNet presets, ``train/loop.py``), the others
+split the batch: each rank loads ``batch_size / (N / S)`` items of every
+global batch; the step is the global batch's. ``--zero_opt`` and
+``--zero_ema`` split the optimizer state and the EMA copy over the data
+ranks (ZeRO-1).
 """
 
 from __future__ import annotations
@@ -301,33 +304,48 @@ def _free_port() -> int:
 
 
 def _spawned_rank(rank: int, argv, world: int, port: int) -> None:
-    """One rank of the local spawner (``torch.multiprocessing.spawn``)."""
+    """One rank of the local spawner (``torch.multiprocessing.spawn``), on
+    card ``rank % cards`` (several ranks share a card only when
+    ``--dist_num_processes`` asks for more ranks than cards, which NCCL
+    refuses)."""
+    import torch
+
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     main(list(argv) + ["--dist_coordinator", f"127.0.0.1:{port}",
                        "--dist_num_processes", str(world),
                        "--dist_process_id", str(rank),
-                       "--local_device_ids", str(rank)])
+                       "--local_device_ids", str(rank % cards if cards
+                                                 else rank)])
 
 
 def _local_ranks(args) -> int:
-    """How many ranks to spawn on this host without ``--dist_*``: on CUDA,
-    ``gcd(batch_size, cards)`` (the JAX loop's data axis, with its line
-    when that leaves cards idle); 1 on the CPU or one card."""
+    """How many ranks to spawn on this host without ``--dist_coordinator``:
+    ``--dist_num_processes`` where it is given; else on CUDA
+    ``gcd(batch_size, cards / S)·S`` for ``--spatial_shard`` S (the JAX
+    loop's mesh, with its line when that leaves cards idle); 1 on the CPU
+    or one card."""
     import torch
 
     from ..parallel.mesh import data_parallel_size
     from ..utils.device import resolve_device
 
+    if args.dist_num_processes is not None:
+        return args.dist_num_processes
     if resolve_device(args.device).type != "cuda":
         return 1
     n = torch.cuda.device_count()
     if n <= 1:
         return 1
     cfg = _config(args)
-    k = data_parallel_size(cfg.batch_size, n)
-    if k < n:
-        print(f"[train] using a {k}x1 (data x model) mesh over {n} devices "
-              f"(batch {cfg.batch_size})", flush=True)
-    return k
+    sp = max(1, cfg.spatial_shard)
+    if n % sp:
+        raise ValueError(f"spatial_shard {sp} must divide the {n} available "
+                         "devices")
+    k = data_parallel_size(cfg.batch_size, n // sp)
+    if k * sp < n:
+        print(f"[train] using a {k}x{sp} (data x model) mesh over {n} "
+              f"devices (batch {cfg.batch_size})", flush=True)
+    return k * sp
 
 
 def main(argv=None):
@@ -337,15 +355,22 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     if args.dist_coordinator is None:
-        if any(getattr(args, f) is not None for f in (
-                "dist_num_processes", "dist_process_id", "local_device_ids")):
+        # --dist_num_processes N > 1 alone spawns N local ranks; one rank
+        # or a rank's id needs a job to join
+        if (args.dist_process_id is not None
+                or args.local_device_ids is not None
+                or (args.dist_num_processes or 2) < 2):
             raise ValueError("--dist_num_processes, --dist_process_id and "
                              "--local_device_ids need --dist_coordinator")
         k = _local_ranks(args)
         if k > 1:
             import torch.multiprocessing as mp
 
-            mp.spawn(_spawned_rank, nprocs=k, join=True,
+            # the ranks unpickle the function from the module by its name,
+            # which a ``python -m`` run's ``__main__`` does not give them
+            from . import __main__ as entry
+
+            mp.spawn(entry._spawned_rank, nprocs=k, join=True,
                      args=(argv, k, _free_port()))
             return None
         return _train(argv)
@@ -354,6 +379,7 @@ def main(argv=None):
                          "--dist_process_id")
     import torch.distributed as dist
 
+    from ..parallel.mesh import forget_grids
     from ..parallel.multihost import init_distributed
 
     rank, world, device = init_distributed(
@@ -363,6 +389,7 @@ def main(argv=None):
     try:
         return _train(argv + ["--device", str(device)])
     finally:
+        forget_grids()
         dist.destroy_process_group()
 
 

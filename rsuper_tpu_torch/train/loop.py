@@ -30,10 +30,21 @@ global batch (``shard=r``), the rank augments them with the global batch's
 draws at their places, the step averages the gradients over the ranks and
 reports the global batch's losses (``train/step.py``), so the NaN guard
 trips on every rank at once. ``zero_opt`` and ``zero_ema`` split the
-optimizer state and the EMA copy over the ranks (ZeRO-1,
+optimizer state and the EMA copy over the data ranks (ZeRO-1,
 ``train/optim.py``, ``train/state.py``); rank 0 writes the checkpoints,
 whole; every rank validates. In a single process the two options change
 nothing, as on a one-device mesh.
+
+With ``spatial_shard`` S > 1 the ranks form a ``data × model`` grid
+(``parallel.mesh.grid``, rank = d·S + m), as the JAX loop builds its
+``(data, model)`` mesh: the samplers, the rows and the augmentation draws
+key on the data rank d, so the S ranks of model group d load and augment
+the same items, and the step runs the model on each rank's run of depth
+planes (``train/step.py``). The JAX loop's rules hold: S divides the ranks,
+and ``training_size[0] // 16 >= 2·S``. The MedFormer and UNet presets
+shard (``check_spatial``); every other arch and the 2D pathway raise
+``NotImplementedError`` naming ROADMAP.md §1 item 10. Validation and
+checkpoints stay unsharded, as the JAX loop's eval step is.
 """
 
 from __future__ import annotations
@@ -52,7 +63,8 @@ from ..data.pipeline import (AugmentDraws, DevicePrefetcher, PrefetchLoader,
 from ..data.sampler import ChunkedSampler, OrganBatchSampler
 from ..losses import LesionChannelMap
 from ..parallel.mesh import DataParallel, current, zero_partition
-from ..parallel.multihost import local_rows
+from ..parallel.multihost import is_primary, local_rows
+from ..parallel.spatial import UNPORTED_SPATIAL
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger, dump_config, setup_logger
 from ..utils.meters import AverageMeter
@@ -66,8 +78,10 @@ from .validation import run_validation, validation_model
 
 # the items of ROADMAP.md §1 that hold what the port does not have yet
 ROADMAP = {
-    "multi_gpu": "ROADMAP.md §1 item 8 (multi-GPU: spatial sharding)",
+    "spatial": UNPORTED_SPATIAL,
 }
+# the archs whose models shard their depth (``check_spatial``)
+SPATIAL_ARCHS = ("medformer", "resunet", "unet")
 
 Draws = Callable[[int, int, int], AugmentDraws]
 
@@ -77,9 +91,23 @@ def unported(what: str, item: str) -> NotImplementedError:
 
 
 def check_config(cfg: TrainConfig) -> None:
-    """Raise for each option of the JAX loop the port does not have."""
-    if cfg.spatial_shard > 1:
-        raise unported(f"spatial_shard={cfg.spatial_shard}", "multi_gpu")
+    """Raise for each option of the JAX loop the port does not have, and
+    for the spatial sharding the JAX loop refuses."""
+    sp = cfg.spatial_shard
+    if sp > 1:
+        if cfg.is_2d or cfg.arch not in SPATIAL_ARCHS:
+            what = "the 2D pathway" if cfg.is_2d else f"arch {cfg.arch!r}"
+            raise unported(f"spatial_shard={sp} of {what}", "spatial")
+        # the JAX loop's guard, with its message: its XLA conv gradients
+        # were wrong below 2 planes a shard (the port's layers raise where
+        # a stride does not divide a rank's planes)
+        if cfg.training_size[0] // 16 < 2 * sp:
+            raise ValueError(
+                f"spatial_shard {sp} too large for depth "
+                f"{cfg.training_size[0]}: the deepest feature map "
+                f"({cfg.training_size[0] // 16} planes) must keep >= 2 "
+                "planes per shard or XLA SPMD conv gradients are silently "
+                "incorrect")
 
 
 def _epoch_indices(cfg: TrainConfig, dataset, start_epoch: int,
@@ -153,7 +181,12 @@ def train(
     `seeded_draws`)."""
     check_config(cfg)
     device = resolve_device(device)
-    dp = current()
+    dp = current(cfg.spatial_shard)
+    if cfg.spatial_shard > 1:
+        if dp is None:  # one process is one device
+            raise ValueError(f"spatial_shard {cfg.spatial_shard} must "
+                             "divide the 1 available devices")
+        model.check_spatial()
     world = 1 if dp is None else dp.world
     # this rank's places in the global batch (raises unless world divides it)
     rows = None if world == 1 else local_rows(cfg.batch_size, dp.rank, world)
@@ -212,7 +245,7 @@ def train(
             rotate=tuple(cfg.rotate), translate=tuple(cfg.translate))
 
     tracer = None
-    if profile_steps and (dp is None or dp.rank == 0):
+    if profile_steps and is_primary():
         start = 10 if max_steps is None else max(0, min(
             10, max_steps - profile_steps))
         tracer = TraceCapture(f"{exp_dir}/trace", start_step=start,

@@ -6,14 +6,23 @@ is no ``torch.autocast``. The CLIP step (``clip_only``) runs the encoder and
 its heads only. A 2D batch's outputs and masks are lifted to depth-1
 volumes, so the 3D loss stack serves both.
 
-With a data-parallel `group` (``parallel.mesh.DataParallel``) a rank runs
-its items (``batch_size / world`` of the global batch): its loss terms are
-its shares of the global batch's (``losses/dispatcher.py``), its backward
-gives its share of the gradient, and the gradients are averaged over the
-ranks in buckets (``parallel.mesh.all_reduce_mean_``). Every rank then holds
-the gradient of the global batch's loss, the step the JAX package takes on
-a mesh of that many data devices, and reports the global terms, the same
-bits on every rank. Spatial sharding is not ported yet.
+With a `group` (``parallel.mesh.DataParallel``, this rank's place in the
+rank grid) a rank runs its data rank's items (``batch_size / data`` of the
+global batch): its loss terms are its shares of the global batch's
+(``losses/dispatcher.py``, coupled over the data group), its backward gives
+its share of the gradient, and ``parallel.mesh.all_reduce_mean_`` reduces
+the gradients in buckets. Every rank then holds the gradient of the global
+batch's loss, the step the JAX package takes on its ``(data, model)``
+mesh, and reports the global terms, the same bits on every rank.
+
+With spatial sharding (``group.spatial``) the model runs on the rank's run
+of depth planes of the image (``shard_depth``), and its sharded outputs are
+gathered to whole volumes at the model/loss boundary, as
+``rsuper_tpu/train/step.py`` gathers them: every loss then runs on whole
+volumes, the same bits on every rank of the model group, so the Ball Loss's
+host reads take the same branches there. Each rank seeds its backward with
+1/S of the loss; a parameter's gradient is then a partial whose sum over
+the model group is the data rank's (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch
 
 from ..losses import LesionChannelMap, LossConfig, calculate_loss
 from ..parallel.mesh import all_reduce_mean_, mean_over_ranks
+from ..parallel.spatial import gather_segmentation, shard_depth
 from .state import TrainState
 
 
@@ -43,11 +53,20 @@ def loss_fn(model, batch: Dict[str, Any], lmap: LesionChannelMap,
     (B, H, W, ·) images and masks, lifted after the model with
     ``_lift_2d``. A ``clip_only`` step runs the model's encoder and heads
     alone (the CLIP loss reads nothing of the decoder). With `group`, the
-    terms are this rank's shares of the global batch's."""
+    terms are this rank's shares of the global batch's; with
+    ``group.spatial`` the model runs depth-sharded and its outputs are
+    gathered before the losses."""
+    sp = None if group is None else group.spatial
+    image = batch["image"]
+    extra = ()
+    if sp is not None:
+        image, extra = shard_depth(image, sp), (sp,)
     if clip_only:
-        out = model.branches(model.encoder(batch["image"])[4])
+        out = model.branches(model.encoder(image, *extra)[4])
     else:
-        out = model(batch["image"])
+        out = model(image, *extra)
+    if sp is not None:
+        out = gather_segmentation(out, sp, image.shape[1])
     if batch["image"].dim() == 4 and not clip_only:  # 2D slices
         seg = out.get("segmentation")
         if isinstance(seg, (tuple, list)):
@@ -72,12 +91,14 @@ def gradients(model, batch: Dict[str, Any], lmap: LesionChannelMap,
     terms. A parameter the loss does not reach (the decoder of a CLIP step,
     a head no term reads) gets a zero gradient, as the JAX step's gradient
     of the whole tree has: AdamW would skip it, weight decay included. With
-    `group` the gradients are averaged over the ranks and the terms are the
+    `group` the gradients are reduced over the ranks (the mean over the
+    data group of the sums over the model group) and the terms are the
     global batch's, the same on every rank."""
     model.zero_grad(set_to_none=True)
     overall, losses = loss_fn(model, batch, lmap, cfg, model_genesis,
                               clip_only, group)
-    overall.backward()
+    sp = None if group is None else group.spatial
+    (overall if sp is None else overall * (1.0 / sp.size)).backward()
     params = list(model.parameters())
     for p in params:
         if p.grad is None:

@@ -68,7 +68,7 @@ def _sources():
                 "report_extraction/metadata.py",
                 "report_extraction/client.py", "report_extraction/run.py",
                 "parallel/__init__.py", "parallel/mesh.py",
-                "parallel/multihost.py"):
+                "parallel/multihost.py", "parallel/spatial.py"):
         assert f"rsuper_tpu_torch/{new}" in names
     return files
 
