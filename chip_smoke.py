@@ -186,6 +186,19 @@ Phases, in order (any failure exits non-zero):
              with ZeRO-1 (ms a step, all-reduce ms and bytes, peak memory
              and optimizer-state bytes a rank, launches a rank a step), one
              CLIP step; every logged loss bit-equal on the two ranks.
+17. spatial — spatial sharding on the one card: two gloo ranks in a 1 × 2
+             grid split every volume's depth: the MedFormer and ResUNet
+             presets and the mf_variants phase's ``mf_mbconv`` at 128³ × 2
+             (ms a step a rank beside one process, collectives, peak
+             memory, launches
+             of rows 1–6 and 8, rows 1–6 at every halo-slab shape), float32
+             against one process at 96³ × 2, and one float32 step of every
+             other 3D arch at 64³ × 2 against one process (the ρ rule;
+             rows 1–6 at every shape those steps launched them at).
+
+The kernels phase also holds rows 1–6 against their plain versions at every
+kernel signature the reference traces from its training step at 96³ and
+128³ (``rsuper_tpu_torch/ops/reference_shapes.py``).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. It imports nothing of JAX or of
@@ -554,7 +567,36 @@ def phase_kernels(dev, reps: int):
             del x, w
         backward_cases(case, gen, dev, dtype, dname)
     topn_cases(rows, failures, dev)
+    failures += reference_signature_cases(dev)
     return rows, failures
+
+
+def reference_signature_cases(dev):
+    """Rows 1–6 against their plain versions at every kernel signature of
+    the reference's training step (``ops/reference_shapes.py``: the JAX
+    package's ``production_signatures``, the default MedFormer at 96³ and
+    128³, batch 1, bf16), on seeded inputs at the kernels phase's
+    tolerances (``_row_at_shape``). One ``{"reference_signatures": ...}``
+    line; a case over its bound fails the run."""
+    import torch
+
+    from rsuper_tpu_torch.ops.reference_shapes import rows
+
+    t0 = time.time()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = []
+    for name, shape, dtype in rows():
+        cases.append(_row_at_shape(name, shape, dtype, gen, dev))
+    torch.cuda.empty_cache()
+    bad = [c for c in cases if not c["ok"]]
+    worst = {}
+    for c in cases:
+        worst[c["name"]] = max(worst.get(c["name"], 0.0),
+                               c["max_abs_err"] / c["tol"])
+    log(json.dumps({"reference_signatures": dict(
+        count=len(cases), failed=len(bad), worst_err_over_tol=worst,
+        seconds=time.time() - t0, cases=cases)}))
+    return [f"reference signature: {c}" for c in bad]
 
 
 def topn_cases(rows, failures, dev):
@@ -4669,6 +4711,60 @@ SPATIAL_RES_STEPS = 2  # timed steps of the sharded ResUNet
 SPATIAL_SIZE = 128  # the presets' crops
 SPATIAL_TIMEOUT = 420  # seconds a launched rank may take
 RESUNET_ARGS = {"base_chan": 32, "block": "BasicBlock", "norm": "in"}
+SPATIAL_MBCONV_STEPS = 2  # (e): timed steps of the sharded mf_mbconv
+# (f): one float32 step of each other sharded 3D arch at the JAX registry's
+# widths, at 64³ × 2: the deepest map (1/16) keeps 2 planes a shard at S = 2
+SPATIAL_ZOO_SIZE = 64
+SPATIAL_ZOO = {
+    "vnet": ("vnet", {}),
+    "attention_unet": ("attention_unet", {}),
+    "unetpp": ("unetpp", {}),
+    "unetr": ("unetr", {"img_size": (SPATIAL_ZOO_SIZE,) * 3}),
+    "swin_unetr": ("swin_unetr", {}),
+    "nnformer": ("nnformer", {}),
+    "vtunet": ("vtunet", {}),
+    "unet_mbconv": ("unet", {"block": "MBConv"}),
+    # attention in UpBlockMF_2 (gathered, run whole, sharded again) beside
+    # the channel-first stem and UpBlockMF_3 on halo slabs, at MID_DEPTH's
+    # depths; UpBlockMF_2 takes the 128-wide map of UpBlockMF_1
+    "mf_attention_up2": ("medformer", {
+        "trans_num": (0, 1, 2, 3, 2, 1, 1, 0), "fusion_depth": 1,
+        "chan_num": (64, 128, 256, 320, 256, 128, 128, 32), "remat": False}),
+}
+# (f): the rows each arch must launch on its rank's planes (> 0 times),
+# besides rows 1-6 held against their plain versions at every shape (f)
+# launched them at: the MedFormer's channel-first stem and UpBlockMF_3 run
+# rows 1-4 and its attention blocks' depthwise projections rows 5-6, the
+# MBConv UNet's blocks rows 5-6
+SPATIAL_ZOO_ROWS = {"mf_attention_up2": CONV_ROWS + DW_ROWS,
+                    "unet_mbconv": DW_ROWS}
+
+
+def _zoo_step(name, dev, group=None, nudge=False):
+    """One float32 ``dice`` step of SPATIAL_ZOO's `name` (seeded weights)
+    on ``bench.py``'s batch at SPATIAL_ZOO_SIZE³ × 2 (with `nudge` its
+    image moved by one float32 rounding): the loss terms and every
+    parameter's gradient; with `group` on the rank's planes, reduced over
+    the grid."""
+    import torch
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.losses import LesionChannelMap, LossConfig
+    from rsuper_tpu_torch.models import get_model, init_params
+    from rsuper_tpu_torch.train import step as tstep
+
+    arch, args = SPATIAL_ZOO[name]
+    model = init_params(get_model(arch, len(bench_train.CLASSES), args,
+                                  dtype=torch.float32), seed=0).to(dev)
+    batch = bench_train.synthetic_batch(SPATIAL_ZOO_SIZE, 2, device=dev)
+    image = batch["image"].float()
+    batch = {**batch, "image": _nudge(image, 3, 2.0 ** -22) if nudge
+             else image}
+    losses = tstep.gradients(
+        model, batch, LesionChannelMap.from_classes(bench_train.CLASSES),
+        LossConfig(loss="dice"), group=group)
+    return ({k: float(v) for k, v in losses.items()},
+            {k: p.grad.detach().clone() for k, p in model.named_parameters()})
 
 
 def _resunet_state(dev):
@@ -4695,7 +4791,11 @@ def _spatial_rank(rank: int, port: str, out: Path) -> int:
     SPATIAL_STEPS steps after a warm-up: ms a step, the collectives by kind,
     peak memory, launches, the shapes at which rows 1-6 launched; (c) the
     ResUNet preset likewise, SPATIAL_RES_STEPS steps; (b) the float32 step
-    at ``MID_DEPTH``, 96³ × 2: the global losses and reduced gradients."""
+    at ``MID_DEPTH``, 96³ × 2: the global losses and reduced gradients;
+    (e) ``mf_mbconv`` as (a), SPATIAL_MBCONV_STEPS steps; (f) one float32
+    step of each arch of SPATIAL_ZOO (``_zoo_step``): its losses, launches
+    of rows 1-6, and rank 0's reduced gradients, and the shapes at which
+    rows 1-6 launched in (f)."""
     import torch
     import torch.distributed as dist
 
@@ -4775,6 +4875,34 @@ def _spatial_rank(rank: int, port: str, out: Path) -> int:
     if rank == 0:
         torch.save({k: g.cpu() for k, g in grads.items()},
                    out / "spatial_grads32.pt")
+    del s32, b32, grads
+    torch.cuda.empty_cache()
+
+    with _launch_shapes() as shapes:
+        timed_steps("mf_mbconv", bench_train.build_state(
+            dev, True, MF_VARIANTS["mf_mbconv"]), SPATIAL_MBCONV_STEPS)
+    rec["mf_mbconv_shapes"] = {k: sorted(v) for k, v in shapes.items()}
+    torch.cuda.empty_cache()
+
+    rec["zoo"] = {}
+    zoo_shapes = {}
+    for name in SPATIAL_ZOO:
+        for w in counted.values():
+            w.launches = 0
+        with _launch_shapes() as shapes:
+            losses, grads = _zoo_step(name, dev, group=dp)
+        for k, v in shapes.items():
+            zoo_shapes.setdefault(k, set()).update(v)
+        rec["zoo"][name] = dict(
+            losses=losses, launches={k: w.launches
+                                     for k, w in counted.items()},
+            grad_sum=float(sum(g.double().sum() for g in grads.values())))
+        if rank == 0:
+            torch.save({k: g.cpu() for k, g in grads.items()},
+                       out / f"zoo_{name}.pt")
+        del grads
+        torch.cuda.empty_cache()
+    rec["zoo_shapes"] = {k: sorted(v) for k, v in zoo_shapes.items()}
     dist.barrier()
     mesh.forget_grids()
     dist.destroy_process_group()
@@ -4816,8 +4944,15 @@ def phase_spatial(dev):
     witness's spread where the nudged run moves them) and gradients against
     one process by the per-parameter ρ rule; (c) the ResUNet preset at
     128³ × 2 with the same lines (row 8 > 0); (d) rows 1-6 against their
-    plain versions at every halo-slab shape (a) launched them at. Every
-    logged loss bit-equal on the two ranks. gloo's times are not NCCL's."""
+    plain versions at every halo-slab shape (a) launched them at; (e)
+    ``mf_mbconv`` (``MF_VARIANTS``) at the default widths, bf16, ``remat``,
+    128³ × 2, with (a)'s lines (rows 5-6 and 8 > 0) and rows 5-6 against
+    their plain versions at every shape it launched them at; (f) one float32
+    ``dice`` step of every arch of SPATIAL_ZOO at 64³ × 2 against one
+    process (losses 1e-4 relative, gradients by (b)'s ρ rule), the rows
+    of SPATIAL_ZOO_ROWS launched on both ranks and rows 1-6 against their
+    plain versions at every shape (f) launched them at. Every logged loss
+    bit-equal on the two ranks. gloo's times are not NCCL's."""
     import torch
 
     from rsuper_tpu_torch import bench_train
@@ -4841,6 +4976,9 @@ def phase_spatial(dev):
                  for r in range(2)]
         g32 = {k: v.to(dev) for k, v in torch.load(
             out / "spatial_grads32.pt", weights_only=True).items()}
+        zoo_grads = {name: torch.load(out / f"zoo_{name}.pt",
+                                      weights_only=True)
+                     for name in SPATIAL_ZOO}
 
     # (b) the one-process float32 reference at batch 2, and one rounding
     lmap = LesionChannelMap.from_classes(bench_train.CLASSES)
@@ -4882,41 +5020,83 @@ def phase_spatial(dev):
     res["one_process"] = {
         "medformer": _one_process_step(dev, bench_train.build_state(
             dev, True, MODEL_ARGS)),
-        "resunet": _one_process_step(dev, _resunet_state(dev))}
+        "resunet": _one_process_step(dev, _resunet_state(dev)),
+        "mf_mbconv": _one_process_step(dev, bench_train.build_state(
+            dev, True, MF_VARIANTS["mf_mbconv"]))}
     torch.cuda.empty_cache()
 
-    # (d) rows 1-6 at the halo-slab shapes the sharded step launched
-    shapes = {}
-    for r in ranks:
-        for name, seen in r["shapes"].items():
-            shapes.setdefault(name, set()).update(
-                (tuple(s), dt) for s, dt in seen)
+    # (d), (e) rows 1-6 at the halo-slab shapes the sharded steps launched
     gen = torch.Generator(device=dev).manual_seed(5)
-    rows = [_row_at_shape(name, shape, dt, gen, dev)
+    slab_rows = {}
+    for part, key, want in (("d", "shapes", PATH_ROWS),
+                            ("e", "mf_mbconv_shapes", DW_ROWS),
+                            ("f", "zoo_shapes", PATH_ROWS)):
+        shapes = {}
+        for r in ranks:
+            for name, seen in r[key].items():
+                shapes.setdefault(name, set()).update(
+                    (tuple(s), dt) for s, dt in seen)
+        slab_rows[part] = [
+            _row_at_shape(name, shape, dt, gen, dev)
             for name in PATH_ROWS for shape, dt in sorted(shapes.get(name,
                                                                      ()))]
-    torch.cuda.empty_cache()
-    missing = [n for n in PATH_ROWS if not shapes.get(n)]
-    if missing:
-        failures.append(f"spatial (d): {missing} launched at no shape")
-    for row in rows:
-        if not row["ok"]:
-            failures.append(f"spatial (d): {row}")
+        torch.cuda.empty_cache()
+        missing = [n for n in want if not shapes.get(n)]
+        if missing:
+            failures.append(f"spatial ({part}): {missing} launched at no "
+                            "shape")
+        for row in slab_rows[part]:
+            if not row["ok"]:
+                failures.append(f"spatial ({part}): {row}")
+
+    # (f) every other sharded arch against one process, float32
+    zoo = {}
+    for name in SPATIAL_ZOO:
+        got = {k: v.to(dev) for k, v in zoo_grads.pop(name).items()}
+        ref_losses, ref = _zoo_step(name, dev)
+        _, moved = _zoo_step(name, dev, nudge=True)
+        agree, fails = _float32_grads_vs_plain(got, ref, moved,
+                                               per_parameter=True)
+        failures += [f"spatial (f) {name}: {f}" for f in fails]
+        terms = {}
+        for k, r in ref_losses.items():
+            v = ranks[0]["zoo"][name]["losses"][k]
+            terms[k] = dict(two_ranks=v, one_process=r, tol=1e-4 * abs(r))
+            if not abs(v - r) <= 1e-4 * abs(r):
+                failures.append(f"spatial (f) {name} loss {k}: {terms[k]}")
+        zoo[name] = dict(arch=SPATIAL_ZOO[name][0], losses=terms,
+                         gradients=agree,
+                         launches=ranks[0]["zoo"][name]["launches"])
+        for r in ranks:
+            lost = [k for k in SPATIAL_ZOO_ROWS.get(name, ())
+                    if r["zoo"][name]["launches"].get(k, 0) <= 0]
+            if lost:
+                failures.append(f"spatial (f) {name} rank {r['rank']}: "
+                                f"{lost} not launched")
+        del got, ref, moved
+        torch.cuda.empty_cache()
+    res["zoo_vs_one_process"] = dict(size=SPATIAL_ZOO_SIZE, batch=2,
+                                     loss="dice", archs=zoo)
 
     same = (ranks[0]["float32_losses"] == ranks[1]["float32_losses"]
             and ranks[0]["float32_grad_sum"] == ranks[1]["float32_grad_sum"]
             and all(ranks[0][k]["losses"] == ranks[1][k]["losses"]
-                    for k in ("medformer", "resunet")))
+                    for k in ("medformer", "resunet", "mf_mbconv"))
+            and all(ranks[0]["zoo"][n]["losses"] == ranks[1]["zoo"][n][
+                "losses"] and ranks[0]["zoo"][n]["grad_sum"] == ranks[1][
+                    "zoo"][n]["grad_sum"] for n in SPATIAL_ZOO))
     if not same:
         failures.append("spatial: the two ranks logged different losses")
     for r in ranks:
-        for key, rows_yes in (("medformer", PATH_ROWS + (DDP_TOPN,)),
-                              ("resunet", (DDP_TOPN,))):
+        for key, part, rows_yes in (
+                ("medformer", "a", PATH_ROWS + (DDP_TOPN,)),
+                ("resunet", "c", (DDP_TOPN,)),
+                ("mf_mbconv", "e", DW_ROWS + (DDP_TOPN,))):
             lost = [k for k in rows_yes
                     if r[key]["launches_per_step"].get(k, 0) <= 0]
             if lost:
-                failures.append(f"spatial ({'a' if key == 'medformer' else 'c'}"
-                                f") rank {r['rank']}: {lost} not launched")
+                failures.append(f"spatial ({part}) rank {r['rank']}: {lost} "
+                                "not launched")
             if not all(math.isfinite(v) for h in r[key]["losses"]
                        for v in h.values()):
                 failures.append(f"spatial rank {r['rank']} {key}: losses "
@@ -4925,8 +5105,11 @@ def phase_spatial(dev):
         size=SPATIAL_SIZE, global_batch=2, grid="1x2",
         losses_bit_equal_across_ranks=same,
         ranks=[{k: v for k, v in r.items()
-                if k not in ("shapes", "float32_grad_sum")} for r in ranks],
-        halo_slab_rows=rows, seconds=time.time() - t_phase)
+                if k not in ("shapes", "mf_mbconv_shapes", "zoo_shapes",
+                             "float32_grad_sum", "zoo")} for r in ranks],
+        halo_slab_rows=slab_rows["d"], mf_mbconv_halo_slab_rows=slab_rows["e"],
+        zoo_halo_slab_rows=slab_rows["f"],
+        seconds=time.time() - t_phase)
     log(json.dumps({"spatial": res}))
     return failures
 

@@ -20,10 +20,14 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
                     weight=None) -> torch.Tensor:
     """Elementwise numerically-stable binary cross-entropy on logits
     (``F.binary_cross_entropy_with_logits(reduction='none')`` with the
-    optional elementwise ``weight``), in the logits' type."""
+    optional elementwise ``weight``), in the logits' type. At a logit of
+    exactly 0 (a ReLU'd feature map and a zero bias give many) the gradient
+    is JAX's: ``jnp.maximum`` splits the tie in half, and ``jnp.abs`` has
+    slope 1 there (``torch.abs`` 0)."""
     x = logits
     z = targets.to(x.dtype)
-    loss = torch.clamp(x, min=0.0) - x * z + torch.log1p(torch.exp(-x.abs()))
+    loss = (torch.maximum(x, x.new_zeros(())) - x * z
+            + torch.log1p(torch.exp(-torch.where(x >= 0, x, -x))))
     if weight is not None:
         loss = loss * weight.to(x.dtype)
     return loss

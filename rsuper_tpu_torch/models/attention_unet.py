@@ -1,6 +1,13 @@
 """Attention U-Net (counterpart of ``rsuper_tpu/models/attention_unet.py``),
 channels-last: a UNet whose skips pass through additive attention gates
-driven by the coarser decoder feature."""
+driven by the coarser decoder feature.
+
+With a ``spatial`` argument (``parallel/spatial.py``) every stage runs
+depth-sharded, as the JAX model does under ``spatial_constraint``: the 3³
+convs exchange halo planes, the norms sum over the model group, the pools
+need a local depth they divide, the resizes take a halo plane, the gates
+(1×1 convs and a sigmoid) are rank-local, and the logits come back
+sharded."""
 
 from __future__ import annotations
 
@@ -35,8 +42,8 @@ class _Double(nn.Module):
         self.ConvNormAct_0 = ConvNormAct(c_in, features, 3, dtype=dtype)
         self.ConvNormAct_1 = ConvNormAct(features, features, 3, dtype=dtype)
 
-    def forward(self, x):
-        return self.ConvNormAct_1(self.ConvNormAct_0(x))
+    def forward(self, x, spatial=None):
+        return self.ConvNormAct_1(self.ConvNormAct_0(x, spatial), spatial)
 
 
 class AttentionUNet(nn.Module):
@@ -60,17 +67,21 @@ class AttentionUNet(nn.Module):
             c_low = c
         self.outc = Conv1(b, num_classes, True, torch.float32)
 
-    def forward(self, x):
-        h = self._Double_0(x.to(self.dtype))
+    def forward(self, x, spatial=None):
+        """With `spatial`, `x` and the logits are the rank's depth
+        planes."""
+        h = self._Double_0(x.to(self.dtype), spatial)
         skips = [h]
         for i in range(1, 5):
-            h = getattr(self, f"_Double_{i}")(max_pool(h, (2, 2, 2)))
+            h = getattr(self, f"_Double_{i}")(max_pool(h, (2, 2, 2), spatial),
+                                              spatial)
             skips.append(h)
         out = skips[4]
         for i in range(4):
             skip = skips[3 - i]
-            out = resize_trilinear(out, skip.shape[1:4]).to(out.dtype)
+            out = resize_trilinear(out, skip.shape[1:4],
+                                   spatial=spatial).to(out.dtype)
             gated = getattr(self, f"AttentionGate_{i}")(out, skip)
             out = getattr(self, f"_Double_{5 + i}")(
-                torch.cat([out, gated], dim=-1))
+                torch.cat([out, gated], dim=-1), spatial)
         return {"segmentation": self.outc(out)}

@@ -28,9 +28,13 @@ rank's place in its model group) and then compute on the rank's run of
 depth planes (axis 1 in both layouts). A conv exchanges halo planes with
 its neighbours (``same_pads``' depth pads; the 3³ kernels take one plane
 each side and their own SAME padding at the volume's faces), a norm sums
-its statistics over the group, a half-pixel resize takes one halo plane
-each side (the face clamps as ``F.interpolate`` clamps), an align-corners
-one resizes the gathered volume.
+its statistics over the group, as the squeeze-and-excitation mean does its
+sum, a half-pixel resize takes one halo plane each side (the face clamps
+as ``F.interpolate`` clamps), an align-corners one resizes the gathered
+volume, and a transposed conv whose depth kernel equals its stride needs
+nothing (each output plane comes from one input plane). The per-voxel
+layers (``Conv1``, ``Dense``, ``Mlp``, ``LayerNorm``, the activations)
+need nothing either.
 """
 
 from __future__ import annotations
@@ -44,8 +48,8 @@ from torch import nn
 
 from ..ops.conv_cf import conv3x3x3_cf, in_relu_conv3x3x3_cf
 from ..ops.dwconv import depthwise_conv3x3x3
-from ..parallel.spatial import (gather_depth, halo_exchange, reduce_sum,
-                                shard_depth)
+from ..parallel.spatial import (gather_depth, group_sum, halo_exchange,
+                                reduce_sum, shard_depth)
 
 
 # ----------------------------------------------------------- normalisation
@@ -243,7 +247,10 @@ class ConvTranspose(nn.Module):
     the kernel as it is; torch's ``conv_transpose3d`` is the same product on
     the spatially flipped kernel. ``weight`` is torch's layout
     (C_in, C_out, kd, kh, kw), holding that flipped kernel
-    (``models/params.py`` flips it on the way across)."""
+    (``models/params.py`` flips it on the way across). With `spatial` the
+    depth is sharded: a depth kernel equal to the stride (the zoo's 2³,
+    stride 2) makes each output plane of one input plane, so the rank's
+    planes need no halo; any other raises."""
 
     def __init__(self, c_in: int, features: int, kernel_size=2, strides=2,
                  use_bias: bool = True, dtype=torch.float32):
@@ -263,7 +270,11 @@ class ConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
+        if spatial is not None and self.kernel[0] != self.strides[0]:
+            raise ValueError(
+                f"a sharded transposed conv needs a depth kernel equal to "
+                f"its stride, got {self.kernel[0]} and {self.strides[0]}")
         b = None if self.bias is None else self.bias.to(self.dtype)
         y = F.conv_transpose3d(
             x.to(self.dtype).permute(0, 4, 1, 2, 3), self.weight.to(self.dtype),
@@ -402,7 +413,9 @@ class DepthwiseSeparableConv(nn.Module):
 
 
 class SEBlock(nn.Module):
-    """Squeeze-and-excitation: f32 spatial mean → 1×1 → act → 1×1 → gate."""
+    """Squeeze-and-excitation: f32 spatial mean → 1×1 → act → 1×1 → gate.
+    With `spatial` the mean is the group's sum over the whole volume's
+    voxel count (``group_sum``)."""
 
     def __init__(self, c: int, ratio: int = 4, act: str = "relu",
                  dtype=torch.float32):
@@ -411,9 +424,14 @@ class SEBlock(nn.Module):
         self.Conv_1 = Conv1(c // ratio, c, True, dtype)
         self.act = make_act(act)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         axes = tuple(range(1, x.dim() - 1))
-        s = x.float().mean(dim=axes, keepdim=True).to(x.dtype)
+        if spatial is None:
+            s = x.float().mean(dim=axes, keepdim=True)
+        else:
+            n = math.prod(x.shape[a] for a in axes) * spatial.size
+            s = group_sum(x.float().sum(dim=axes, keepdim=True), spatial) / n
+        s = s.to(x.dtype)
         s = self.Conv_1(self.act(self.Conv_0(s)))
         return x * torch.sigmoid(s)
 
@@ -440,15 +458,13 @@ class _InvertedResidual(nn.Module):
             self.add_module(f"ConvNormAct_{i}", conv)
 
     def forward(self, x, spatial=None):
-        if spatial is not None:  # the models' check_spatial refuses these
-            raise NotImplementedError("a sharded squeeze-and-excitation block")
         out = x
         for i in range(self.n_main - 1):
-            out = getattr(self, f"ConvNormAct_{i}")(out)
+            out = getattr(self, f"ConvNormAct_{i}")(out, spatial)
         if self.se:
-            out = self.SEBlock_0(out)
-        out = getattr(self, f"ConvNormAct_{self.n_main - 1}")(out)
-        res = getattr(self, f"ConvNormAct_{self.n_main}")(x) \
+            out = self.SEBlock_0(out, spatial)
+        out = getattr(self, f"ConvNormAct_{self.n_main - 1}")(out, spatial)
+        res = getattr(self, f"ConvNormAct_{self.n_main}")(x, spatial) \
             if self.shortcut else x
         return out + res
 

@@ -34,13 +34,14 @@ With a ``spatial`` argument (``parallel/spatial.py``) the model computes
 on the rank's run of depth planes, as the JAX model does under
 ``spatial_constraint``: the stem, ``DownBlockMF_0``, ``UpBlockMF_2``,
 ``UpBlockMF_3`` and ``outc`` run depth-sharded (halo exchanges around the
-conv kernels, cross-shard sums in the norms); ``x1`` is gathered to whole
-volumes before ``DownBlockMF_1``, so the attention stages, the semantic
-maps, the heads and ``UpBlockMF_0``/``_1`` run replicated on every rank of
-the model group; ``UpBlockMF_2`` takes its rank's planes of the upsampled
-replicated input. The logits come back sharded, the aux head whole.
-``check_spatial`` refuses the configurations whose sharded stages hold
-attention or channels-last conv blocks.
+conv kernels, channel-first or channels-last, and the depthwise kernel;
+cross-shard sums in the norms and the squeeze-and-excitation means); ``x1``
+is gathered to whole volumes before ``DownBlockMF_1``, so the attention
+stages, the semantic maps, the heads and ``UpBlockMF_0``/``_1`` run
+replicated on every rank of the model group; ``UpBlockMF_2`` takes its
+rank's planes of the upsampled replicated input. An ``UpBlockMF_2`` or
+``_3`` with attention is gathered, run whole on every rank and sharded
+again. The logits come back sharded, the aux head whole.
 
 The JAX model's ``cf_fullres`` and ``cf_halfres`` choose the TPU's layout
 and leave its function and parameter tree unchanged (which
@@ -78,7 +79,7 @@ from .layers import (
     resize_trilinear,
     resize_trilinear_cf,
 )
-from ..parallel.spatial import UNPORTED_SPATIAL, gather_depth, shard_depth
+from ..parallel.spatial import gather_depth, shard_depth
 
 
 class SemanticMapGeneration(nn.Module):
@@ -401,10 +402,17 @@ class UpBlockMF(nn.Module):
 
     def forward(self, x_low, x_skip, map_low, map_skip=None, spatial=None,
                 low_whole=False):
-        """With `spatial` (a channel-first stage, ``cf``) the skip and the
-        output are the rank's depth planes, and so is the low input unless
-        `low_whole`: then every rank holds it whole, and the rank takes its
-        planes of the upsampled volume."""
+        """With `spatial` the skip and the output are the rank's depth
+        planes, and so is the low input unless `low_whole`: then every rank
+        holds it whole, and the rank takes its planes of the upsampled
+        volume. A stage with attention runs on the gathered volumes, whole
+        on every rank, and keeps the rank's planes of its output; the maps
+        are whole either way."""
+        if spatial is not None and self.trans_num:
+            low = x_low if low_whole else gather_depth(x_low, spatial)
+            feat, sem = self.forward(low, gather_depth(x_skip, spatial),
+                                     map_low, map_skip)
+            return shard_depth(feat, spatial), sem
         if self.cf:  # the resize reads the low input through a view
             low = x_low if self.low_cf else x_low.permute(0, 1, 4, 2, 3)
             skip = to_cf(x_skip, self.skip_cf)
@@ -420,8 +428,15 @@ class UpBlockMF(nn.Module):
             feat = torch.cat([x, skip.to(x.dtype)], dim=2)
         else:
             low, skip = to_cl(x_low, self.low_cf), to_cl(x_skip, self.skip_cf)
-            x = resize_trilinear(low, skip.shape[1:4],
-                                 self.align_corners).to(low.dtype)
+            sk = skip.shape
+            if spatial is not None and low_whole:
+                x = shard_depth(resize_trilinear(
+                    low, (sk[1] * spatial.size, sk[2], sk[3]),
+                    self.align_corners), spatial)
+            else:
+                x = resize_trilinear(low, sk[1:4], self.align_corners,
+                                     spatial)
+            x = x.to(low.dtype)
             feat = torch.cat([x, skip.to(x.dtype)], dim=-1)
         if self.map_shortcut and map_skip is not None:
             sem = self.Conv_0(torch.cat([map_low, map_skip], dim=-1))
@@ -617,18 +632,6 @@ class MedFormer(nn.Module):
             return checkpoint(block, *args, use_reentrant=False)
         return block(*args)
 
-    def check_spatial(self) -> None:
-        """Raise ``NotImplementedError`` unless the stages that spatial
-        sharding splits (the stem, ``DownBlockMF_0``, ``UpBlockMF_2`` and
-        ``UpBlockMF_3``) all run channel-first conv blocks without
-        attention, as the default configuration does."""
-        if not (self.stem_cf and self.DownBlockMF_0.cf_output
-                and self.UpBlockMF_2.cf and self.UpBlockMF_3.cf):
-            raise NotImplementedError(
-                "spatial sharding of a MedFormer whose full- and "
-                "half-resolution stages hold attention or channels-last "
-                f"conv blocks is not ported yet: {UNPORTED_SPATIAL}")
-
     def encoder(self, x, spatial=None):
         """The encoder: the skips ``x0`` … ``x3``, the deepest features
         ``x4`` and the three semantic maps, as a tuple in that order; a skip
@@ -638,8 +641,7 @@ class MedFormer(nn.Module):
         x0 = self.Conv_0(to_cf(x, False) if self.stem_cf else x, spatial)
         x0 = getattr(self, self.stem)(x0, spatial)
         x1, _ = self._block("DownBlockMF_0", x0, spatial)
-        x2, map2 = self._block("DownBlockMF_1", x1 if spatial is None
-                               else gather_depth(x1, spatial))
+        x2, map2 = self._block("DownBlockMF_1", gather_depth(x1, spatial))
         x3, map3 = self._block("DownBlockMF_2", x2)
         x4, map4 = self._block("DownBlockMF_3", x3)
         return x0, x1, x2, x3, x4, (map2, map3, map4)

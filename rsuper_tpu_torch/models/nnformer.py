@@ -6,6 +6,14 @@ stages with patch merging, a transformer decoder with patch expansion and
 additive skips, and the deep-supervision head ``aux_out``. VT-UNet: a 2³
 patch embedding, the same encoder, a decoder that concatenates each skip
 and projects it with a bias-free Dense.
+
+With a ``spatial`` argument (``parallel/spatial.py``) the conv stem (or
+patch embedding) runs on the rank's planes, as the JAX model does under
+``spatial_constraint``; its output is gathered, and the Swin encoder and
+decoder with their patch merges and expansions run whole on every rank of
+the model group (nnFormer's aux head too, whole). The last expansions to
+full resolution and the head are per voxel: they take the rank's planes
+of the decoder's output, so the logits come back sharded.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..parallel.spatial import gather_depth, shard_depth
 from .layers import Conv, Conv1, ConvNormAct, Dense, resize_trilinear
 from .swin_unetr import SwinPatchMerging, swin_stages
 
@@ -100,16 +109,22 @@ class NnFormer(_SwinUNet):
             self.aux_out = Conv1(2 * e, num_classes, True, torch.float32)
         self.outc = Conv1(e // 2, num_classes, True, torch.float32)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
+        """With `spatial`, `x` and the logits are the rank's depth planes;
+        the aux head is whole on every rank."""
         x = x.to(self.dtype)
-        skips = self.encode(self.ConvNormAct_1(self.ConvNormAct_0(x)))
+        skips = self.encode(gather_depth(self.ConvNormAct_1(
+            self.ConvNormAct_0(x, spatial), spatial), spatial))
         out, aux = skips[2], None
+        size = (x.shape[1] * (1 if spatial is None else spatial.size),
+                *x.shape[2:4])
         for s in (1, 0):
             out = getattr(self, f"_PatchExpand_{1 - s}")(out) + skips[s]
             out = self.decode_stage(out, s)
             if self.aux_loss and s == 1:
-                aux = resize_trilinear(self.aux_out(out), x.shape[1:4])
-        out = self._PatchExpand_3(self._PatchExpand_2(out))
+                aux = resize_trilinear(self.aux_out(out), size)
+        out = self._PatchExpand_3(self._PatchExpand_2(shard_depth(out,
+                                                                  spatial)))
         logits = self.outc(out)
         return {"segmentation": [logits, aux] if self.aux_loss else logits}
 
@@ -132,12 +147,16 @@ class VTUNet(_SwinUNet):
         self._PatchExpand_2 = _PatchExpand(e, e, dtype)
         self.outc = Conv1(e, num_classes, True, torch.float32)
 
-    def forward(self, x):
-        skips = self.encode(self.Conv_0(x.to(self.dtype)))
+    def forward(self, x, spatial=None):
+        """With `spatial`, `x` and the logits are the rank's depth
+        planes."""
+        skips = self.encode(gather_depth(self.Conv_0(x.to(self.dtype),
+                                                     spatial), spatial))
         out = skips[2]
         for s in (1, 0):
             out = getattr(self, f"_PatchExpand_{1 - s}")(out)
             out = getattr(self, f"Dense_{1 - s}")(
                 torch.cat([out, skips[s]], dim=-1))
             out = self.decode_stage(out, s)
-        return {"segmentation": self.outc(self._PatchExpand_2(out))}
+        return {"segmentation": self.outc(self._PatchExpand_2(
+            shard_depth(out, spatial)))}

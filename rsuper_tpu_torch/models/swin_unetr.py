@@ -8,6 +8,14 @@ shift mask and the relative-position index are built on the host with
 numpy (the port's own copy of that code) and kept on the device after
 their first use; cyclic shifts are ``torch.roll``; the softmax runs in
 float32.
+
+With a ``spatial`` argument (``parallel/spatial.py``) the conv parts run
+depth-sharded, as the JAX model does under ``spatial_constraint``: the
+patch embedding on the rank's planes, then its output is gathered and the
+Swin stages (windows, shifts, patch merges) run whole on every rank of the
+model group; each stage's planes of the rank go through its skip block, and
+the full-resolution block, the decoder and the head run sharded. Windows
+are not split across the ranks.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.spatial import gather_depth, shard_depth
 from .layers import BasicBlock, Conv, Conv1, ConvTranspose, Dense, \
     LayerNorm, Mlp
 
@@ -166,9 +175,10 @@ class _DecoderUp(nn.Module):
         self.BasicBlock_0 = BasicBlock(features + c_skip, features,
                                        dtype=dtype)
 
-    def forward(self, x, skip):
-        x = self.ConvTranspose_0(x)
-        return self.BasicBlock_0(torch.cat([x, skip.to(x.dtype)], dim=-1))
+    def forward(self, x, skip, spatial=None):
+        x = self.ConvTranspose_0(x, spatial)
+        return self.BasicBlock_0(torch.cat([x, skip.to(x.dtype)], dim=-1),
+                                 spatial)
 
 
 def swin_stages(module: nn.Module, dims: Sequence[int],
@@ -212,20 +222,23 @@ class SwinUNETR(nn.Module):
             self.add_module(f"_DecoderUp_{i}", _DecoderUp(c_in, c, c, dtype))
         self.outc = Conv1(f, num_classes, True, torch.float32)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
+        """With `spatial`, `x` and the logits are the rank's depth
+        planes."""
         x = x.to(self.dtype)
-        t = self.Conv_0(x)
+        t = gather_depth(self.Conv_0(x, spatial), spatial)
         feats, i = [], 0
         for s, depth in enumerate(self.depths):
             for _ in range(depth):
                 t = getattr(self, f"SwinBlock_{i}")(t)
                 i += 1
-            feats.append(t)
+            feats.append(shard_depth(t, spatial))
             if s < 3:
                 t = getattr(self, f"SwinPatchMerging_{s}")(t)
-        enc = [self.BasicBlock_0(x)] + [
-            getattr(self, f"BasicBlock_{s + 1}")(feats[s]) for s in range(3)]
-        out = self.BasicBlock_4(feats[3])
+        enc = [self.BasicBlock_0(x, spatial)] + [
+            getattr(self, f"BasicBlock_{s + 1}")(feats[s], spatial)
+            for s in range(3)]
+        out = self.BasicBlock_4(feats[3], spatial)
         for i in range(4):
-            out = getattr(self, f"_DecoderUp_{i}")(out, enc[3 - i])
+            out = getattr(self, f"_DecoderUp_{i}")(out, enc[3 - i], spatial)
         return {"segmentation": self.outc(out)}

@@ -16,8 +16,9 @@ With a ``spatial`` argument (``parallel/spatial.py``) every stage runs
 depth-sharded down to the deepest, as the JAX model does under
 ``spatial_constraint``: the convs exchange halo planes, the norms sum
 over the model group, the strided convs and the pools need a local depth
-their stride divides, and the outputs come back sharded.
-``check_spatial`` refuses the blocks with squeeze-and-excitation.
+their stride divides, and the outputs come back sharded. Every block
+shards: the squeeze-and-excitation mean of ``MBConv`` and ``FusedMBConv``
+sums over the model group.
 """
 
 from __future__ import annotations
@@ -28,11 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.spatial import UNPORTED_SPATIAL
 from .layers import BLOCKS, Conv, Conv1, resize_trilinear
-
-# the blocks whose convs and norms take ``spatial``
-SPATIAL_BLOCKS = ("ConvNormAct", "BasicBlock", "Bottleneck")
 
 
 def _scale3(s):
@@ -46,9 +43,13 @@ def _block(name: str):
     return BLOCKS[name]
 
 
-def max_pool(x, scale):
+def max_pool(x, scale, spatial=None):
     """flax ``nn.max_pool(x, scale, strides=scale)`` (VALID: odd sizes
-    floor) on (B, D, H, W, C)."""
+    floor) on (B, D, H, W, C); with `spatial` (the depth sharded) the
+    rank's planes, whose count the depth scale must divide."""
+    if spatial is not None and x.shape[1] % scale[0]:
+        raise ValueError(f"a sharded pool by {scale[0]} in depth needs a "
+                         f"local depth it divides, got {x.shape[1]}")
     y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), scale, scale)
     return y.permute(0, 2, 3, 4, 1)
 
@@ -72,11 +73,7 @@ class DownBlock(nn.Module):
 
     def forward(self, x, spatial=None):
         if self.pool is not None:
-            if spatial is not None and x.shape[1] % self.pool[0]:
-                raise ValueError(f"a sharded pool by {self.pool[0]} in depth "
-                                 f"needs a local depth it divides, got "
-                                 f"{x.shape[1]}")
-            x = max_pool(x, self.pool)
+            x = max_pool(x, self.pool, spatial)
         for name in self.names:
             x = getattr(self, name)(x, spatial)
         return x
@@ -114,7 +111,7 @@ class UNet3D(nn.Module):
         super().__init__()
         b = base_chan
         Block = _block(block)
-        self.aux_head, self.dtype, self.block = aux_head, dtype, block
+        self.aux_head, self.dtype = aux_head, dtype
         self.Conv_0 = Conv(1, b, 3, use_bias=False, dtype=dtype)
         self.stem = f"{block}_0"
         self.add_module(self.stem, Block(b, b, kernel_size=kernel_size[0],
@@ -134,14 +131,6 @@ class UNet3D(nn.Module):
         if aux_head:
             self.aux_out = Conv1(4 * b, num_classes, True, dtype)
         self.outc = Conv1(b, num_classes, True, dtype)
-
-    def check_spatial(self) -> None:
-        """Raise ``NotImplementedError`` for the blocks that spatial
-        sharding does not split yet."""
-        if self.block not in SPATIAL_BLOCKS:
-            raise NotImplementedError(
-                f"spatial sharding of {self.block} UNets is not ported yet: "
-                f"{UNPORTED_SPATIAL}")
 
     def forward(self, x, spatial=None):
         """With `spatial`, `x` and every output are the rank's depth

@@ -1,6 +1,11 @@
 """UNet++ (counterpart of ``rsuper_tpu/models/unetpp.py``), channels-last:
 nested dense skip pathways X^{i,j}, each decoder node the concatenation of
-its same-resolution predecessors and the upsampled deeper node."""
+its same-resolution predecessors and the upsampled deeper node.
+
+With a ``spatial`` argument (``parallel/spatial.py``) every node runs
+depth-sharded, as the JAX model does under ``spatial_constraint``: halo
+exchanges in the convs and the resizes, group sums in the norms, pools on
+a local depth they divide; the logits come back sharded."""
 
 from __future__ import annotations
 
@@ -19,8 +24,8 @@ class _Block(nn.Module):
         self.ConvNormAct_0 = ConvNormAct(c_in, features, 3, dtype=dtype)
         self.ConvNormAct_1 = ConvNormAct(features, features, 3, dtype=dtype)
 
-    def forward(self, x):
-        return self.ConvNormAct_1(self.ConvNormAct_0(x))
+    def forward(self, x, spatial=None):
+        return self.ConvNormAct_1(self.ConvNormAct_0(x, spatial), spatial)
 
 
 class UNetPlusPlus(nn.Module):
@@ -41,18 +46,21 @@ class UNetPlusPlus(nn.Module):
                     j * chans[i] + chans[i + 1], chans[i], dtype))
         self.outc = Conv1(chans[0], num_classes, True, torch.float32)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
+        """With `spatial`, `x` and the logits are the rank's depth
+        planes."""
         grid = {}
         h = x.to(self.dtype)
         for i in range(self.depth + 1):
             if i > 0:
-                h = max_pool(grid[(i - 1, 0)], (2, 2, 2))
-            h = grid[(i, 0)] = getattr(self, f"x{i}_0")(h)
+                h = max_pool(grid[(i - 1, 0)], (2, 2, 2), spatial)
+            h = grid[(i, 0)] = getattr(self, f"x{i}_0")(h, spatial)
         for j in range(1, self.depth + 1):
             for i in range(self.depth + 1 - j):
                 up = resize_trilinear(grid[(i + 1, j - 1)],
-                                      grid[(i, 0)].shape[1:4]).to(self.dtype)
+                                      grid[(i, 0)].shape[1:4],
+                                      spatial=spatial).to(self.dtype)
                 cat = torch.cat([grid[(i, k)] for k in range(j)] + [up],
                                 dim=-1)
-                grid[(i, j)] = getattr(self, f"x{i}_{j}")(cat)
+                grid[(i, j)] = getattr(self, f"x{i}_{j}")(cat, spatial)
         return {"segmentation": self.outc(grid[(0, self.depth)])}

@@ -1,6 +1,16 @@
 """UNETR (counterpart of ``rsuper_tpu/models/unetr.py``), channels-last: a
 ViT encoder over 16³ patches whose hidden states at four depths are
-reshaped to volumes and deconvolved, merged by a residual-conv decoder."""
+reshaped to volumes and deconvolved, merged by a residual-conv decoder.
+
+With a ``spatial`` argument (``parallel/spatial.py``) the conv parts run
+depth-sharded, as the JAX model does under ``spatial_constraint``: the
+patch embedding on the rank's planes (a local depth of whole patches),
+then the tokens are gathered and the ViT runs whole on every rank of the
+model group; each hidden state's planes of the rank go through the deconv
+chains, and the full-resolution block, the decoder and the head run
+sharded (halo exchanges, group sums in the norms). The logits come back
+sharded.
+"""
 
 from __future__ import annotations
 
@@ -9,6 +19,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from ..parallel.spatial import gather_depth, shard_depth
 from .layers import BasicBlock, Conv, Conv1, ConvTranspose, TransformerBlock
 
 PATCH = 16
@@ -27,10 +38,10 @@ class _DeconvBlock(nn.Module):
             self.add_module(f"BasicBlock_{i}",
                             BasicBlock(features, features, dtype=dtype))
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         for i in range(self.n_ups):
-            x = getattr(self, f"ConvTranspose_{i}")(x)
-            x = getattr(self, f"BasicBlock_{i}")(x)
+            x = getattr(self, f"ConvTranspose_{i}")(x, spatial)
+            x = getattr(self, f"BasicBlock_{i}")(x, spatial)
         return x
 
 
@@ -45,9 +56,10 @@ class _UpBlock(nn.Module):
         self.BasicBlock_0 = BasicBlock(features + c_skip, features,
                                        dtype=dtype)
 
-    def forward(self, x, skip):
-        x = self.ConvTranspose_0(x)
-        return self.BasicBlock_0(torch.cat([x, skip.to(x.dtype)], dim=-1))
+    def forward(self, x, skip, spatial=None):
+        x = self.ConvTranspose_0(x, spatial)
+        return self.BasicBlock_0(torch.cat([x, skip.to(x.dtype)], dim=-1),
+                                 spatial)
 
 
 class UNETR(nn.Module):
@@ -84,19 +96,23 @@ class UNETR(nn.Module):
             c_in = c
         self.outc = Conv1(f, num_classes, True, torch.float32)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
+        """With `spatial`, `x` and the logits are the rank's depth
+        planes."""
         B = x.shape[0]
         x = x.to(self.dtype)
-        tok = self.Conv_0(x).reshape(B, -1, self.hidden)
-        tok = tok + self.pos_embed.to(tok.dtype)
+        tok = gather_depth(self.Conv_0(x, spatial), spatial)
+        tok = tok.reshape(B, -1, self.hidden) + self.pos_embed.to(tok.dtype)
         hidden = []
         for i in range(self.num_layers):
             tok = getattr(self, f"TransformerBlock_{i}")(tok)
             if i + 1 in self.extract:
-                hidden.append(tok.reshape(B, *self.grid, self.hidden))
-        enc = [self.BasicBlock_0(x)] + [
-            getattr(self, f"_DeconvBlock_{i}")(hidden[i]) for i in range(3)]
+                hidden.append(shard_depth(
+                    tok.reshape(B, *self.grid, self.hidden), spatial))
+        enc = [self.BasicBlock_0(x, spatial)] + [
+            getattr(self, f"_DeconvBlock_{i}")(hidden[i], spatial)
+            for i in range(3)]
         out = hidden[3]
         for i in range(4):
-            out = getattr(self, f"_UpBlock_{i}")(out, enc[3 - i])
+            out = getattr(self, f"_UpBlock_{i}")(out, enc[3 - i], spatial)
         return {"segmentation": self.outc(out)}

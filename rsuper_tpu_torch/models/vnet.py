@@ -4,6 +4,12 @@
 conv up transitions, skip concatenation in the decoder, PReLU, and instance
 norm where the reference has its always-training BatchNorm (as in the JAX
 package).
+
+With a ``spatial`` argument (``parallel/spatial.py``) every stage runs
+depth-sharded, as the JAX model does under ``spatial_constraint``: the 5³
+convs exchange two halo planes a side, the strided 2³ convs and the 2³
+transposed convs need none (a local depth their stride divides), the norms
+sum over the model group, and the logits come back sharded.
 """
 
 from __future__ import annotations
@@ -31,8 +37,9 @@ class LUConv(nn.Module):
         self.Conv_0 = Conv(c_in, features, 5, dtype=dtype)
         self.PReLU_0 = PReLU(features)
 
-    def forward(self, x):
-        return self.PReLU_0(instance_norm(self.Conv_0(x)))
+    def forward(self, x, spatial=None):
+        return self.PReLU_0(instance_norm(self.Conv_0(x, spatial),
+                                          spatial=spatial))
 
 
 class DownTransition(nn.Module):
@@ -46,11 +53,12 @@ class DownTransition(nn.Module):
             self.add_module(f"LUConv_{i}", LUConv(features, features, dtype))
         self.PReLU_1 = PReLU(features)
 
-    def forward(self, x):
-        down = self.PReLU_0(instance_norm(self.Conv_0(x)))
+    def forward(self, x, spatial=None):
+        down = self.PReLU_0(instance_norm(self.Conv_0(x, spatial),
+                                          spatial=spatial))
         h = down
         for i in range(self.n_convs):
-            h = getattr(self, f"LUConv_{i}")(h)
+            h = getattr(self, f"LUConv_{i}")(h, spatial)
         return self.PReLU_1(h + down)
 
 
@@ -68,12 +76,13 @@ class UpTransition(nn.Module):
                 c_cat if i == 0 else features, features, dtype))
         self.PReLU_1 = PReLU(features)
 
-    def forward(self, x, skip):
-        up = self.PReLU_0(instance_norm(self.ConvTranspose_0(x)))
+    def forward(self, x, skip, spatial=None):
+        up = self.PReLU_0(instance_norm(self.ConvTranspose_0(x, spatial),
+                                        spatial=spatial))
         cat = torch.cat([up, skip.to(up.dtype)], dim=-1)
         h = cat
         for i in range(self.n_convs):
-            h = getattr(self, f"LUConv_{i}")(h)
+            h = getattr(self, f"LUConv_{i}")(h, spatial)
         return self.PReLU_1(h + cat)
 
 
@@ -100,17 +109,20 @@ class VNet(nn.Module):
                             UpTransition(c_in, c_skip, c, n, dtype))
         self.outc = Conv1(2 * b, num_classes, True, torch.float32)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
+        """With `spatial`, `x` and the logits are the rank's depth
+        planes."""
         x = x.to(self.dtype)
-        h = instance_norm(self.Conv_0(x))
+        h = instance_norm(self.Conv_0(x, spatial), spatial=spatial)
         # the input residual: the input's channels repeated (jnp.repeat
         # interleaves) across the features
         rep = h.shape[-1] // x.shape[-1]
         h = self.PReLU_0(h + x.repeat_interleave(rep, dim=-1))
         skips = [h]
         for i in range(4):
-            skips.append(getattr(self, f"DownTransition_{i}")(skips[-1]))
+            skips.append(getattr(self, f"DownTransition_{i}")(skips[-1],
+                                                              spatial))
         h = skips[4]
         for i in range(4):
-            h = getattr(self, f"UpTransition_{i}")(h, skips[3 - i])
+            h = getattr(self, f"UpTransition_{i}")(h, skips[3 - i], spatial)
         return {"segmentation": self.outc(h)}

@@ -20,7 +20,15 @@ these autograd functions:
   kernel's own SAME padding serves the face); its backward returns the
   halo planes' gradients to their owners and adds them there;
 * ``reduce_sum``: the instance norms' cross-shard sums (no autograd: the
-  norms' backwards sum their own means).
+  norms' backwards sum their own means);
+* ``group_sum``: a sum over the group with autograd (the
+  squeeze-and-excitation mean): its backward sums the ranks' partial
+  gradients, as the norms' backwards sum theirs.
+
+A stage that mixes the whole volume (attention, shifted windows, a ViT)
+runs on ``gather_depth``'s whole volumes on every rank of the group, and
+``shard_depth`` takes the rank's planes of its output: the stage's
+gradient partials then sum over the group as a sharded stage's do.
 
 Every exchange is an ``all_gather`` or an ``all_reduce`` on the model
 group, which NCCL and gloo both run on CUDA tensors. ``TRAFFIC`` counts
@@ -44,8 +52,8 @@ import torch
 import torch.distributed as dist
 
 # what names the sharding that is not ported yet
-UNPORTED_SPATIAL = ("ROADMAP.md §1 item 10 (spatial sharding of the other "
-                    "archs and the 2D pathway)")
+UNPORTED_SPATIAL = ("ROADMAP.md §1 item 10 (spatial sharding of the 2D "
+                    "pathway)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +124,24 @@ def reduce_sum(t: torch.Tensor, sp: Spatial) -> torch.Tensor:
     """A copy of `t` summed over the model group, no autograd: the
     cross-shard sums of the instance norms."""
     return _all_reduce_(t.detach().contiguous().clone(), sp, "norm")
+
+
+class _GroupSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, sp):
+        ctx.sp = sp
+        return reduce_sum(t, sp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_sum(g, ctx.sp), None
+
+
+def group_sum(t: torch.Tensor, sp: Spatial) -> torch.Tensor:
+    """`t` summed over the model group, differentiable: every rank computes
+    on the sum, so each rank's gradient of it is a partial, and the
+    backward sums them (the gradient of each rank's own term)."""
+    return _GroupSum.apply(t, sp)
 
 
 # ------------------------------------------------------------- halos
@@ -209,7 +235,10 @@ class _ShardDepth(torch.autograd.Function):
 
 def shard_depth(x: torch.Tensor, sp: Spatial) -> torch.Tensor:
     """The rank's run of depth planes of `x`, which every rank of the
-    group holds whole; the depth must divide by the group's size."""
+    group holds whole; the depth must divide by the group's size. `x`
+    itself without `sp`."""
+    if sp is None:
+        return x
     if x.shape[1] % sp.size:
         raise ValueError(f"depth {x.shape[1]} does not divide over "
                          f"{sp.size} spatial shards")
@@ -229,8 +258,9 @@ class _GatherDepth(torch.autograd.Function):
 
 
 def gather_depth(x: torch.Tensor, sp: Spatial) -> torch.Tensor:
-    """The whole depth of a sharded tensor on every rank of the group."""
-    return _GatherDepth.apply(x, sp)
+    """The whole depth of a sharded tensor on every rank of the group; `x`
+    itself without `sp`."""
+    return x if sp is None else _GatherDepth.apply(x, sp)
 
 
 def gather_segmentation(out: dict, sp: Spatial, depth: int) -> dict:

@@ -41,10 +41,10 @@ With ``spatial_shard`` S > 1 the ranks form a ``data × model`` grid
 key on the data rank d, so the S ranks of model group d load and augment
 the same items, and the step runs the model on each rank's run of depth
 planes (``train/step.py``). The JAX loop's rules hold: S divides the ranks,
-and ``training_size[0] // 16 >= 2·S``. The MedFormer and UNet presets
-shard (``check_spatial``); every other arch and the 2D pathway raise
-``NotImplementedError`` naming ROADMAP.md §1 item 10. Validation and
-checkpoints stay unsharded, as the JAX loop's eval step is.
+and ``training_size[0] // 16 >= 2·S``. Every 3D arch shards; the 2D
+pathway (a 2D config or a ``*_2d`` arch) raises ``NotImplementedError``
+naming ROADMAP.md §1 item 10. Validation and checkpoints stay unsharded, as the
+JAX loop's eval step is.
 """
 
 from __future__ import annotations
@@ -80,8 +80,6 @@ from .validation import run_validation, validation_model
 ROADMAP = {
     "spatial": UNPORTED_SPATIAL,
 }
-# the archs whose models shard their depth (``check_spatial``)
-SPATIAL_ARCHS = ("medformer", "resunet", "unet")
 
 Draws = Callable[[int, int, int], AugmentDraws]
 
@@ -95,9 +93,9 @@ def check_config(cfg: TrainConfig) -> None:
     for the spatial sharding the JAX loop refuses."""
     sp = cfg.spatial_shard
     if sp > 1:
-        if cfg.is_2d or cfg.arch not in SPATIAL_ARCHS:
-            what = "the 2D pathway" if cfg.is_2d else f"arch {cfg.arch!r}"
-            raise unported(f"spatial_shard={sp} of {what}", "spatial")
+        if cfg.is_2d or cfg.arch.endswith("_2d"):
+            raise unported(f"spatial_shard={sp} of the 2D pathway "
+                           f"(arch {cfg.arch!r})", "spatial")
         # the JAX loop's guard, with its message: its XLA conv gradients
         # were wrong below 2 planes a shard (the port's layers raise where
         # a stride does not divide a rank's planes)
@@ -182,11 +180,9 @@ def train(
     check_config(cfg)
     device = resolve_device(device)
     dp = current(cfg.spatial_shard)
-    if cfg.spatial_shard > 1:
-        if dp is None:  # one process is one device
-            raise ValueError(f"spatial_shard {cfg.spatial_shard} must "
-                             "divide the 1 available devices")
-        model.check_spatial()
+    if cfg.spatial_shard > 1 and dp is None:  # one process is one device
+        raise ValueError(f"spatial_shard {cfg.spatial_shard} must divide "
+                         "the 1 available devices")
     world = 1 if dp is None else dp.world
     # this rank's places in the global batch (raises unless world divides it)
     rows = None if world == 1 else local_rows(cfg.batch_size, dp.rank, world)

@@ -455,7 +455,8 @@ def test_presets_and_class_lists_match_the_jax_package():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--arch", "unetr", "--spatial_shard", "2"], "item 10 "),
+    (["--arch", "unet_2d", "--dimension", "2d", "--spatial_shard", "2"],
+     "item 10 "),
     (["--preset", "slices/resunet_2d", "--spatial_shard", "2"], "item 10 "),
 ])
 def test_unported_cli_options_raise(tmp_path, flags, item):
@@ -467,8 +468,9 @@ def test_unported_cli_options_raise(tmp_path, flags, item):
     ("spatial_shard", 2, "item 10 "),
 ])
 def test_unported_config_fields_raise(tmp_path, field, value, item):
-    # the field on an arch whose model does not shard its depth yet
-    cfg = load_config(PRESET, overrides={field: value, "arch": "vnet"})
+    # the field on the 2D pathway, whose models do not shard yet
+    cfg = load_config(PRESET, overrides={field: value, "arch": "unet_2d",
+                                         "training_size": (64, 64)})
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
         loop.train(cfg, None, [], device="cpu")
 

@@ -302,12 +302,13 @@ UNITS = ["halo_zeros_11", "halo_zeros_01", "halo_zeros_21", "halo_drop_11",
          "halo_drop_01", "halo_drop_21", "shard_depth", "gather_depth",
          "reduce_sum", "conv_k3_s1", "conv_k3_s2", "conv_k1_s1",
          "conv_k2_s2", "resize_x2", "resize_x4", "resize_x1",
-         "resize_align_corners", "resize_cf_x2"]
-# float32 inside whatever the input: the norm's statistics and the CUDA
-# kernels' plain versions
+         "resize_align_corners", "resize_cf_x2", "conv_transpose_k2_s2"]
+# float32 inside whatever the input: the norm's statistics, the CUDA
+# kernels' plain versions, the SE mean, softmax and LayerNorm
 UNITS32 = ["instance_norm", "conv3x3x3_cf", "in_relu_conv3x3x3_cf",
            "in_stats_cf", "in_relu_bwd", "in_relu_conv_plain",
-           "depthwise_conv3x3x3"]
+           "depthwise_conv3x3x3", "se_block", "mbconv", "fused_mbconv",
+           "token_stage", "per_voxel"]
 
 
 @pytest.mark.parametrize("job", ["mf", "units"], ids=["S2", "S4"])

@@ -15,7 +15,10 @@ at 127.0.0.1:PORT and writes what it saw to ``OUT/JOB{RANK}.pt``:
   sharded convs, norms, fused prologue, depthwise conv and resizes, each
   against its unsharded self on the whole volume, as relative errors;
 * job ``units`` (1 × 4): the unit checks again, where the middle ranks
-  exchange halos with two neighbours.
+  exchange halos with two neighbours;
+* job ``configs`` (1 × 2, INPUTS ``-``: seeded weights and volumes): each
+  MedFormer configuration and UNet block of ``MF_CONFIGS`` and
+  ``UNET_BLOCKS`` on the rank's planes against its whole volume.
 
 ``... one MODEL INPUTS OUT`` writes the port's one-process steps of MODEL
 (``res`` or ``mf``) on the whole batches to ``OUT/one_MODEL.pt`` (an item at
@@ -25,8 +28,10 @@ floor of its float32 gradients.
 
 Below: the CLI through its local spawner (``--dist_num_processes 2
 --spatial_shard 2``, then a one-process resume; world 4 with ZeRO-1), the
-loop's guards with the JAX loop's messages, and the configurations that
-still raise ``NotImplementedError`` naming ROADMAP.md §1 item 10.
+loop's guards with the JAX loop's messages, every 3D arch, MedFormer
+configuration and UNet block accepted (the latter two sharded by job
+``configs``), and the 2D pathway, which still raises
+``NotImplementedError`` naming ROADMAP.md §1 item 10.
 """
 
 import json
@@ -288,6 +293,143 @@ def _fused_pieces(sp, out):
     torch.nn.init.normal_(dw.kernel, generator=g)
     out["depthwise_conv3x3x3"] = _compare(lambda t, sp_: dw(t, sp_), xcl,
                                           [dw.kernel], sp)
+    return _zoo_pieces(sp, out)
+
+
+def _seeded(module, g):
+    """`module` with every parameter drawn from `g` (normal, scaled down
+    so the deeper pieces stay in range)."""
+    for p in module.parameters():
+        torch.nn.init.normal_(p, std=0.5, generator=g)
+    return module
+
+
+def _zoo_pieces(sp, out):
+    """The layers the 3D zoo shards with: the 2³ transposed conv (float64),
+    and in float32 (their statistics, softmax and LayerNorm are float32
+    inside) the squeeze-and-excitation block, whole MBConv and FusedMBConv
+    blocks, a token stage run whole between ``gather_depth`` and
+    ``shard_depth`` (a ViT block over the flattened volume), and the
+    per-voxel layers, which take the rank's planes as they are. The blocks
+    run without norm: an instance norm after the SE gate divides its
+    per-channel scale out again, which leaves the SE weights a gradient of
+    rounding noise alone."""
+    from rsuper_tpu_torch.models import layers as L
+    from rsuper_tpu_torch.models.vnet import PReLU
+    from rsuper_tpu_torch.parallel import spatial as S
+
+    g = torch.Generator().manual_seed(4)
+    f64 = torch.float64
+    x = torch.randn(2, 4 * sp.size, 6, 5, 3, generator=g, dtype=f64)
+    up = _seeded(L.ConvTranspose(3, 4, 2, 2, dtype=f64).double(), g)
+    out["conv_transpose_k2_s2"] = _compare(lambda t, sp_: up(t, sp_), x,
+                                           list(up.parameters()), sp)
+    x = torch.randn(2, 4 * sp.size, 6, 5, 8, generator=g) + 0.5
+    se = _seeded(L.SEBlock(8), g)
+    out["se_block"] = _compare(lambda t, sp_: se(t, sp_), x,
+                               list(se.parameters()), sp)
+    for name, Block in (("mbconv", L.MBConv), ("fused_mbconv",
+                                               L.FusedMBConv)):
+        blk = _seeded(Block(8, 6, expansion=2, act="gelu", norm="none"), g)
+        out[name] = _compare(lambda t, sp_, b=blk: b(t, sp_), x,
+                             list(blk.parameters()), sp)
+    tb = _seeded(L.TransformerBlock(8, 1, 2, 4, 16), g)
+
+    def tokens(t):
+        return tb(t.reshape(t.shape[0], -1, 8)).reshape(t.shape)
+
+    out["token_stage"] = _compare(
+        lambda t, sp_: tokens(t) if sp_ is None else S.shard_depth(
+            tokens(S.gather_depth(t, sp_)), sp_), x, list(tb.parameters()),
+        sp)
+    ln, mlp, act = L.LayerNorm(8), _seeded(L.Mlp(8, 16), g), PReLU(8)
+    torch.nn.init.ones_(ln.weight)
+    torch.nn.init.zeros_(ln.bias)
+    torch.nn.init.constant_(act.alpha, 0.25)
+    pieces = [*ln.parameters(), *mlp.parameters(), act.alpha]
+    out["per_voxel"] = _compare(lambda t, sp_: act(mlp(ln(t))), x, pieces,
+                                sp)
+    return out
+
+
+# -------------------------------------------------- whole configurations
+# the MedFormer configurations and UNet blocks whose stages shard beside
+# the default ones: attention in UpBlockMF_2 (gathered, run whole, sharded
+# again), channels-last MBConv/FusedMBConv stages, no norm; UNets of every
+# block, squeeze-and-excitation included
+MF_CONFIGS = {
+    "attention_in_up2": dict(trans_num=(0, 1, 2, 1, 1, 1, 1, 0),
+                             chan_num=(8, 16, 32, 40, 32, 16, 16, 4)),
+    "mbconv": dict(conv_block="MBConv"),
+    "fused_mbconv": dict(conv_block="FusedMBConv"),
+    "no_norm": dict(norm="none"),
+}
+UNET_BLOCKS = ("ConvNormAct", "BasicBlock", "Bottleneck", "MBConv",
+               "FusedMBConv")
+CONFIG_SHAPE = MF_SHAPE
+# gradients: ‖Δg‖ ≤ max(CONFIG_GRAD_TOL, 4·min(ρ, CONFIG_RHO_MAX))·(‖g‖ +
+# 1e-3·max‖g‖) per parameter, ρ the parameter's relative move under one
+# float32 rounding of the input (the bounds of tests/test_torch_train.py
+# and tests/test_torch_spatial.py: the float32 kernels' plain versions
+# leave no float64 run)
+CONFIG_LOGITS_TOL, CONFIG_GRAD_TOL, CONFIG_RHO_MAX = 1e-4, 2e-3, 2e-2
+
+
+def config_model(case: str):
+    """A MedFormer configuration (TINY's widths) or a UNet block (base 4),
+    float32, seeded weights."""
+    from rsuper_tpu_torch.models import get_model, init_params
+
+    if case in MF_CONFIGS:
+        m = get_model("medformer", len(CLASSES), {**TINY, **MF_CONFIGS[case]},
+                      dtype=torch.float32)
+    else:
+        m = get_model("unet", len(CLASSES), {"base_chan": 4, "block": case},
+                      dtype=torch.float32)
+    return init_params(m, seed=0)
+
+
+def configs(sp):
+    """Each configuration's forward on the rank's planes against its
+    forward on the whole volume, float32: the full-resolution logits' max
+    relative error, and per parameter ‖Δg‖ of the gradients under a seeded
+    cotangent (the rank's summed over the group), ‖g‖ and the move ‖g' −
+    g‖ of the whole volume's gradient when the input moves by one float32
+    rounding."""
+    from rsuper_tpu_torch.parallel import spatial as S
+
+    out = {}
+    for case in (*MF_CONFIGS, *UNET_BLOCKS):
+        m = config_model(case)
+        g = torch.Generator().manual_seed(6)
+        x = torch.randn(1, *CONFIG_SHAPE, 1, generator=g)
+        sign = torch.rand(x.shape, generator=g) > 0.5
+        xn = x * (1 + NUDGE * (2 * sign.float() - 1))
+
+        def logits(t, sp_):
+            seg = m(t, sp_)["segmentation"]
+            return seg[0] if isinstance(seg, (list, tuple)) else seg
+
+        def grads(t, sp_, gy):
+            m.zero_grad(set_to_none=True)
+            y = logits(t if sp_ is None else S.shard_depth(t, sp_), sp_)
+            y = y if sp_ is None else S.gather_depth(y, sp_)
+            (y * gy / (1 if sp_ is None else sp_.size)).sum().backward()
+            return y.detach(), {
+                k: p.grad.clone() if sp_ is None else S.reduce_sum(p.grad, sp_)
+                for k, p in m.named_parameters() if p.grad is not None}
+
+        with torch.no_grad():
+            shape = logits(x, None).shape
+        gy = torch.randn(shape, generator=g)
+        yw, whole = grads(x, None, gy)
+        _, moved = grads(xn, None, gy)
+        yl, local = grads(x, sp, gy)
+        assert sorted(local) == sorted(whole), case
+        out[case] = dict(
+            logits=_rel(yl, yw),
+            grads={k: (float((local[k] - w).norm()), float(w.norm()),
+                       float((moved[k] - w).norm())) for k, w in whole.items()})
     return out
 
 
@@ -332,10 +474,12 @@ def run_rank(job: str, rank: int, world: int, S: int, port: int,
                             world_size=world, rank=rank)
     try:
         dp = grid(S)
-        data = torch.load(inputs, weights_only=False)
-        if job == "units":
+        if job == "configs":  # seeded weights and inputs: no input file
+            res = {"configs": configs(dp.spatial)}
+        elif job == "units":
             res = {"units": units(dp.spatial)}
         else:
+            data = torch.load(inputs, weights_only=False)
             res = (_job_res if job == "res" else _job_mf)(data, dp)
         res["place"] = (dp.rank, dp.world, dp.spatial.rank, dp.spatial.size)
         torch.save(res, os.path.join(out, f"{job}{rank}.pt"))
@@ -385,12 +529,19 @@ def test_loop_guards_keep_the_jax_loops_messages(tmp_path):
         loop.train(cfg, medformer(), [None], device="cpu")
 
 
+# the 2D pathway: every 2D arch of the factory (rows in the JAX package)
+ARCHS_2D = ("unet_2d", "resunet_2d", "attention_unet_2d",
+            "dual_attention_unet_2d", "transunet_2d", "swin_unet_2d",
+            "unetpp_2d", "medformer_2d")
+ARCHS_3D = ("unet", "resunet", "medformer", "vnet", "unetr",
+            "attention_unet", "unetpp", "swin_unetr", "nnformer", "vtunet")
+
+
 @pytest.mark.parametrize("overrides", [
-    {"arch": "vnet"}, {"arch": "unetr"}, {"arch": "swin_unetr"},
-    {"arch": "attention_unet"}, {"arch": "unetpp"}, {"arch": "nnformer"},
-    {"arch": "vtunet"}, {"arch": "resunet_2d", "training_size": (64, 64)},
-], ids=lambda o: o["arch"])
+    {"arch": a, "training_size": (64, 64)} for a in ARCHS_2D],
+    ids=lambda o: o["arch"])
 def test_other_archs_raise_naming_item_10(overrides):
+    """The 2D pathway alone still raises, naming its item."""
     from rsuper_tpu_torch.config import load_config
     from rsuper_tpu_torch.train import loop
 
@@ -401,31 +552,79 @@ def test_other_archs_raise_naming_item_10(overrides):
         loop.check_config(cfg)
 
 
-@pytest.mark.parametrize("args", [
-    dict(trans_num=(0, 1, 2, 1, 1, 1, 1, 0), chan_num=(8, 16, 32, 40, 32,
-                                                       16, 16, 4)),
-    dict(conv_block="MBConv"),
-    dict(norm="none"),
-], ids=["attention_in_up2", "mbconv", "no_norm"])
-def test_medformer_without_sharded_cf_stages_raises(args):
-    from rsuper_tpu_torch.models import get_model
+@pytest.mark.parametrize("arch", ARCHS_3D)
+def test_every_3d_arch_passes_the_loops_checks(arch):
+    """Every 3D arch of the factory shards: the loop's checks accept it at
+    the preset's 128³ crops."""
+    from rsuper_tpu_torch.config import load_config
+    from rsuper_tpu_torch.train import loop
 
-    m = get_model("medformer", len(CLASSES), {**TINY, **args})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 10 "):
-        m.check_spatial()
-    get_model("medformer", len(CLASSES), dict(TINY)).check_spatial()
+    loop.check_config(load_config("abdomenatlas/resunet_3d",
+                                  overrides={"spatial_shard": 2,
+                                             "arch": arch}))
 
 
-def test_unet_blocks_with_squeeze_excitation_raise():
-    from rsuper_tpu_torch.models import get_model
+@pytest.fixture(scope="module")
+def config_runs(tmp_path_factory):
+    """``configs`` on both ranks of a 1 × 2 gloo grid."""
+    import socket
 
-    for block in ("MBConv", "FusedMBConv"):
-        m = get_model("unet", len(CLASSES), {"base_chan": 4, "block": block})
-        with pytest.raises(NotImplementedError, match="item 10 "):
-            m.check_spatial()
-    for block in ("ConvNormAct", "BasicBlock", "Bottleneck"):
-        get_model("unet", len(CLASSES), {"base_chan": 4,
-                                         "block": block}).check_spatial()
+    tmp = tmp_path_factory.mktemp("spatial_configs")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    _finish([subprocess.Popen(
+        [sys.executable, __file__, "rank", "configs", str(r), "2", "2", port,
+         "-", str(tmp)], env=_env(), cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)])
+    return [torch.load(tmp / f"configs{r}.pt", weights_only=False)["configs"]
+            for r in range(2)]
+
+
+def _check_config_shards(runs, case):
+    """Both ranks' results the same, the logits within CONFIG_LOGITS_TOL
+    of the whole volume's and every gradient within its ρ bound."""
+    res = runs[0][case]
+    assert runs[1][case] == res, case
+    assert res["logits"] <= CONFIG_LOGITS_TOL, (case, res["logits"])
+    top = max(n for _, n, _ in res["grads"].values())
+    for k, (err, norm, moved) in res["grads"].items():
+        rho = moved / max(norm, 1e-30)
+        tol = max(CONFIG_GRAD_TOL, 4 * min(rho, CONFIG_RHO_MAX))
+        assert err <= tol * (norm + 1e-3 * top), (case, k, err, norm, rho)
+
+
+@pytest.mark.parametrize("case", list(MF_CONFIGS))
+def test_medformer_configurations_pass_the_loops_checks(config_runs, case):
+    """The MedFormers whose full- and half-resolution stages hold
+    attention, channels-last blocks or no norm pass the loop's checks and
+    shard: on a 1 × 2 grid their logits and gradients meet the whole
+    volume's (the first two are also held against the JAX spatial step in
+    ``tests/test_torch_spatial_mf.py``)."""
+    from rsuper_tpu_torch.config import load_config
+    from rsuper_tpu_torch.train import loop
+
+    m = config_model(case)
+    assert not (m.stem_cf and m.UpBlockMF_2.cf and m.UpBlockMF_3.cf)
+    loop.check_config(load_config("abdomenatlas_ufo/medformer_3d",
+                                  overrides={"spatial_shard": 2,
+                                             "model_args": {
+                                                 **TINY, **MF_CONFIGS[case]}}))
+    _check_config_shards(config_runs, case)
+
+
+@pytest.mark.parametrize("block", UNET_BLOCKS)
+def test_unet_blocks_pass_the_loops_checks(config_runs, block):
+    """UNets of every block, squeeze-and-excitation included, pass the
+    loop's checks and shard: on a 1 × 2 grid their logits and gradients
+    meet the whole volume's."""
+    from rsuper_tpu_torch.config import load_config
+    from rsuper_tpu_torch.train import loop
+
+    loop.check_config(load_config("abdomenatlas/resunet_3d", overrides={
+        "spatial_shard": 2, "arch": "unet",
+        "model_args": {"base_chan": 4, "block": block}}))
+    _check_config_shards(config_runs, block)
 
 
 def test_spawner_builds_the_jax_loops_mesh(monkeypatch, capsys):
