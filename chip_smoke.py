@@ -3348,6 +3348,156 @@ CONV_ROWS = ("conv3x3x3_cf", "in_relu_conv3x3x3_cf", "conv3x3x3_cf_dgrad",
              "conv3x3x3_cf_wgrad", "in_relu_conv3x3x3_cf_wgrad")
 DW_ROWS = ("depthwise_conv3x3x3", "depthwise_conv3x3x3_bwd")
 MF_LAUNCHED = {"mf_aniso": CONV_ROWS + DW_ROWS, "mf_mbconv": DW_ROWS}
+# the 2D preset's decoder resizes at 256² × 2 (UNet2D, base 32): 16² → 32²
+# (320 channels) up to 128² → 256² (64): (layout, input shape, output size)
+# (h): the depths at which an arch's float32 gradients are held: the
+# seeded 2D MedFormer at the registry's moves its float32 gradients by
+# 4.1e-2 under one rounding of the input on the card, over RHO_MAX; every
+# attention stage keeps one block, as (b) cuts the 3D MedFormer
+DIM2_CUT = {"medformer_2d": CUT_DEPTH}
+DIM2_RESIZES = (("cl", (2, 16, 16, 320), (32, 32)),
+                ("cl", (2, 32, 32, 256), (64, 64)),
+                ("cl", (2, 64, 64, 128), (128, 128)),
+                ("cl", (2, 128, 128, 64), (256, 256)))
+
+# the 2D preset's 3×3 convs at 256² × 2 (UNet2D, base 32): (input (B, H, W,
+# C_in), C_out, stride)
+DIM2_CONVS = (((2, 256, 256, 32), 32, 1), ((2, 256, 256, 32), 64, 2),
+              ((2, 128, 128, 64), 64, 1), ((2, 64, 64, 128), 128, 1),
+              ((2, 32, 32, 256), 256, 1), ((2, 16, 16, 320), 320, 1))
+
+
+def _conv2d_backward_twice(dev) -> list:
+    """The 2D conv's backward (``layers.Conv`` with ``nd=2``:
+    ``convolution_backward`` with cuDNN held to its deterministic
+    algorithms) at the preset's conv shapes (DIM2_CONVS), float32, on one
+    seeded input, weight and cotangent: its two passes bit-equal; the same
+    conv through ``F.pad`` and ``F.conv2d``'s own backward (cuDNN's default
+    algorithms): whether its two passes gave the same bits, its largest
+    distance to the port's, and the ms of both backwards."""
+    import torch
+    import torch.nn.functional as F
+
+    from rsuper_tpu_torch.models import layers
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = []
+    for shape, c_out, stride in DIM2_CONVS:
+        conv = layers.Conv(shape[-1], c_out, 3, stride, False, nd=2).to(dev)
+        with torch.no_grad():
+            conv.weight.copy_(0.05 * torch.randn(conv.weight.shape,
+                                                 generator=gen, device=dev))
+        x = torch.randn(shape, generator=gen, device=dev).requires_grad_()
+        y = conv(x)
+        gy = torch.randn(y.shape, generator=gen, device=dev)
+        xb = x.detach().clone().requires_grad_()
+        wb = conv.weight.detach().clone().requires_grad_()
+        pads = [p for n in shape[2:0:-1] for p in layers.same_pads(n, 3,
+                                                                   stride)]
+        yb = F.conv2d(F.pad(xb.movedim(-1, 1), pads), wb, None,
+                      stride).movedim(1, -1)
+        port = lambda: torch.autograd.grad(  # noqa: E731
+            y, (x, conv.weight), gy, retain_graph=True)
+        library = lambda: torch.autograd.grad(  # noqa: E731
+            yb, (xb, wb), gy, retain_graph=True)
+        p1, p2 = port(), port()
+        l1, l2 = library(), library()
+        out.append(dict(
+            shape=list(shape), features=c_out, stride=stride,
+            port_bit_equal=all(torch.equal(a, b) for a, b in zip(p1, p2)),
+            conv2d_bit_equal=all(torch.equal(a, b) for a, b in zip(l1, l2)),
+            port_vs_conv2d_max_rel=max(
+                float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(p1, l1)),
+            port_ms=time_ms(port, 5), conv2d_ms=time_ms(library, 5)))
+        del conv, x, y, gy, xb, wb, yb, p1, p2, l1, l2
+    torch.cuda.empty_cache()
+    return out
+
+
+def _slice_batch(size: int, batch: int, dev, seed: int = 0):
+    """A 2D batch as the training loop feeds the step (float32, channels
+    last): noise slices, a liver on the first and a pancreas with its
+    lesion from the second on, and the zeros of unk / segment_mask /
+    volumes / diameters that ``SliceDataset`` gives every record."""
+    import numpy as np
+    import torch
+
+    from rsuper_tpu_torch import bench_train
+
+    names = bench_train.CLASSES
+    rng = np.random.default_rng(seed)
+    lab = np.zeros((batch, size, size, len(names)), np.float32)
+    a, b = size // 5, size * 3 // 5
+    lab[0, a:b, a:b, names.index("liver")] = 1.0
+    if batch > 1:
+        lab[1:, a:b, b - a:b, names.index("pancreas")] = 1.0
+        lab[1:, a + 8:a + 24, b - a + 8:b - a + 24,
+            names.index("pancreatic_lesion")] = 1.0
+    arrays = dict(image=rng.normal(size=(batch, size, size, 1)),
+                  label=lab, unk=np.zeros_like(lab),
+                  segment_mask=np.zeros_like(lab),
+                  volumes=np.zeros((batch, 10)),
+                  diameters=np.zeros((batch, 10, 3)))
+    return {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+            for k, v in arrays.items()}
+
+
+def _dim2_model(arch: str, dev, dtype, cut: bool = False):
+    """`arch` at the JAX registry's default widths (``resunet_2d`` with the
+    preset's own model arguments), built for DIM2_SIZE² slices, seeded;
+    with `cut` at the depths of DIM2_CUT."""
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.config import load_config
+    from rsuper_tpu_torch.models import get_model, init_params
+
+    args = {"img_size": (DIM2_SIZE, DIM2_SIZE)}
+    if arch == "resunet_2d":
+        args = dict(load_config(DIM2_PRESET).model_args)
+    if cut:
+        args.update(DIM2_CUT.get(arch, {}))
+    return init_params(get_model(arch, len(bench_train.CLASSES), args,
+                                 dtype=dtype), seed=0).to(dev)
+
+
+def _dim2_step(arch: str, dev, group=None, nudge=False, dtype=None,
+               cut: bool = False):
+    """One ``dice`` step of `arch` (``_dim2_model``, float32 unless
+    `dtype`, with `cut` at DIM2_CUT's depths) on ``_slice_batch(DIM2_SIZE,
+    2)`` (with `nudge` its image moved by one float32 rounding): the loss
+    terms and every parameter's gradient; with `group` on the rank's rows,
+    reduced over the grid."""
+    import torch
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.losses import LesionChannelMap, LossConfig
+    from rsuper_tpu_torch.train import step as tstep
+
+    model = _dim2_model(arch, dev, dtype or torch.float32, cut)
+    batch = _slice_batch(DIM2_SIZE, 2, dev)
+    if nudge:
+        batch["image"] = _nudge(batch["image"], 3, 2.0 ** -22)
+    losses = tstep.gradients(
+        model, batch, LesionChannelMap.from_classes(bench_train.CLASSES),
+        LossConfig(loss="dice"), group=group)
+    return ({k: float(v) for k, v in losses.items()},
+            {k: p.grad.detach().clone() for k, p in model.named_parameters()})
+
+
+def _grads_twice(run) -> dict:
+    """`run()` (→ (losses, gradients)) twice: whether the losses and every
+    gradient are the same bits, the parameters whose gradients differ (the
+    backward's end first) and the largest difference."""
+    import torch
+
+    (l1, g1), (l2, g2) = run(), run()
+    names = list(g1)[::-1]
+    differ = [k for k in names if not torch.equal(g1[k], g2[k])]
+    return dict(parameters=len(names), losses_bit_equal=l1 == l2,
+                differing=len(differ), first_differing=differ[:8],
+                max_abs_diff=max([float((g1[k].float() - g2[k].float())
+                                        .abs().max()) for k in differ],
+                                 default=0.0))
 
 
 def phase_dim2(dev):
@@ -3363,7 +3513,13 @@ def phase_dim2(dev):
     × 1, within max(ZOO_F32_TOL, 4ρ)·(1 + max|ref|), ρ the move of the
     CPU's logits under one float32 rounding of the input (the seeded 2D
     MedFormer is chaotic: ρ ≈ 1e-3 there, ≤ 2e-5 in the others), failing
-    above RHO_MAX."""
+    above RHO_MAX. (c) Determinism: the resize's backward twice at the
+    preset's decoder shapes (DIM2_RESIZES, bf16; its ms beside
+    ``F.interpolate``'s), the 2D conv's backward twice at the preset's conv
+    shapes (DIM2_CONVS, float32; its ms beside ``F.conv2d``'s own), the
+    preset's bf16 ``dice`` step at 256² × 2
+    twice, and each arch's float32 ``dice`` step at 256² × 2
+    (``_dim2_step``) twice: every gradient the same bits."""
     import torch
 
     from rsuper_tpu_torch.models import get_model, init_params
@@ -3485,7 +3641,31 @@ def phase_dim2(dev):
         if not r["ok"]:
             failures.append(f"dim2 {arch}: {r}")
         del model, m32
+        r["float32_step_twice"] = _grads_twice(lambda: _dim2_step(arch, dev))
+        if r["float32_step_twice"]["differing"]:
+            failures.append(f"dim2 {arch}: the float32 step gave other "
+                            f"bits twice: {r['float32_step_twice']}")
         torch.cuda.empty_cache()
+
+    # (c) the same bits twice: the resize's backward and the preset's step
+    res["resize_backward_twice"] = _resize_backward_twice(dev, DIM2_RESIZES)
+    if not all(r["port_bit_equal"] and r["port_within_a_rounding_of_dense"]
+               for r in res["resize_backward_twice"]):
+        failures.append(f"dim2: the resize's backward gave other bits on a "
+                        f"second pass or left the dense contraction: "
+                        f"{res['resize_backward_twice']}")
+    res["conv2d_backward_twice"] = _conv2d_backward_twice(dev)
+    if not all(r["port_bit_equal"] and r["port_vs_conv2d_max_rel"] < 1e-4
+               for r in res["conv2d_backward_twice"]):
+        failures.append(f"dim2: the 2D conv's backward gave other bits on a "
+                        f"second pass or left F.conv2d's: "
+                        f"{res['conv2d_backward_twice']}")
+    res["preset_step_twice"] = _grads_twice(lambda: _dim2_step(
+        "resunet_2d", dev, dtype=torch.bfloat16))
+    if res["preset_step_twice"]["differing"]:
+        failures.append(f"dim2: the preset's bf16 step gave other bits "
+                        f"twice: {res['preset_step_twice']}")
+    torch.cuda.empty_cache()
     res["phase_s"] = time.time() - t_phase
     log(json.dumps({"dim2": res}))
     return failures
@@ -4280,26 +4460,28 @@ DECODER_RESIZES = (("cl", (2, 8, 8, 8, 320), (16, 16, 16)),
 def _resize_vjp_dense(g, shape, align_corners: bool):
     """The resize's backward as one float32 matmul an axis with the whole
     (n_out × n_in) ``interp_matrix``: the same transpose as the port's
-    taps, for their check and their clock."""
+    taps, for their check and their clock; `g` (B, C, *spatial)."""
     import torch
 
     from rsuper_tpu_torch.models import layers
 
     t = g.float()
-    for axis, n_in in zip((2, 3, 4), shape):
+    for axis, n_in in enumerate(shape, start=2):
         m = layers.interp_matrix(t.shape[axis], n_in, align_corners,
                                  torch.float32, g.device)
         t = (t.movedim(axis, -1) @ m).movedim(-1, axis)
     return t.to(g.dtype)
 
 
-def _resize_backward_twice(dev) -> dict:
+def _resize_backward_twice(dev, cases=DECODER_RESIZES) -> dict:
     """The port's resize backward (``layers._Resize``: taps, float32
-    accumulation) at each of the decoder's shapes, in bf16, on one seeded
-    input and cotangent: two passes bit-equal; within one bf16 rounding of
-    the dense contraction (``_resize_vjp_dense``); its ms and peak extra
-    memory beside the dense form's and ``F.interpolate``'s own backward
-    (atomics: whether it gave the same bits twice is recorded)."""
+    accumulation) at each of the decoder's shapes (`cases`: the MedFormer
+    preset's trilinear ones, or the 2D preset's bilinear ones), in bf16, on
+    one seeded input and cotangent: two passes bit-equal; within one bf16
+    rounding of the dense contraction (``_resize_vjp_dense``); its ms and
+    peak extra memory beside the dense form's and ``F.interpolate``'s own
+    backward (atomics: whether it gave the same bits twice is
+    recorded)."""
     import torch
     import torch.nn.functional as F
 
@@ -4318,18 +4500,21 @@ def _resize_backward_twice(dev) -> dict:
         peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
         return dict(ms=time_ms(fn, 5), peak_extra_mib=peak)
 
-    for layout, shape, size in DECODER_RESIZES:
+    for layout, shape, size in cases:
+        nd = len(size)
         x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         if layout == "cf":  # (B, D, C, H, W)
             x = x.permute(0, 1, 4, 2, 3).contiguous()
         fn = (layers.resize_trilinear_cf if layout == "cf"
-              else layers.resize_trilinear)
-        perm = (0, 2, 1, 3, 4) if layout == "cf" else (0, 4, 1, 2, 3)
+              else layers.resize_linear)
+        perm = ((0, 2, 1, 3, 4) if layout == "cf"
+                else (0, nd + 1, *range(1, nd + 1)))
         xa = x.clone().requires_grad_()
         y = fn(xa, size)
         gy = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
         xb = x.clone().requires_grad_()
-        yb = F.interpolate(xb.permute(*perm), size=size, mode="trilinear",
+        yb = F.interpolate(xb.permute(*perm), size=size,
+                           mode="trilinear" if nd == 3 else "bilinear",
                            align_corners=False)
         gyb = gy.permute(*perm)
         port = lambda: torch.autograd.grad(  # noqa: E731
@@ -4340,7 +4525,7 @@ def _resize_backward_twice(dev) -> dict:
             gyb, xb.permute(*perm).shape[2:], False)
         p1, p2 = port(), port()
         l1, l2 = library(), library()
-        want = dense().permute(*[perm.index(i) for i in range(5)])
+        want = dense().permute(*[perm.index(i) for i in range(nd + 2)])
         err = (p1.float() - want.float()).abs()
         bound = 2.0 ** -7 * want.float().abs() + 1e-5 * float(
             want.float().abs().max())
@@ -4572,6 +4757,8 @@ def _ddp_worker(argv) -> int:
         return _ddp_nccl_probe(rank, port, out)
     if role == "spatial":
         return _spatial_rank(rank, port, out)
+    if role == "spatial_2d":
+        return _spatial_2d_rank(rank, port, out)
     return _ddp_gloo_rank(rank, port, out)
 
 
@@ -4738,6 +4925,10 @@ SPATIAL_ZOO = {
 # MBConv UNet's blocks rows 5-6
 SPATIAL_ZOO_ROWS = {"mf_attention_up2": CONV_ROWS + DW_ROWS,
                     "unet_mbconv": DW_ROWS}
+# (g): steps of the 2D preset through the CLI on the two ranks, then timed
+# steps of its state (after a warm-up)
+SPATIAL_2D_CLI_STEPS = 4
+SPATIAL_2D_STEPS = 3
 
 
 def _zoo_step(name, dev, group=None, nudge=False):
@@ -4784,6 +4975,50 @@ def _resunet_state(dev):
     return create_train_state(model, opt)
 
 
+def _timed_steps(st, steps: int, batch, lmap, cfg, dp, counted) -> dict:
+    """`steps` timed steps of a rank of `dp` after a warm-up, then one more
+    step with every collective timed between two synchronisations (its ms
+    by kind; the timed steps run without those synchronisations): ms a
+    step, the collectives by kind, peak memory, launches a step of the
+    `counted` wrappers, the losses."""
+    import torch
+
+    from rsuper_tpu_torch.parallel import spatial
+    from rsuper_tpu_torch.train import step as tstep
+
+    step = tstep.build_train_step(lmap, cfg, group=dp)
+    st, _ = step(st, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in counted.values():
+        w.launches = 0
+    spatial.reset_traffic()
+    history, t0 = [], time.perf_counter()
+    for _ in range(steps):
+        st, ls = step(st, batch)
+        history.append({k: float(v) for k, v in ls.items()})
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    traffic = {k: dict(calls=v["calls"] / steps, bytes=v["bytes"] / steps)
+               for k, v in spatial.TRAFFIC.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k: w.launches / steps for k, w in counted.items()}
+    spatial.reset_traffic()
+    spatial.TIMED = True
+    try:
+        t1 = time.perf_counter()
+        st, _ = step(st, batch)
+        torch.cuda.synchronize()
+        clocked = 1e3 * (time.perf_counter() - t1)
+    finally:
+        spatial.TIMED = False
+    for k, v in spatial.TRAFFIC.items():
+        traffic[k]["ms_clocked_step"] = v["ms"]
+    return dict(steps=steps, ms_per_step=ms, ms_clocked_step=clocked,
+                collectives_per_step=traffic, peak_mem_gib=peak,
+                launches_per_step=launches, losses=history)
+
+
 def _spatial_rank(rank: int, port: str, out: Path) -> int:
     """One of two gloo ranks on card 0, a 1 × 2 grid (one data rank, the
     depth split over two): (a) the default MedFormer in bf16 with ``remat``
@@ -4801,7 +5036,7 @@ def _spatial_rank(rank: int, port: str, out: Path) -> int:
 
     from rsuper_tpu_torch import bench_train
     from rsuper_tpu_torch.losses import LesionChannelMap, LossConfig
-    from rsuper_tpu_torch.parallel import mesh, spatial
+    from rsuper_tpu_torch.parallel import mesh
     from rsuper_tpu_torch.train import step as tstep
 
     torch.cuda.set_device(0)
@@ -4819,41 +5054,7 @@ def _spatial_rank(rank: int, port: str, out: Path) -> int:
     batch = bench_train.synthetic_batch(SPATIAL_SIZE, 2, device=dev)
 
     def timed_steps(key, st, steps):
-        """`steps` timed steps after a warm-up, then one more step with
-        every collective timed between two synchronisations (its ms by
-        kind; the timed steps run without those synchronisations)."""
-        step = tstep.build_train_step(lmap, cfg, group=dp)
-        st, _ = step(st, batch)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for w in counted.values():
-            w.launches = 0
-        spatial.reset_traffic()
-        history, t0 = [], time.perf_counter()
-        for _ in range(steps):
-            st, ls = step(st, batch)
-            history.append({k: float(v) for k, v in ls.items()})
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0) / steps
-        traffic = {k: dict(calls=v["calls"] / steps, bytes=v["bytes"] / steps)
-                   for k, v in spatial.TRAFFIC.items()}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        launches = {k: w.launches / steps for k, w in counted.items()}
-        spatial.reset_traffic()
-        spatial.TIMED = True
-        try:
-            t1 = time.perf_counter()
-            st, _ = step(st, batch)
-            torch.cuda.synchronize()
-            clocked = 1e3 * (time.perf_counter() - t1)
-        finally:
-            spatial.TIMED = False
-        for k, v in spatial.TRAFFIC.items():
-            traffic[k]["ms_clocked_step"] = v["ms"]
-        rec[key] = dict(
-            steps=steps, ms_per_step=ms, ms_clocked_step=clocked,
-            collectives_per_step=traffic, peak_mem_gib=peak,
-            launches_per_step=launches, losses=history)
+        rec[key] = _timed_steps(st, steps, batch, lmap, cfg, dp, counted)
 
     with _launch_shapes() as shapes:
         timed_steps("medformer", bench_train.build_state(
@@ -4910,17 +5111,172 @@ def _spatial_rank(rank: int, port: str, out: Path) -> int:
     return 0
 
 
-def _one_process_step(dev, state, steps: int = 1):
-    """ms a step and peak memory of one process at the phase's batch."""
+def _dim2_preset_state(dev):
+    """The ``slices/resunet_2d`` preset's model (bf16, seeded) with the
+    preset's AdamW and EMA, as the loop builds them."""
+    import torch
+
+    from rsuper_tpu_torch.config import load_config
+    from rsuper_tpu_torch.train import create_train_state, make_optimizer
+
+    cfg = load_config(DIM2_PRESET)
+    model = _dim2_model("resunet_2d", dev, torch.bfloat16).train()
+    opt = make_optimizer(
+        model.parameters(), cfg.optimizer, cfg.base_lr, cfg.warmup_epochs,
+        cfg.epochs, cfg.iter_per_epoch, cfg.weight_decay, cfg.betas,
+        clip_norm=cfg.clip_norm)
+    return create_train_state(model, opt, ema=cfg.ema)
+
+
+def _spatial_2d_rank(rank: int, port: str, out: Path) -> int:
+    """(g) and (h) on one of two gloo ranks of card 0, a 1 × 2 grid that
+    splits the rows of every slice: (g) the ``slices/resunet_2d`` preset
+    through the training CLI (``main``, which joins this rank's job) with
+    ``--spatial_shard 2`` at its 256² × 2 for SPATIAL_2D_CLI_STEPS steps
+    on ``write_cli_cases``' CT-Mask cases (OUT/cli): its logged losses, its
+    phase times and the collectives a step; then SPATIAL_2D_STEPS timed
+    steps of the preset's state on ``_slice_batch`` (``_timed_steps``);
+    (h) one float32 ``dice`` step of each 2D arch (``_dim2_step``, the
+    depths of DIM2_CUT): its losses and rank 0's reduced gradients."""
+    import torch
+    import torch.distributed as dist
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.config import load_config
+    from rsuper_tpu_torch.losses import LesionChannelMap
+    from rsuper_tpu_torch.parallel import mesh, spatial
+    from rsuper_tpu_torch.train.__main__ import main as train_main
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    dp = mesh.grid(2)
+    rec = {"rank": rank, "place": [dp.rank, dp.world, dp.spatial.rank,
+                                   dp.spatial.size]}
+    n = SPATIAL_2D_CLI_STEPS
+    spatial.reset_traffic()
+    t0 = time.time()
+    state = train_main([
+        "--preset", DIM2_PRESET, "--data_root", str(out / "cli" / "masks"),
+        "--cp_path", str(out / "exp"), "--unique_name", "dim2_sp",
+        "--spatial_shard", "2", "--all_train", "--iter_per_epoch", str(n),
+        "--epochs", "1", "--max_steps", str(n)])
+    torch.cuda.synchronize()
+    recs = [json.loads(line) for line in (
+        out / "exp" / "dim2_sp" / f"metrics.rank{rank}.jsonl").open()]
+    phases = [r for r in recs if "phase/step_ms" in r][-1]
+    rec["cli"] = dict(
+        steps=state.step, seconds=time.time() - t0,
+        losses=[{k: v for k, v in r.items() if k.startswith("train/")}
+                for r in recs if "train/overall" in r],
+        ms_per_iteration=phases["phase/iteration_median_ms"],
+        step_call_ms=phases["phase/step_median_ms"],
+        loader_wait_ms=phases["phase/load_median_ms"],
+        collectives_per_step={k: dict(calls=v["calls"] / n,
+                                      bytes=v["bytes"] / n)
+                              for k, v in spatial.TRAFFIC.items()})
+    del state
+    torch.cuda.empty_cache()
+    rec["preset"] = _timed_steps(
+        _dim2_preset_state(dev), SPATIAL_2D_STEPS,
+        _slice_batch(DIM2_SIZE, 2, dev),
+        LesionChannelMap.from_classes(bench_train.CLASSES),
+        load_config(DIM2_PRESET).loss_config(), dp, wrappers())
+    torch.cuda.empty_cache()
+    rec["archs"] = {}
+    for arch in DIM2_ARCHS:
+        losses, grads = _dim2_step(arch, dev, group=dp, cut=True)
+        rec["archs"][arch] = dict(
+            losses=losses,
+            grad_sum=float(sum(g.double().sum() for g in grads.values())))
+        if rank == 0:
+            torch.save({k: g.cpu() for k, g in grads.items()},
+                       out / f"dim2_{arch}.pt")
+        del grads
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh.forget_grids()
+    dist.destroy_process_group()
+    (out / f"spatial_2d{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def _spatial_2d_vs_one_process(dev, ranks, grads, failures) -> dict:
+    """(g) and (h) held: the CLI's steps taken and every logged loss finite
+    and bit-equal on the two ranks; the timed steps' losses bit-equal, and
+    one process's ms a step and peak memory at the same batch beside a
+    rank's; each arch's two-rank float32 step against one process (losses
+    1e-4 relative, gradients by (b)'s ρ rule)."""
+    import torch
+
+    from rsuper_tpu_torch.config import load_config
+
+    for r in ranks:
+        cli = r["cli"]
+        if cli["steps"] != SPATIAL_2D_CLI_STEPS or not cli["losses"] or not \
+                all(math.isfinite(v) for h in cli["losses"] + r["preset"][
+                    "losses"] for v in h.values()):
+            failures.append(f"spatial (g) rank {r['rank']}: steps "
+                            f"{cli['steps']}, losses {cli['losses']}, "
+                            f"{r['preset']['losses']}")
+    same = all(ranks[0][k]["losses"] == ranks[1][k]["losses"]
+               for k in ("cli", "preset")) and all(
+        ranks[0]["archs"][a] == ranks[1]["archs"][a] for a in DIM2_ARCHS)
+    if not same:
+        failures.append("spatial (g), (h): the two ranks logged different "
+                        "losses")
+    one = _one_process_step(dev, _dim2_preset_state(dev), SPATIAL_2D_STEPS,
+                            _slice_batch(DIM2_SIZE, 2, dev),
+                            load_config(DIM2_PRESET).loss_config())
+    torch.cuda.empty_cache()
+    preset = dict(
+        size=DIM2_SIZE, global_batch=2, grid="1x2",
+        losses_bit_equal_across_ranks=same,
+        ranks=[dict(rank=r["rank"], place=r["place"], cli=r["cli"],
+                    **r["preset"]) for r in ranks],
+        one_process=one,
+        peak_mem_rank_over_one_process=[
+            r["preset"]["peak_mem_gib"] / one["peak_mem_gib"]
+            for r in ranks])
+    archs = {}
+    for arch in DIM2_ARCHS:
+        got = {k: v.to(dev) for k, v in grads.pop(arch).items()}
+        ref_losses, ref = _dim2_step(arch, dev, cut=True)
+        _, moved = _dim2_step(arch, dev, nudge=True, cut=True)
+        agree, fails = _float32_grads_vs_plain(got, ref, moved,
+                                               per_parameter=True)
+        failures += [f"spatial (h) {arch}: {f}" for f in fails]
+        terms = {}
+        for k, v in ref_losses.items():
+            g = ranks[0]["archs"][arch]["losses"][k]
+            terms[k] = dict(two_ranks=g, one_process=v, tol=1e-4 * abs(v))
+            if not abs(g - v) <= 1e-4 * abs(v):
+                failures.append(f"spatial (h) {arch} loss {k}: {terms[k]}")
+        archs[arch] = dict(depths=DIM2_CUT.get(arch), losses=terms,
+                           gradients=agree)
+        del got, ref, moved
+        torch.cuda.empty_cache()
+    return dict(dim2_preset=preset, dim2_archs_vs_one_process=dict(
+        size=DIM2_SIZE, batch=2, loss="dice", archs=archs))
+
+
+def _one_process_step(dev, state, steps: int = 1, batch=None, cfg=None):
+    """ms a step and peak memory of one process at the phase's batch (or
+    `batch`, with the loss `cfg`)."""
     import torch
 
     from rsuper_tpu_torch import bench_train
     from rsuper_tpu_torch.losses import LesionChannelMap, LossConfig
     from rsuper_tpu_torch.train import step as tstep
 
-    batch = bench_train.synthetic_batch(SPATIAL_SIZE, 2, device=dev)
+    if batch is None:
+        batch = bench_train.synthetic_batch(SPATIAL_SIZE, 2, device=dev)
     step = tstep.build_train_step(
-        LesionChannelMap.from_classes(bench_train.CLASSES), LossConfig())
+        LesionChannelMap.from_classes(bench_train.CLASSES),
+        cfg or LossConfig())
     state, _ = step(state, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4951,8 +5307,16 @@ def phase_spatial(dev):
     ``dice`` step of every arch of SPATIAL_ZOO at 64³ × 2 against one
     process (losses 1e-4 relative, gradients by (b)'s ρ rule), the rows
     of SPATIAL_ZOO_ROWS launched on both ranks and rows 1-6 against their
-    plain versions at every shape (f) launched them at. Every logged loss
-    bit-equal on the two ranks. gloo's times are not NCCL's."""
+    plain versions at every shape (f) launched them at; (g) the 2D pathway
+    (``_spatial_2d_rank``, the rows split over the two ranks): the
+    ``slices/resunet_2d`` preset through the training CLI with
+    ``--spatial_shard 2`` at 256² × 2, then timed: ms a step a rank, the
+    collectives' ms and bytes a step by kind, peak memory a rank against
+    one process at the same batch, the launches of rows 1-8 (none on this
+    path); (h) one float32 ``dice`` step of every 2D arch at the registry's
+    widths (the 2D MedFormer's depth cut, DIM2_CUT) at 256² × 2 against
+    one process (losses 1e-4 relative, gradients by (b)'s ρ rule). Every logged loss bit-equal on the two
+    ranks. gloo's times are not NCCL's."""
     import torch
 
     from rsuper_tpu_torch import bench_train
@@ -5101,6 +5465,24 @@ def phase_spatial(dev):
                        for v in h.values()):
                 failures.append(f"spatial rank {r['rank']} {key}: losses "
                                 f"{r[key]['losses']}")
+    # (g), (h) the 2D pathway, its rows over the two ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        write_cli_cases(out / "cli")
+        t0 = time.time()
+        codes, tails = _launch_ranks("spatial_2d", out, SPATIAL_TIMEOUT)
+        res["ranks_2d_s"] = time.time() - t0
+        if codes != [0, 0]:
+            failures.append(f"spatial (g): the gloo ranks exited {codes}: "
+                            + " | ".join(t[-1500:] for t in tails))
+        else:
+            ranks2d = [json.loads((out / f"spatial_2d{r}.json").read_text())
+                       for r in range(2)]
+            grads2d = {a: torch.load(out / f"dim2_{a}.pt",
+                                     weights_only=True) for a in DIM2_ARCHS}
+    if codes == [0, 0]:
+        res.update(_spatial_2d_vs_one_process(dev, ranks2d, grads2d,
+                                              failures))
     res.update(
         size=SPATIAL_SIZE, global_batch=2, grid="1x2",
         losses_bit_equal_across_ranks=same,

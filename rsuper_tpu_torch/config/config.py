@@ -42,10 +42,9 @@ class TrainConfig:
     ema: bool = True
     ema_alpha: float = 0.99
     # multi-device and host-augmentation options of the JAX package:
-    # ZeRO-1 over the data ranks, the depth split over spatial_shard ranks
-    # (every 3D arch; the 2D pathway raises NotImplementedError naming
-    # ROADMAP.md §1 item 10), augmentation in the loader's workers and the
-    # device prefetcher
+    # ZeRO-1 over the data ranks, the depth (the rows of a 2D slice) split
+    # over spatial_shard ranks, augmentation in the loader's workers and
+    # the device prefetcher
     zero_opt: bool = False
     zero_ema: bool = False
     spatial_shard: int = 1

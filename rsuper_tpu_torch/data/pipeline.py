@@ -240,6 +240,11 @@ class PrefetchLoader:
     Each worker thread draws from its own ``np.random.default_rng(seed ·
     10007 + worker)``; which worker takes which item depends on the
     scheduling, so the records are reproducible with ``num_workers=1``.
+    With `item_seed` each record draws from a generator of its own,
+    ``default_rng([*item_seed, batch, place])``, whichever worker loads it:
+    processes that load the same indices (the ranks of a spatially sharded
+    model group) then load the same records. Every record keeps its place
+    in its batch, whichever worker finishes first.
     ``item_seconds`` collects each record's loading time in its worker (the
     host's clock)."""
 
@@ -251,6 +256,7 @@ class PrefetchLoader:
         num_workers: int = 4,
         seed: int = 0,
         transform: Optional[Callable] = None,
+        item_seed: Optional[Sequence[int]] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -258,6 +264,7 @@ class PrefetchLoader:
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.transform = transform
+        self.item_seed = None if item_seed is None else list(item_seed)
         self.item_seconds: List[float] = []
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -269,7 +276,7 @@ class PrefetchLoader:
             maxsize=PREFETCH * self.batch_size)
         for bi in range(n_batches):
             for j in range(self.batch_size):
-                jobs.put((bi, self.indices[bi * self.batch_size + j]))
+                jobs.put((bi, j, self.indices[bi * self.batch_size + j]))
         for _ in range(self.num_workers):
             jobs.put(None)
 
@@ -285,13 +292,15 @@ class PrefetchLoader:
             return False
 
         def worker(wid: int):
-            rng = np.random.default_rng(self.seed * 10007 + wid)
+            own = np.random.default_rng(self.seed * 10007 + wid)
             while not stop.is_set():
                 job = jobs.get()
                 if job is None:
                     put(None)
                     return
-                bi, idx = job
+                bi, j, idx = job
+                rng = own if self.item_seed is None else \
+                    np.random.default_rng([*self.item_seed, bi, j])
 
                 def load(i):
                     rec = self.dataset.sample(i, rng)
@@ -306,10 +315,10 @@ class PrefetchLoader:
                     try:
                         rec = load(int(rng.integers(len(self.dataset))))
                     except Exception:
-                        put((bi, e))
+                        put((bi, j, e))
                         continue
                 self.item_seconds.append(time.perf_counter() - t0)
-                put((bi, rec))
+                put((bi, j, rec))
 
         threads = [
             threading.Thread(target=worker, args=(w,), daemon=True)
@@ -323,7 +332,9 @@ class PrefetchLoader:
             stop.set()
 
     def _batches(self, results: "queue.Queue", n_batches: int):
-        pending: Dict[int, list] = {}
+        """The batches in order, each record at its place in its batch
+        (whichever worker finished it first)."""
+        pending: Dict[int, Dict[int, Dict]] = {}
         done_workers = 0
         emitted = 0
         next_batch = 0
@@ -334,13 +345,15 @@ class PrefetchLoader:
                 if done_workers == self.num_workers and not pending:
                     break
                 continue
-            bi, rec = item
+            bi, j, rec = item
             if isinstance(rec, Exception):
                 raise rec
-            pending.setdefault(bi, []).append(rec)
+            pending.setdefault(bi, {})[j] = rec
             while (next_batch in pending
                    and len(pending[next_batch]) == self.batch_size):
-                recs = pending.pop(next_batch)
+                recs = [pending[next_batch][i]
+                        for i in range(self.batch_size)]
+                del pending[next_batch]
                 yield {k: np.stack([r[k] for r in recs]) for k in recs[0]}
                 emitted += 1
                 next_batch += 1

@@ -6,9 +6,20 @@ Their convs run on cuDNN (``layers.Conv`` with two spatial axes, flax's
 SAME padding), as XLA runs the JAX package's: no TPU kernel is on this
 path. Instance norm (eps 1e-4) and flax's activations as in the 3D blocks;
 upsampling is bilinear with half-pixel centres (``jax.image.resize``'s
-``linear``, equal for upsampling). Module and parameter names match the
+``linear``, equal for upsampling) and a backward that adds the same bits
+every run (``layers.resize_linear``). Module and parameter names match the
 flax tree, so ``models/params.py`` carries a JAX checkpoint over (it needs
 the model, for the layout of each conv).
+
+Spatial sharding (``parallel/spatial.py``): every model and block takes an
+optional ``spatial`` and then computes on the rank's run of rows (axis 1
+of (B, H, W, C)), as the 3D blocks do on depth planes: the convs exchange
+halo rows, the norms sum over the model group, the resizes take a
+one-row halo, and a 2×2 max pool needs an even run of rows (flax floors an
+odd size, a shard's floor would not be the image's). The stages that mix
+every position (DANet's position and channel attention, TransUNet's token
+stage) run whole on every rank, between ``gather_depth`` and
+``shard_depth``.
 """
 
 from __future__ import annotations
@@ -17,8 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.spatial import gather_depth, shard_depth
 from .layers import (Conv, Conv1, Dense, TransformerBlock, instance_norm,
-                     make_act)
+                     make_act, resize_linear)
 
 
 def conv2d(c_in: int, features: int, kernel: int = 3, strides: int = 1,
@@ -32,17 +44,26 @@ def conv2d(c_in: int, features: int, kernel: int = 3, strides: int = 1,
                 groups=groups, nd=2)
 
 
-def resize2d(x: torch.Tensor, size) -> torch.Tensor:
-    """Bilinear resize of (B, H, W, C) to `size` (half-pixel centres)."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size),
-                      mode="bilinear", align_corners=False)
-    return y.permute(0, 2, 3, 1).contiguous()
+def resize2d(x: torch.Tensor, size, spatial=None) -> torch.Tensor:
+    """Bilinear resize of (B, H, W, C) to `size` (half-pixel centres), its
+    backward a fixed sum of taps; with `spatial` the rows of `x` and of
+    `size` are the rank's."""
+    return resize_linear(x, size, spatial=spatial)
 
 
-def max_pool2d(x: torch.Tensor) -> torch.Tensor:
+def max_pool2d(x: torch.Tensor, spatial=None) -> torch.Tensor:
     """flax ``nn.max_pool(x, (2, 2), (2, 2))`` (VALID: odd sizes floor) on
-    (B, H, W, C)."""
+    (B, H, W, C). With `spatial` the rank's run of rows must be even."""
+    if spatial is not None and x.shape[1] % 2:
+        raise ValueError(f"a sharded 2×2 max pool needs an even run of "
+                         f"rows, got {x.shape[1]}")
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+
+def run_whole(fn, x: torch.Tensor, spatial=None) -> torch.Tensor:
+    """`fn` of the whole map of the rank's rows `x`: gathered, run on every
+    rank of the group, the rank's rows of its output kept."""
+    return shard_depth(fn(gather_depth(x, spatial)), spatial)
 
 
 class ConvNormAct2D(nn.Module):
@@ -54,13 +75,15 @@ class ConvNormAct2D(nn.Module):
                  preact: bool = True, dtype=torch.float32):
         super().__init__()
         self.Conv_0 = conv2d(c_in, features, kernel, strides, False, dtype)
-        self.norm = instance_norm if norm == "in" else (lambda v: v)
+        self.norm = (instance_norm if norm == "in"
+                     else (lambda v, spatial=None: v))
         self.act, self.preact = make_act(act), preact
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
+        norm = lambda v: self.norm(v, spatial=spatial)  # noqa: E731
         if self.preact:
-            return self.Conv_0(self.act(self.norm(x)))
-        return self.act(self.norm(self.Conv_0(x)))
+            return self.Conv_0(self.act(norm(x)), spatial)
+        return self.act(norm(self.Conv_0(x, spatial)))
 
 
 class BasicBlock2D(nn.Module):
@@ -78,9 +101,10 @@ class BasicBlock2D(nn.Module):
             self.ConvNormAct2D_2 = ConvNormAct2D(c_in, features,
                                                  strides=strides, dtype=dtype)
 
-    def forward(self, x):
-        h = self.ConvNormAct2D_1(self.ConvNormAct2D_0(x))
-        return h + (self.ConvNormAct2D_2(x) if self.shortcut else x)
+    def forward(self, x, spatial=None):
+        h = self.ConvNormAct2D_1(self.ConvNormAct2D_0(x, spatial), spatial)
+        return h + (self.ConvNormAct2D_2(x, spatial) if self.shortcut
+                    else x)
 
 
 def _add_blocks(module: nn.Module, specs, first: int = 0, dtype=None):
@@ -94,15 +118,15 @@ def _add_blocks(module: nn.Module, specs, first: int = 0, dtype=None):
     return i
 
 
-def _decode(module: nn.Module, out, skips, first: int):
+def _decode(module: nn.Module, out, skips, first: int, spatial=None):
     """Upsample, concatenate each skip and run ``BasicBlock2D_{first+k}``
     (``stage`` blocks a skip)."""
     i = first
     for skip in skips:
-        out = resize2d(out, skip.shape[1:3]).to(module.dtype)
+        out = resize2d(out, skip.shape[1:3], spatial).to(module.dtype)
         out = torch.cat([out, skip], dim=-1)
         for _ in range(module.stage):
-            out = getattr(module, f"BasicBlock2D_{i}")(out)
+            out = getattr(module, f"BasicBlock2D_{i}")(out, spatial)
             i += 1
     return out
 
@@ -130,12 +154,12 @@ class UNet2D(nn.Module):
         _add_blocks(self, dec, i, dtype)
         self.outc = conv2d(b, num_classes, 1, dtype=torch.float32)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         h, skips = x.to(self.dtype), []
         for k in range(5):
-            h = getattr(self, f"BasicBlock2D_{k}")(h)
+            h = getattr(self, f"BasicBlock2D_{k}")(h, spatial)
             skips.append(h)
-        out = _decode(self, h, skips[3::-1], 5)
+        out = _decode(self, h, skips[3::-1], 5, spatial)
         return {"segmentation": self.outc(out)}
 
 
@@ -150,6 +174,7 @@ class AttentionGate2D(nn.Module):
         self.Conv_2 = conv2d(inter, 1, 1, dtype=dtype)
 
     def forward(self, g, x):
+        # 1×1 convs and a per-pixel gate: a sharded map needs nothing
         a = self.Conv_2(torch.relu(self.Conv_0(g) + self.Conv_1(x)))
         return x * torch.sigmoid(a.float()).to(x.dtype)
 
@@ -175,17 +200,17 @@ class AttentionUNet2D(nn.Module):
             c_low = c
         self.outc = conv2d(b, num_classes, 1, dtype=torch.float32)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         h, skips = x.to(self.dtype), []
         for k in range(4):
-            h = getattr(self, f"BasicBlock2D_{k}")(h)
+            h = getattr(self, f"BasicBlock2D_{k}")(h, spatial)
             skips.append(h)
         out = h
         for k, skip in enumerate(skips[2::-1]):
-            out = resize2d(out, skip.shape[1:3]).to(self.dtype)
+            out = resize2d(out, skip.shape[1:3], spatial).to(self.dtype)
             gated = getattr(self, f"AttentionGate2D_{k}")(out, skip)
             out = getattr(self, f"BasicBlock2D_{4 + k}")(
-                torch.cat([out, gated], dim=-1))
+                torch.cat([out, gated], dim=-1), spatial)
         return {"segmentation": self.outc(out)}
 
 
@@ -238,7 +263,9 @@ class DAHead2D(nn.Module):
     pre-activated 3×3 projections (C → C/4), each re-expanded by a 1×1
     ConvNormAct2D, summed. The JAX head also computes three class
     predictions (``fuse_out``, ``sa_out``, ``sc_out``) that its UNet
-    discards; their parameters are here, and they are not computed."""
+    discards; their parameters are here, and they are not computed. With
+    `spatial` the projections run on the rank's rows and each attention on
+    the gathered map."""
 
     def __init__(self, c: int, num_classes: int, dtype=torch.float32):
         super().__init__()
@@ -253,10 +280,10 @@ class DAHead2D(nn.Module):
             self.add_module(name, conv2d(c, num_classes, 1,
                                          dtype=torch.float32))
 
-    def forward(self, x):
-        sa = self.conv_a_1(self.sa(self.conv_a(x)))
-        sc = self.conv_c_1(self.sc(self.conv_c(x)))
-        return sa + sc
+    def forward(self, x, spatial=None):
+        sa = run_whole(self.sa, self.conv_a(x, spatial), spatial)
+        sc = run_whole(self.sc, self.conv_c(x, spatial), spatial)
+        return self.conv_a_1(sa, spatial) + self.conv_c_1(sc, spatial)
 
 
 class DualAttentionUNet2D(nn.Module):
@@ -284,13 +311,14 @@ class DualAttentionUNet2D(nn.Module):
         _add_blocks(self, dec, i, dtype)
         self.outc = conv2d(b, num_classes, 1, dtype=torch.float32)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         h, skips = x.to(self.dtype), []
         for k in range(5):
-            h = getattr(self, f"BasicBlock2D_{2 * k}")(h)
-            h = getattr(self, f"BasicBlock2D_{2 * k + 1}")(h)
+            h = getattr(self, f"BasicBlock2D_{2 * k}")(h, spatial)
+            h = getattr(self, f"BasicBlock2D_{2 * k + 1}")(h, spatial)
             skips.append(h)
-        out = _decode(self, self.da_head(h), skips[3::-1], 10)
+        out = _decode(self, self.da_head(h, spatial), skips[3::-1], 10,
+                      spatial)
         return {"segmentation": self.outc(out)}
 
 
@@ -307,7 +335,8 @@ class TransUNet2D(nn.Module):
     ``TransformerBlock``) → a conv decoder. ``pos`` holds a vector for each
     position of the bottleneck, so its shape depends on the input size:
     `img_size` gives it (the JAX model takes it from the input it is
-    initialised with)."""
+    initialised with). With `spatial` the token stage runs on the gathered
+    bottleneck."""
 
     stage = 1
 
@@ -332,11 +361,8 @@ class TransUNet2D(nn.Module):
         _add_blocks(self, dec, i, dtype)
         self.outc = conv2d(b, num_classes, 1, dtype=torch.float32)
 
-    def forward(self, x):
-        h, skips = x.to(self.dtype), []
-        for k in range(4):
-            h = getattr(self, f"BasicBlock2D_{k}")(h)
-            skips.append(h)
+    def tokens(self, h):
+        """The ViT bottleneck of the whole (B, H, W, C) map."""
         B, H, W, _ = h.shape
         if H * W != self.pos.shape[1]:
             raise ValueError(f"TransUNet2D was built for {self.pos.shape[1]} "
@@ -344,6 +370,13 @@ class TransUNet2D(nn.Module):
                              ": build it with this input's img_size")
         tok = self.Dense_0(h.reshape(B, H * W, -1))
         tok = self.TransformerBlock_0(tok + self.pos.to(tok.dtype))
-        out = _decode(self, tok.reshape(B, H, W, self.hidden),
-                      skips[2::-1], 4)
+        return tok.reshape(B, H, W, self.hidden)
+
+    def forward(self, x, spatial=None):
+        h, skips = x.to(self.dtype), []
+        for k in range(4):
+            h = getattr(self, f"BasicBlock2D_{k}")(h, spatial)
+            skips.append(h)
+        out = _decode(self, run_whole(self.tokens, h, spatial),
+                      skips[2::-1], 4, spatial)
         return {"segmentation": self.outc(out)}

@@ -10,6 +10,13 @@ package's. A Swin block's window is min(window_size, H, W), so the shape of
 its relative-position table depends on the input size: ``SwinUNet2D``
 takes `img_size`, as the JAX model takes it from the input it is
 initialised with.
+
+Spatial sharding (``models/dim2.py``): UNet++ shards every stage on the
+rank's rows. Swin-UNet embeds its patches on the rank's rows (a kernel
+equal to its stride needs no halo), runs its Swin stages, patch merging
+and expanding on the gathered map, and its last expansion and head on the
+rank's rows again. MedFormer 2D runs its conv stages on the rank's rows
+and its semantic maps and attention blocks on the gathered map.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.spatial import gather_depth, shard_depth
 from .dim2 import (BasicBlock2D, ConvNormAct2D, conv2d, max_pool2d,
                    resize2d)
 from .layers import Dense, LayerNorm, Mlp, TransformerBlock, instance_norm, \
@@ -222,8 +230,9 @@ class SwinUNet2D(nn.Module):
                         PatchExpand2D(dims[0], embed_dim, ps, dtype))
         self.outc = conv2d(embed_dim, num_classes, 1, dtype=torch.float32)
 
-    def forward(self, x):
-        t = self.LayerNorm_0(self.Conv_0(x.to(self.dtype)))
+    def forward(self, x, spatial=None):
+        t = self.LayerNorm_0(self.Conv_0(x.to(self.dtype), spatial))
+        t = gather_depth(t, spatial)
         n, i, skips = self.n, 0, []
         for s in range(n):
             for _ in range(self.depths[s]):
@@ -238,7 +247,7 @@ class SwinUNet2D(nn.Module):
             for _ in range(self.depths[s]):
                 t = getattr(self, f"SwinBlock2D_{i}")(t)
                 i += 1
-        t = getattr(self, f"PatchExpand2D_{n - 1}")(t)
+        t = getattr(self, f"PatchExpand2D_{n - 1}")(shard_depth(t, spatial))
         return {"segmentation": self.outc(t)}
 
 
@@ -251,8 +260,9 @@ class _PPBlock2D(nn.Module):
         self.ConvNormAct2D_0 = ConvNormAct2D(c_in, features, dtype=dtype)
         self.ConvNormAct2D_1 = ConvNormAct2D(features, features, dtype=dtype)
 
-    def forward(self, x):
-        return self.ConvNormAct2D_1(self.ConvNormAct2D_0(x))
+    def forward(self, x, spatial=None):
+        return self.ConvNormAct2D_1(self.ConvNormAct2D_0(x, spatial),
+                                    spatial)
 
 
 class UNetPlusPlus2D(nn.Module):
@@ -273,20 +283,20 @@ class UNetPlusPlus2D(nn.Module):
                     j * chans[i] + chans[i + 1], chans[i], dtype))
         self.outc = conv2d(chans[0], num_classes, 1, dtype=torch.float32)
 
-    def forward(self, x):
+    def forward(self, x, spatial=None):
         grid = {}
         h = x.to(self.dtype)
         for i in range(self.depth + 1):
             if i > 0:
-                h = max_pool2d(grid[(i - 1, 0)])
-            h = grid[(i, 0)] = getattr(self, f"x{i}_0")(h)
+                h = max_pool2d(grid[(i - 1, 0)], spatial)
+            h = grid[(i, 0)] = getattr(self, f"x{i}_0")(h, spatial)
         for j in range(1, self.depth + 1):
             for i in range(self.depth + 1 - j):
-                up = resize2d(grid[(i + 1, j - 1)],
-                              grid[(i, 0)].shape[1:3]).to(self.dtype)
+                up = resize2d(grid[(i + 1, j - 1)], grid[(i, 0)].shape[1:3],
+                              spatial).to(self.dtype)
                 cat = torch.cat([grid[(i, k)] for k in range(j)] + [up],
                                 dim=-1)
-                grid[(i, j)] = getattr(self, f"x{i}_{j}")(cat)
+                grid[(i, j)] = getattr(self, f"x{i}_{j}")(cat, spatial)
         return {"segmentation": self.outc(grid[(0, self.depth)])}
 
 
@@ -408,16 +418,19 @@ class DownBlockMF2D(nn.Module):
         self.conv_num, self.trans_num = conv_num, trans_num
         self.map_generate = map_generate
 
-    def forward(self, x):
-        x = max_pool2d(x)
+    def forward(self, x, spatial=None):
+        x = max_pool2d(x, spatial)
         for i in range(self.conv_num):
-            x = getattr(self, f"BasicBlock2D_{i}")(x)
+            x = getattr(self, f"BasicBlock2D_{i}")(x, spatial)
         if self.project:
-            x = self.ConvNormAct2D_0(x)
+            x = self.ConvNormAct2D_0(x, spatial)
+        if not (self.map_generate or self.trans_num):
+            return x, None
+        x = gather_depth(x, spatial)  # the map and attention: whole
         sem = self.SemanticMapGeneration2D_0(x) if self.map_generate else None
         for i in range(self.trans_num):
             x, sem = getattr(self, f"BidirectionAttentionBlock2D_{i}")(x, sem)
-        return x, sem
+        return shard_depth(x, spatial), sem
 
 
 class UpBlockMF2D(nn.Module):
@@ -444,19 +457,22 @@ class UpBlockMF2D(nn.Module):
         self.conv_num, self.trans_num = conv_num, trans_num
         self.map_shortcut = map_shortcut
 
-    def forward(self, x_low, x_skip, map_low, map_skip=None):
-        x = resize2d(x_low, x_skip.shape[1:3]).to(x_low.dtype)
+    def forward(self, x_low, x_skip, map_low, map_skip=None, spatial=None):
+        x = resize2d(x_low, x_skip.shape[1:3], spatial).to(x_low.dtype)
         feat = self.ConvNormAct2D_0(torch.cat([x, x_skip.to(x.dtype)],
-                                              dim=-1))
+                                              dim=-1), spatial)
         if self.map_shortcut and map_skip is not None:
             sem = self.Conv_0(torch.cat([map_low, map_skip], dim=-1))
         else:
             sem = map_low
-        for i in range(self.trans_num):
-            feat, sem = getattr(self, f"BidirectionAttentionBlock2D_{i}")(
-                feat, sem)
+        if self.trans_num:  # attention on the whole map
+            feat = gather_depth(feat, spatial)
+            for i in range(self.trans_num):
+                feat, sem = getattr(
+                    self, f"BidirectionAttentionBlock2D_{i}")(feat, sem)
+            feat = shard_depth(feat, spatial)
         for i in range(self.conv_num):
-            feat = getattr(self, f"BasicBlock2D_{i}")(feat)
+            feat = getattr(self, f"BasicBlock2D_{i}")(feat, spatial)
         return feat, sem
 
 
@@ -535,19 +551,19 @@ class MedFormer2D(nn.Module):
             self.aux_out = conv2d(ch[5], num_classes, 1, dtype=dtype)
         self.outc = conv2d(b, num_classes, 1, dtype=torch.float32)
 
-    def forward(self, x):
-        x = x.to(self.dtype)
-        x0 = self.BasicBlock2D_0(self.Conv_0(x))
-        x1, _ = self.DownBlockMF2D_0(x0)
-        x2, map2 = self.DownBlockMF2D_1(x1)
-        x3, map3 = self.DownBlockMF2D_2(x2)
-        x4, map4 = self.DownBlockMF2D_3(x3)
+    def forward(self, x, spatial=None):
+        x, sp = x.to(self.dtype), spatial
+        x0 = self.BasicBlock2D_0(self.Conv_0(x, sp), sp)
+        x1, _ = self.DownBlockMF2D_0(x0, sp)
+        x2, map2 = self.DownBlockMF2D_1(x1, sp)
+        x3, map3 = self.DownBlockMF2D_2(x2, sp)
+        x4, map4 = self.DownBlockMF2D_3(x3, sp)
         map2, map3, map4 = self.SemanticMapFusion2D_0([map2, map3, map4])
-        out, sem = self.UpBlockMF2D_0(x4, x3, map4, map3)
-        out, sem = self.UpBlockMF2D_1(out, x2, sem, map2)
-        aux = resize2d(self.aux_out(out), x.shape[1:3]) if self.aux_loss \
-            else None
-        out, sem = self.UpBlockMF2D_2(out, x1, sem)
-        out, sem = self.UpBlockMF2D_3(out, x0, sem)
+        out, sem = self.UpBlockMF2D_0(x4, x3, map4, map3, sp)
+        out, sem = self.UpBlockMF2D_1(out, x2, sem, map2, sp)
+        aux = resize2d(self.aux_out(out), x.shape[1:3], sp) \
+            if self.aux_loss else None
+        out, sem = self.UpBlockMF2D_2(out, x1, sem, spatial=sp)
+        out, sem = self.UpBlockMF2D_3(out, x0, sem, spatial=sp)
         logits = self.outc(out)
         return {"segmentation": [logits, aux] if self.aux_loss else logits}

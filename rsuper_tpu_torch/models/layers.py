@@ -16,17 +16,18 @@ match the flax tree so ``models/params.py`` can carry a JAX checkpoint over:
   (``ConvTranspose``).
 
 Instance norm (eps 1e-4) and flax's activations in the conv blocks;
-trilinear resizing (half-pixel centres, or ``align_corners`` for
-MedFormer's ``torch_port`` numerics) whose backward is the transpose of
-each axis's interpolation, a fixed sum of taps (no atomics: the same bits
-every run);
+trilinear (and, for the 2D models, bilinear) resizing (half-pixel centres,
+or ``align_corners`` for MedFormer's ``torch_port`` numerics) whose
+backward is the transpose of each axis's interpolation, a fixed sum of
+taps (no atomics: the same bits every run);
 LayerNorm eps as the caller gives it.
 
 Spatial sharding (``parallel/spatial.py``): the conv blocks, the instance
 norms and the resizes take an optional ``spatial`` (a ``Spatial``, this
 rank's place in its model group) and then compute on the rank's run of
-depth planes (axis 1 in both layouts). A conv exchanges halo planes with
-its neighbours (``same_pads``' depth pads; the 3³ kernels take one plane
+depth planes (axis 1 in both layouts; the rows of the 2D models'
+(B, H, W, C) maps, ``Conv`` with ``nd=2``). A conv exchanges halo planes
+with its neighbours (``same_pads``' depth pads; the 3³ kernels take one plane
 each side and their own SAME padding at the volume's faces), a norm sums
 its statistics over the group, as the squeeze-and-excitation mean does its
 sum, a half-pixel resize takes one halo plane each side (the face clamps
@@ -191,13 +192,44 @@ def same_pads(size, kernel, stride):
     return total // 2, total - total // 2
 
 
+class _Conv2dFixedOrder(torch.autograd.Function):
+    """``F.conv2d`` whose backward is ``convolution_backward`` with cuDNN
+    held to its deterministic algorithms: its default float32 data- and
+    weight-gradient algorithms for 2D convs add in no fixed order (two
+    passes of a 2D model's float32 step gave other bits on the card),
+    these give the same bits every run. The forward is ``F.conv2d``'s.
+    cuDNN's flag is global: it is set for the call and restored."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, groups, b is not None)
+        return F.conv2d(x, w, b, stride, padding, groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, groups, bias = ctx.conf
+        want = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], bias]
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                g, x, w, [w.shape[0]] if bias else None, list(stride),
+                list(padding), [1, 1], False, [0, 0], groups, want)
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        return gx, gw, gb, None, None, None
+
+
 class Conv(nn.Module):
     """Dense or grouped conv of any kernel and stride on channels-last
     (B, *spatial, C) tensors with flax's SAME padding (``nn.Conv``, with
     ``feature_group_count`` = `groups`), through cuDNN on the card:
     ``weight`` in torch layout (C_out, C_in / groups, *kernel), optional
     ``bias``. `nd` spatial axes: 3 (``F.conv3d``) or 2 (``F.conv2d``, the
-    2D models). The channels-last tensor is handed to cuDNN as a
+    2D models, with a backward that gives the same bits every run,
+    ``_Conv2dFixedOrder``). The channels-last tensor is handed to cuDNN as a
     channels-last view, so no layout copy is made. With `spatial` the
     depth is sharded: the halo of the depth's SAME pads comes from the
     neighbours (zeros beyond the faces), and the local depth must divide
@@ -235,9 +267,13 @@ class Conv(nn.Module):
             x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
             padding = 0
         b = None if self.bias is None else self.bias.to(self.dtype)
-        conv = F.conv3d if self.nd == 3 else F.conv2d
-        y = conv(x, self.weight.to(self.dtype), b, self.strides, padding,
-                 groups=self.groups)
+        w = self.weight.to(self.dtype)
+        if self.nd == 2:
+            padding = padding if isinstance(padding, tuple) else (0, 0)
+            y = _Conv2dFixedOrder.apply(x, w, b, self.strides, padding,
+                                        self.groups)
+        else:
+            y = F.conv3d(x, w, b, self.strides, padding, groups=self.groups)
         return y.movedim(1, -1)
 
 
@@ -685,25 +721,26 @@ def interp_taps(n_out: int, n_in: int, align_corners: bool,
 
 
 class _Resize(torch.autograd.Function):
-    """``F.interpolate(trilinear)`` of (B, C, D, H, W) with the transpose
-    ``jax.image.resize`` has for its backward: an axis at a time, each
-    input plane the sum of the outputs it feeds times their weights
-    (``interp_taps``; a gather and a multiply-add a tap, in a fixed order),
-    accumulated in float32 (float64 for float64). The gradient is the same
-    bits every run: ``F.interpolate``'s own backward adds with atomics on
-    CUDA."""
+    """``F.interpolate`` of (B, C, *spatial) with two spatial axes
+    (bilinear) or three (trilinear), with the transpose ``jax.image.resize``
+    has for its backward: an axis at a time, each input plane the sum of
+    the outputs it feeds times their weights (``interp_taps``; a gather and
+    a multiply-add a tap, in a fixed order), accumulated in float32
+    (float64 for float64). The gradient is the same bits every run:
+    ``F.interpolate``'s own backward adds with atomics on CUDA."""
 
     @staticmethod
     def forward(ctx, x, size, align_corners):
         ctx.shape, ctx.align_corners = x.shape[2:], align_corners
-        return F.interpolate(x, size=tuple(size), mode="trilinear",
+        mode = "bilinear" if x.dim() == 4 else "trilinear"
+        return F.interpolate(x, size=tuple(size), mode=mode,
                              align_corners=align_corners)
 
     @staticmethod
     def backward(ctx, g):
         acc = torch.float64 if g.dtype == torch.float64 else torch.float32
         t = g
-        for axis, n_in in zip((2, 3, 4), ctx.shape):
+        for axis, n_in in enumerate(ctx.shape, start=2):
             rows, w = interp_taps(t.shape[axis], n_in, ctx.align_corners,
                                   acc, g.device)
             view = [1] * t.dim()
@@ -717,11 +754,11 @@ class _Resize(torch.autograd.Function):
 
 def _resize_sharded(x: torch.Tensor, size, align_corners: bool, sp,
                     to_first, from_first) -> torch.Tensor:
-    """The resize of a depth-sharded (B, D, ·, ·, ·) tensor to the local
-    `size`: half-pixel centres read one plane beyond the rank's run at an
-    integer depth ratio r (a one-plane halo, dropped at the faces, where
-    the resize clamps; then r planes a side cropped); align-corners ones
-    the gathered volume."""
+    """The resize of a tensor sharded on axis 1 (depth, or the rows of a
+    2D map) to the local `size`: half-pixel centres read one plane beyond
+    the rank's run at an integer ratio r (a one-plane halo, dropped at the
+    faces, where the resize clamps; then r planes a side cropped);
+    align-corners ones the gathered tensor."""
     whole = (size[0] * sp.size, *size[1:])
     if align_corners:
         y = from_first(_Resize.apply(to_first(gather_depth(x, sp)), whole,
@@ -729,8 +766,8 @@ def _resize_sharded(x: torch.Tensor, size, align_corners: bool, sp,
         return shard_depth(y, sp)
     r, rem = divmod(size[0], x.shape[1])
     if rem or r < 1:
-        raise ValueError(f"a sharded resize needs an integer depth ratio, "
-                         f"got {x.shape[1]} → {size[0]} planes")
+        raise ValueError(f"a sharded resize needs an integer ratio on axis "
+                         f"1, got {x.shape[1]} → {size[0]} planes")
     halo = 1 if r > 1 else 0
     slab = halo_exchange(x, halo, halo, sp, "drop")
     y = from_first(_Resize.apply(to_first(slab),
@@ -738,19 +775,24 @@ def _resize_sharded(x: torch.Tensor, size, align_corners: bool, sp,
     return y.narrow(1, r * sp.halo(halo, halo)[0], size[0])
 
 
-def resize_trilinear(x: torch.Tensor, size, align_corners: bool = False,
-                     spatial=None) -> torch.Tensor:
-    """Trilinear resize of (B, D, H, W, C) to spatial `size`: half-pixel
-    centres (``jax.image.resize(method="linear")``; equal for upsampling),
-    or with `align_corners` output i reads input i·(n_in−1)/(n_out−1), as
-    the reference's torch model upsamples (JAX ``_resize_axes_ac``). With
-    `spatial` the depth of `x` and of `size` is the rank's run."""
-    to_first = lambda t: t.permute(0, 4, 1, 2, 3)  # noqa: E731
-    from_first = lambda t: t.permute(0, 2, 3, 4, 1).contiguous()  # noqa
+def resize_linear(x: torch.Tensor, size, align_corners: bool = False,
+                  spatial=None) -> torch.Tensor:
+    """Linear resize of channels-last (B, *spatial, C) to spatial `size`:
+    trilinear for (B, D, H, W, C), bilinear for the 2D models' (B, H, W,
+    C). Half-pixel centres (``jax.image.resize(method="linear")``; equal
+    for upsampling), or with `align_corners` output i reads input
+    i·(n_in−1)/(n_out−1), as the reference's torch model upsamples (JAX
+    ``_resize_axes_ac``). With `spatial` axis 1 of `x` and of `size` (the
+    depth, or the rows) is the rank's run."""
+    to_first = lambda t: t.movedim(-1, 1)  # noqa: E731
+    from_first = lambda t: t.movedim(1, -1).contiguous()  # noqa: E731
     if spatial is not None:
         return _resize_sharded(x, size, align_corners, spatial, to_first,
                                from_first)
     return from_first(_Resize.apply(to_first(x), size, align_corners))
+
+
+resize_trilinear = resize_linear
 
 
 def resize_trilinear_cf(x: torch.Tensor, size, align_corners: bool = False,

@@ -1,6 +1,7 @@
-"""Spatial sharding: the depth of every volume split over the ranks of a
-model group (the port's counterpart of ``spatial_constraint`` and
-``gather_spatial`` in ``rsuper_tpu/parallel/mesh.py``).
+"""Spatial sharding: the depth of every volume (the rows of every 2D
+slice) split over the ranks of a model group (the port's counterpart of
+``spatial_constraint`` and ``gather_spatial`` in
+``rsuper_tpu/parallel/mesh.py``).
 
 The JAX package annotates the batch with depth sharded over the mesh's
 ``model`` axis and lets GSPMD partition the convs (halo exchanges) and the
@@ -50,11 +51,6 @@ from typing import Any, List
 
 import torch
 import torch.distributed as dist
-
-# what names the sharding that is not ported yet
-UNPORTED_SPATIAL = ("ROADMAP.md §1 item 10 (spatial sharding of the 2D "
-                    "pathway)")
-
 
 @dataclasses.dataclass(frozen=True)
 class Spatial:
@@ -265,14 +261,15 @@ def gather_depth(x: torch.Tensor, sp: Spatial) -> torch.Tensor:
 
 def gather_segmentation(out: dict, sp: Spatial, depth: int) -> dict:
     """The model's outputs with every segmentation head that is sharded
-    (its depth the local `depth`) gathered to whole volumes: the
-    model/loss boundary (``gather_spatial``)."""
+    (its axis 1 the local `depth`: a volume's (B, D, H, W, C) or a 2D
+    model's (B, H, W, C) rows) gathered whole: the model/loss boundary
+    (``gather_spatial``)."""
     seg = out.get("segmentation")
     if seg is None:
         return out
 
     def whole(t):
-        return (gather_depth(t, sp) if t is not None and t.dim() == 5
+        return (gather_depth(t, sp) if t is not None and t.dim() in (4, 5)
                 and t.shape[1] == depth else t)
 
     if isinstance(seg, (list, tuple)):

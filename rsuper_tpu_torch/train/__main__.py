@@ -31,10 +31,10 @@ Several GPUs train together, one process a GPU (``parallel/``): with
 spawns N ranks on this host (on the CPU too); with neither, on a host that
 sees G > 1 cards, it spawns ``gcd(batch_size, G / S)·S`` ranks, as the JAX
 loop builds its ``(data, model)`` mesh over that many devices.
-``--spatial_shard S`` splits every volume's depth over S ranks (a model
-group; every 3D arch, ``train/loop.py``), the others
-split the batch: each rank loads ``batch_size / (N / S)`` items of every
-global batch; the step is the global batch's. ``--zero_opt`` and
+``--spatial_shard S`` splits every volume's depth (every 2D slice's
+rows) over S ranks (a model group; every arch, ``train/loop.py``), the
+others split the batch: each rank loads ``batch_size / (N / S)`` items of
+every global batch; the step is the global batch's. ``--zero_opt`` and
 ``--zero_ema`` split the optimizer state and the EMA copy over the data
 ranks (ZeRO-1).
 """

@@ -18,9 +18,7 @@ resumed run goes on from the step it saved, also in the middle of an epoch
 (where the JAX loop starts the epoch again). The model's parameters are
 initialised by the caller; ``pretrained`` then loads a donor's before
 ``resume``. At the end of every ``val_freq``-th epoch the run validates on
-its test cases and keeps the best checkpoint by mean Dice. The options of
-the JAX loop that the port does not have yet raise ``NotImplementedError``
-naming their item of ``ROADMAP.md`` §1 before anything runs.
+its test cases and keeps the best checkpoint by mean Dice.
 
 Once ``torch.distributed`` is initialised (``parallel.multihost``, the
 training CLI's ``--dist_*`` flags or its local spawner) the loop runs one
@@ -39,12 +37,14 @@ With ``spatial_shard`` S > 1 the ranks form a ``data × model`` grid
 (``parallel.mesh.grid``, rank = d·S + m), as the JAX loop builds its
 ``(data, model)`` mesh: the samplers, the rows and the augmentation draws
 key on the data rank d, so the S ranks of model group d load and augment
-the same items, and the step runs the model on each rank's run of depth
-planes (``train/step.py``). The JAX loop's rules hold: S divides the ranks,
-and ``training_size[0] // 16 >= 2·S``. Every 3D arch shards; the 2D
-pathway (a 2D config or a ``*_2d`` arch) raises ``NotImplementedError``
-naming ROADMAP.md §1 item 10. Validation and checkpoints stay unsharded, as the
-JAX loop's eval step is.
+the same items (the loader's host draws, a report case's crop, a 2D
+slice, ``host_augment``, come from a generator per record seeded from the
+seed, the epoch, d and the record's place, whichever worker loads it),
+and the step runs the model on each rank's run of depth planes, or of
+rows on the 2D pathway (``train/step.py``). The JAX loop's rules hold: S
+divides the ranks, and ``training_size[0] // 16 >= 2·S`` (rows in 2D).
+Every arch shards, 3D and 2D. Validation and checkpoints stay unsharded,
+as the JAX loop's eval step is.
 """
 
 from __future__ import annotations
@@ -64,7 +64,6 @@ from ..data.sampler import ChunkedSampler, OrganBatchSampler
 from ..losses import LesionChannelMap
 from ..parallel.mesh import DataParallel, current, zero_partition
 from ..parallel.multihost import is_primary, local_rows
-from ..parallel.spatial import UNPORTED_SPATIAL
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger, dump_config, setup_logger
 from ..utils.meters import AverageMeter
@@ -76,29 +75,16 @@ from .state import TrainState, create_train_state
 from .step import build_train_step
 from .validation import run_validation, validation_model
 
-# the items of ROADMAP.md §1 that hold what the port does not have yet
-ROADMAP = {
-    "spatial": UNPORTED_SPATIAL,
-}
-
 Draws = Callable[[int, int, int], AugmentDraws]
 
 
-def unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {ROADMAP[item]}")
-
-
 def check_config(cfg: TrainConfig) -> None:
-    """Raise for each option of the JAX loop the port does not have, and
-    for the spatial sharding the JAX loop refuses."""
+    """Raise for the spatial sharding the JAX loop refuses."""
     sp = cfg.spatial_shard
     if sp > 1:
-        if cfg.is_2d or cfg.arch.endswith("_2d"):
-            raise unported(f"spatial_shard={sp} of the 2D pathway "
-                           f"(arch {cfg.arch!r})", "spatial")
-        # the JAX loop's guard, with its message: its XLA conv gradients
-        # were wrong below 2 planes a shard (the port's layers raise where
-        # a stride does not divide a rank's planes)
+        # the JAX loop's guard, with its message (on rows in 2D): its XLA
+        # conv gradients were wrong below 2 planes a shard (the port's
+        # layers raise where a stride does not divide a rank's planes)
         if cfg.training_size[0] // 16 < 2 * sp:
             raise ValueError(
                 f"spatial_shard {sp} too large for depth "
@@ -287,9 +273,13 @@ def train(
     batches = source = None
     try:
         for epoch in range(start_epoch, cfg.epochs):
+            # a model group's ranks load the same records: their host draws
+            # key on the record, not on the worker that loads it
+            keyed = dp is not None and dp.spatial is not None
             loader = PrefetchLoader(
                 dataset, local_bs, epoch_indices(epoch),
                 num_workers=cfg.num_workers, transform=host_transform,
+                item_seed=(cfg.seed, epoch, dp.rank) if keyed else None,
             )
             batches = iter(loader)
             # a run resumed in the middle of an epoch loads the batches it

@@ -16,8 +16,9 @@ batch's loss, the step the JAX package takes on its ``(data, model)``
 mesh, and reports the global terms, the same bits on every rank.
 
 With spatial sharding (``group.spatial``) the model runs on the rank's run
-of depth planes of the image (``shard_depth``), and its sharded outputs are
-gathered to whole volumes at the model/loss boundary, as
+of depth planes of the image (of rows of a 2D slice: ``shard_depth`` splits
+axis 1 of both), and its sharded outputs are gathered to whole volumes (or
+slices, lifted after the gather) at the model/loss boundary, as
 ``rsuper_tpu/train/step.py`` gathers them: every loss then runs on whole
 volumes, the same bits on every rank of the model group, so the Ball Loss's
 host reads take the same branches there. Each rank seeds its backward with
@@ -54,8 +55,8 @@ def loss_fn(model, batch: Dict[str, Any], lmap: LesionChannelMap,
     ``_lift_2d``. A ``clip_only`` step runs the model's encoder and heads
     alone (the CLIP loss reads nothing of the decoder). With `group`, the
     terms are this rank's shares of the global batch's; with
-    ``group.spatial`` the model runs depth-sharded and its outputs are
-    gathered before the losses."""
+    ``group.spatial`` the model runs depth-sharded (row-sharded in 2D) and
+    its outputs are gathered before the losses."""
     sp = None if group is None else group.spatial
     image = batch["image"]
     extra = ()

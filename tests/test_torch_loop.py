@@ -22,10 +22,10 @@
   epoch, or in the middle of one, and resumed equals an uninterrupted one
   bit for bit; the CLI runs
   end to end with ``--device cpu`` and resumes, without importing pandas or
-  PyYAML; every option the port does not have raises
-  ``NotImplementedError`` naming its ``ROADMAP.md`` item, also beside the
-  2D preset (the 2D pathway is held in ``tests/test_torch_dim2_loop.py``;
-  validation,
+  PyYAML; the options of ``ROADMAP.md`` §1 items 8 and 10 take a step,
+  item 10's (spatial sharding of the 2D pathway) on two ranks of the
+  CLI's spawner (the 2D pathway is held in
+  ``tests/test_torch_dim2_loop.py``; validation,
   warm starts, host augmentation and the prefetcher are held in
   ``tests/test_torch_{validation,pretrained,host_augment}.py``, CLIP
   pretraining in ``tests/test_torch_clip_loop.py``).
@@ -454,25 +454,75 @@ def test_presets_and_class_lists_match_the_jax_package():
         assert a == b
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--arch", "unet_2d", "--dimension", "2d", "--spatial_shard", "2"],
-     "item 10 "),
-    (["--preset", "slices/resunet_2d", "--spatial_shard", "2"], "item 10 "),
-])
-def test_unported_cli_options_raise(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
-        cli.main(["--data_root", str(tmp_path), "--device", "cpu", *flags])
+# the 2D pathway with spatial sharding (ROADMAP.md §1 item 10): the flag
+# sets and the config field, each completed into a two-rank job of the
+# CLI's local spawner on the CPU (a 1 × 2 grid)
+ITEM_10 = {
+    "arch_unet_2d": ["--arch", "unet_2d", "--dimension", "2d",
+                     "--spatial_shard", "2"],
+    "preset_resunet_2d": ["--preset", "slices/resunet_2d", "--spatial_shard",
+                          "2"],
+    "config_spatial_shard": [],  # the config file sets the field
+}
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("spatial_shard", 2, "item 10 "),
-])
-def test_unported_config_fields_raise(tmp_path, field, value, item):
-    # the field on the 2D pathway, whose models do not shard yet
-    cfg = load_config(PRESET, overrides={field: value, "arch": "unet_2d",
-                                         "training_size": (64, 64)})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
-        loop.train(cfg, None, [], device="cpu")
+@pytest.fixture(scope="module")
+def item_10_runs(data, tmp_path_factory):
+    """One step of each ITEM_10 case at 64² slices (base 4, two loader
+    workers, whose records key on the record), the cases run at once."""
+    yaml = pytest.importorskip("yaml")
+    tmp = tmp_path_factory.mktemp("item_10")
+    procs = []
+    for name, flags in ITEM_10.items():
+        cfg = {"model_args": {"base_chan": 4}, "training_size": [64, 64],
+               "compute_dtype": "float32"}
+        if not flags:
+            cfg.update(arch="unet_2d", spatial_shard=2)
+        path = tmp / f"{name}.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        argv = _cli_args(data, tmp / name, "--config", str(path),
+                         "--max_steps", "1", "--mask_only", "--unique_name",
+                         name, "--num_workers", "2", "--dist_num_processes",
+                         "2", *flags)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "rsuper_tpu_torch.train", *argv],
+            env={**os.environ, "OMP_NUM_THREADS": "1"}, cwd=str(ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    return tmp
+
+
+def _check_item_10_run(root: Path, name: str):
+    """Both ranks logged the step's losses, finite and the same bits; the
+    run's config has the field; rank 0 saved the step."""
+    exp = root / name / name
+    recs = [[json.loads(line) for line in
+             (exp / f"metrics.rank{r}.jsonl").read_text().splitlines()
+             if "train/overall" in line] for r in range(2)]
+    for r in recs:
+        for rec in r:
+            del rec["time"]
+    assert recs[0] and recs[0] == recs[1]
+    assert np.isfinite([r["train/overall"] for r in recs[0]]).all()
+    config = (exp / "config.txt").read_text()
+    assert "spatial_shard: 2\n" in config and "_2d\n" in config
+    assert torch.load(exp / "latest", weights_only=True)["step"] == 1
+
+
+@pytest.mark.parametrize("name", ["arch_unet_2d", "preset_resunet_2d"])
+def test_item_10_cli_options_run(item_10_runs, name):
+    """The flag sets that raised ``NotImplementedError`` before the 2D
+    pathway sharded its rows take a step on two ranks."""
+    _check_item_10_run(item_10_runs, name)
+
+
+@pytest.mark.parametrize("name", ["config_spatial_shard"])
+def test_item_10_config_field_runs(item_10_runs, name):
+    """The field on the 2D pathway (``spatial_shard: 2`` with ``unet_2d``
+    at 64²) takes a step on two ranks."""
+    _check_item_10_run(item_10_runs, name)
 
 
 @pytest.mark.parametrize("flags", [

@@ -28,10 +28,9 @@ floor of its float32 gradients.
 
 Below: the CLI through its local spawner (``--dist_num_processes 2
 --spatial_shard 2``, then a one-process resume; world 4 with ZeRO-1), the
-loop's guards with the JAX loop's messages, every 3D arch, MedFormer
-configuration and UNet block accepted (the latter two sharded by job
-``configs``), and the 2D pathway, which still raises
-``NotImplementedError`` naming ROADMAP.md §1 item 10.
+loop's guards with the JAX loop's messages, every 3D and 2D arch,
+MedFormer configuration and UNet block accepted (the MedFormers and the
+blocks sharded by job ``configs``).
 """
 
 import json
@@ -540,16 +539,16 @@ ARCHS_3D = ("unet", "resunet", "medformer", "vnet", "unetr",
 @pytest.mark.parametrize("overrides", [
     {"arch": a, "training_size": (64, 64)} for a in ARCHS_2D],
     ids=lambda o: o["arch"])
-def test_other_archs_raise_naming_item_10(overrides):
-    """The 2D pathway alone still raises, naming its item."""
+def test_every_2d_arch_passes_the_loops_checks(overrides):
+    """Every 2D arch of the factory shards its rows: the loop's checks
+    accept it at 64² slices, whose deepest map keeps 2 rows a shard (the
+    steps: ``tests/test_torch_spatial_2d.py``)."""
     from rsuper_tpu_torch.config import load_config
     from rsuper_tpu_torch.train import loop
 
-    cfg = load_config("abdomenatlas/resunet_3d",
-                      overrides={"spatial_shard": 2, **overrides})
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md §1 item 10 "):
-        loop.check_config(cfg)
+    loop.check_config(load_config("abdomenatlas/resunet_3d",
+                                  overrides={"spatial_shard": 2,
+                                             **overrides}))
 
 
 @pytest.mark.parametrize("arch", ARCHS_3D)
