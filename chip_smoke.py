@@ -167,12 +167,23 @@ Phases, in order (any failure exits non-zero):
              probabilities ``predict_masks_volume`` serves; one round of the
              augmentation daemon read back through
              ``AugmentedRecordDataset``.
-15. host_pipelines — no device: report extraction with a stub LLM client
-             over 50 seeded reports for every step, the organ-mask
-             maintenance tools on synthetic NIfTIs, the sub-organ
+15. phantom — the phantom accuracy study
+             (``rsuper_tpu_torch.phantom_benchmark``) at its default data
+             with 60 steps an arm: both arms trained (float32 ResUNet base
+             8, 32³ crops × 4) with the top-N launch counts set to 0 just
+             before and read just after (row 8 in the report arm, no top-N
+             launch in the mask-only arm), evaluated (metrics finite in
+             [0, 1]); row 8 against its plain version at every shape the
+             report arm launched it at; the same bits twice from one
+             phantom step, one float32 step of the ResUNet preset at 128³ ×
+             2 and the 3D conv's backward at four shapes.
+16. host_pipelines — no device: report extraction with a stub LLM client
+             over 50 seeded reports for every step, the same reports as a
+             written ``.xlsx`` read back against the ``.csv``, the
+             organ-mask maintenance tools on synthetic NIfTIs, the sub-organ
              predictor's discovery and sharding, one sanity dump; pandas
              never imported.
-16. ddp    — data parallelism on the one card: the training CLI as a
+17. ddp    — data parallelism on the one card: the training CLI as a
              one-rank NCCL job (``--dist_*``, ``--zero_opt``, ``--zero_ema``)
              at the preset's sizes for 3 steps against three plain runs of
              the same seed (first-step losses bit-equal; then parameters,
@@ -186,7 +197,7 @@ Phases, in order (any failure exits non-zero):
              with ZeRO-1 (ms a step, all-reduce ms and bytes, peak memory
              and optimizer-state bytes a rank, launches a rank a step), one
              CLIP step; every logged loss bit-equal on the two ranks.
-17. spatial — spatial sharding on the one card: two gloo ranks in a 1 × 2
+18. spatial — spatial sharding on the one card: two gloo ranks in a 1 × 2
              grid split every volume's depth: the MedFormer and ResUNet
              presets and the mf_variants phase's ``mf_mbconv`` at 128³ × 2
              (ms a step a rank beside one process, collectives, peak
@@ -208,6 +219,7 @@ last, ``{"ok": true, "device": {...}}``. It imports nothing of JAX or of
 
 from __future__ import annotations
 
+import datetime as _dt
 import json
 import math
 import os
@@ -619,89 +631,108 @@ def topn_cases(rows, failures, dev):
     not the same threshold."""
     import torch
 
-    from rsuper_tpu_torch.ops import selection, topn
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for i, (B, V, K) in enumerate(TOPN_SHAPES):
+        topn_row(rows, failures, dev, gen, "topn_threshold_multi_batched",
+                 B, V, K, i == 0)
+    for i, (V, K) in enumerate(TOPN_SINGLE_SHAPES):
+        topn_row(rows, failures, dev, gen, "topn_threshold_multi", 1, V, K,
+                 i == 0)
+
+
+def _topn_inputs(gen, dev, B, V, K):
+    """``topn_cases``' five inputs at (B, V, K): a ball, a dense normal
+    volume, an all-zero last item, a target above the positive count,
+    ties."""
+    import torch
+
     from rsuper_tpu_torch.ops.balls import insert_ball
+
+    edge = round(V ** (1.0 / 3.0))
+    u = torch.rand((B, V), generator=gen, device=dev)
+    if edge ** 3 == V:  # one ball of diameter 20 · 1.2, off the centre
+        c = torch.full((B,), edge // 2, device=dev)
+        inside = insert_ball((edge,) * 3, (c, c + 3, c - 5),
+                             torch.full((B,), 24.0, device=dev))
+        ns = torch.tensor([4000.0, 3200.0, 4800.0][:K], device=dev)
+    else:
+        inside = (torch.rand((B, V), generator=gen, device=dev) < 0.5
+                  ).float()
+        ns = torch.tensor([1000.0, 800.0, 1200.0][:K], device=dev)
+    x, ns = u * inside.reshape(B, V), ns.repeat(B, 1)
+    zero, above = x.clone(), ns.clone()
+    zero[-1] = 0.0
+    above[:, 0] = float(V + 1)
+    return [("ball", x, ns),
+            ("dense", torch.randn((B, V), generator=gen, device=dev), ns),
+            ("an_all_zero_item", zero, ns),
+            ("n_above_the_positive_count", x, above),
+            ("ties", torch.ceil(x * 4.0) / 4.0, ns)]
+
+
+def topn_row(rows, failures, dev, gen, name, B, V, K, on_path, path=None):
+    """One top-N kernel (`name`: ``topn_threshold_multi`` takes one volume,
+    B = 1) at (B, V, K) against the plain bisection on ``_topn_inputs``,
+    timed as ``topn_cases`` says; the row (tagged with `path` if given)
+    goes to `rows`, a mismatch to `failures`."""
+    import torch
+
+    from rsuper_tpu_torch.ops import selection, topn
     from rsuper_tpu_torch.ops.dispatch import plain_on_device
 
-    gen = torch.Generator(device=dev).manual_seed(7)
-
-    def inputs(B, V, K):
-        edge = round(V ** (1.0 / 3.0))
-        u = torch.rand((B, V), generator=gen, device=dev)
-        if edge ** 3 == V:  # one ball of diameter 20 · 1.2, off the centre
-            c = torch.full((B,), edge // 2, device=dev)
-            inside = insert_ball((edge,) * 3, (c, c + 3, c - 5),
-                                 torch.full((B,), 24.0, device=dev))
-            ns = torch.tensor([4000.0, 3200.0, 4800.0][:K], device=dev)
-        else:
-            inside = (torch.rand((B, V), generator=gen, device=dev) < 0.5
-                      ).float()
-            ns = torch.tensor([1000.0, 800.0, 1200.0][:K], device=dev)
-        x, ns = u * inside.reshape(B, V), ns.repeat(B, 1)
-        zero, above = x.clone(), ns.clone()
-        zero[-1] = 0.0
-        above[:, 0] = float(V + 1)
-        return [("ball", x, ns),
-                ("dense", torch.randn((B, V), generator=gen, device=dev), ns),
-                ("an_all_zero_item", zero, ns),
-                ("n_above_the_positive_count", x, above),
-                ("ties", torch.ceil(x * 4.0) / 4.0, ns)]
-
-    def run(name, fn, mask_fn, B, V, K, single, on_path):
-        worst, mismatches = 0.0, 0
-        cases = inputs(B, V, K)
-        for _, x, ns in cases:
-            a = (x[0], ns[0]) if single else (x, ns)
-            got = fn(*a, iters=TOPN_ITERS)
-            masks = mask_fn(*a, iters=TOPN_ITERS)
-            with plain_on_device():
-                ref = fn(*a, iters=TOPN_ITERS)
-                ref_masks = mask_fn(*a, iters=TOPN_ITERS)
-            torch.cuda.synchronize()
-            worst = max(worst, _err(got, ref)[0])
-            mismatches += int((masks != ref_masks).sum().item())
-            del masks, ref_masks
-        ok = worst == 0.0 and mismatches == 0
-        _, x, ns = cases[0]
+    single = name == "topn_threshold_multi"
+    fn = getattr(topn, name)
+    mask_fn = (selection.topn_masks_multi if single
+               else selection.topn_masks_multi_batched)
+    worst, mismatches = 0.0, 0
+    cases = _topn_inputs(gen, dev, B, V, K)
+    for _, x, ns in cases:
         a = (x[0], ns[0]) if single else (x, ns)
-        row = dict(name=name, dtype="float32",
-                   shape=[V, K] if single else [B, V, K], max_abs_err=worst,
-                   mask_mismatches=mismatches, tol=0.0, ok=ok,
-                   on_path=on_path)
-        row["ms"] = time_ms(lambda: fn(*a, iters=TOPN_ITERS), TOPN_REPS)
-        row["device_ms"] = graph_ms(lambda: fn(*a, iters=TOPN_ITERS),
-                                    DEVICE_REPS)
-        row["kernels_per_call"] = device_ops(lambda: fn(*a, iters=TOPN_ITERS))
-        row["cluster"] = topn.plan_for(V, K, x.dtype, x.device, B).cluster
+        got = fn(*a, iters=TOPN_ITERS)
+        masks = mask_fn(*a, iters=TOPN_ITERS)
         with plain_on_device():
-            row["plain_ms"] = time_ms(lambda: fn(*a, iters=TOPN_ITERS),
-                                      TOPN_REPS)
-        # the largest n values of each item in one call: the n-th of them is
-        # the threshold the bisection approximates
-        top_n = int(ns.max().clamp(1, V).item())
-        row["library_ms"] = time_ms(
-            lambda: torch.topk(a[0], top_n, dim=-1), TOPN_REPS)
-        row["library_call"] = "torch.topk over the volume, n = max target"
-        ks = (V - ns + 1).clamp(1, V).long().tolist()
-        row["kthvalue_ms"] = time_ms(
-            lambda: [torch.kthvalue(x[b], k) for b in range(B)
-                     for k in ks[b]], TOPN_REPS)
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            float(B) * V * (TOPN_ITERS * K + 1), B * V * 4 + 2 * B * K * 4,
-            "float32")
-        log(json.dumps({"kernel_case": row}))
-        if not ok:
-            failures.append(f"{name} {row['shape']}: max|Δ| {worst}, "
-                            f"{mismatches} mask voxels differ (must be 0)")
-        rows.append(row)
-        torch.cuda.empty_cache()
-
-    for i, (B, V, K) in enumerate(TOPN_SHAPES):
-        run("topn_threshold_multi_batched", topn.topn_threshold_multi_batched,
-            selection.topn_masks_multi_batched, B, V, K, False, i == 0)
-    for i, (V, K) in enumerate(TOPN_SINGLE_SHAPES):
-        run("topn_threshold_multi", topn.topn_threshold_multi,
-            selection.topn_masks_multi, 1, V, K, True, i == 0)
+            ref = fn(*a, iters=TOPN_ITERS)
+            ref_masks = mask_fn(*a, iters=TOPN_ITERS)
+        torch.cuda.synchronize()
+        worst = max(worst, _err(got, ref)[0])
+        mismatches += int((masks != ref_masks).sum().item())
+        del masks, ref_masks
+    ok = worst == 0.0 and mismatches == 0
+    _, x, ns = cases[0]
+    a = (x[0], ns[0]) if single else (x, ns)
+    row = dict(name=name, dtype="float32",
+               shape=[V, K] if single else [B, V, K], max_abs_err=worst,
+               mask_mismatches=mismatches, tol=0.0, ok=ok,
+               on_path=on_path)
+    if path is not None:
+        row["path"] = path
+    row["ms"] = time_ms(lambda: fn(*a, iters=TOPN_ITERS), TOPN_REPS)
+    row["device_ms"] = graph_ms(lambda: fn(*a, iters=TOPN_ITERS),
+                                DEVICE_REPS)
+    row["kernels_per_call"] = device_ops(lambda: fn(*a, iters=TOPN_ITERS))
+    row["cluster"] = topn.plan_for(V, K, x.dtype, x.device, B).cluster
+    with plain_on_device():
+        row["plain_ms"] = time_ms(lambda: fn(*a, iters=TOPN_ITERS),
+                                  TOPN_REPS)
+    # the largest n values of each item in one call: the n-th of them is
+    # the threshold the bisection approximates
+    top_n = int(ns.max().clamp(1, V).item())
+    row["library_ms"] = time_ms(
+        lambda: torch.topk(a[0], top_n, dim=-1), TOPN_REPS)
+    row["library_call"] = "torch.topk over the volume, n = max target"
+    ks = (V - ns + 1).clamp(1, V).long().tolist()
+    row["kthvalue_ms"] = time_ms(
+        lambda: [torch.kthvalue(x[b], k) for b in range(B)
+                 for k in ks[b]], TOPN_REPS)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        float(B) * V * (TOPN_ITERS * K + 1), B * V * 4 + 2 * B * K * 4,
+        "float32")
+    log(json.dumps({"kernel_case": row}))
+    if not ok:
+        failures.append(f"{name} {row['shape']}: max|Δ| {worst}, "
+                        f"{mismatches} mask voxels differ (must be 0)")
+    rows.append(row)
+    torch.cuda.empty_cache()
 
 
 def backward_cases(case, gen, dev, dtype, dname):
@@ -3367,35 +3398,41 @@ DIM2_CONVS = (((2, 256, 256, 32), 32, 1), ((2, 256, 256, 32), 64, 2),
               ((2, 32, 32, 256), 256, 1), ((2, 16, 16, 320), 320, 1))
 
 
-def _conv2d_backward_twice(dev) -> list:
-    """The 2D conv's backward (``layers.Conv`` with ``nd=2``:
-    ``convolution_backward`` with cuDNN held to its deterministic
-    algorithms) at the preset's conv shapes (DIM2_CONVS), float32, on one
-    seeded input, weight and cotangent: its two passes bit-equal; the same
-    conv through ``F.pad`` and ``F.conv2d``'s own backward (cuDNN's default
-    algorithms): whether its two passes gave the same bits, its largest
-    distance to the port's, and the ms of both backwards."""
+def _conv_backward_twice(dev, convs, dtype=None) -> list:
+    """The dense conv's backward (``layers.Conv``: ``convolution_backward``
+    with cuDNN held to its deterministic algorithms) at `convs` ((input
+    (B, *spatial, C_in), C_out, stride); 2 or 3 spatial axes), in `dtype`
+    (float32 unless given), on one seeded input, weight and cotangent: its
+    two passes bit-equal; the same conv through ``F.pad`` and
+    ``F.conv2d``/``F.conv3d``'s own backward (cuDNN's default algorithms):
+    whether its two passes gave the same bits, its largest distance to the
+    port's, and the ms of both backwards."""
     import torch
     import torch.nn.functional as F
 
     from rsuper_tpu_torch.models import layers
 
+    dtype = dtype or torch.float32
     gen = torch.Generator(device=dev).manual_seed(6)
     out = []
-    for shape, c_out, stride in DIM2_CONVS:
-        conv = layers.Conv(shape[-1], c_out, 3, stride, False, nd=2).to(dev)
+    for shape, c_out, stride in convs:
+        nd = len(shape) - 2
+        lib = F.conv2d if nd == 2 else F.conv3d
+        conv = layers.Conv(shape[-1], c_out, 3, stride, False, dtype=dtype,
+                           nd=nd).to(dev)
         with torch.no_grad():
             conv.weight.copy_(0.05 * torch.randn(conv.weight.shape,
                                                  generator=gen, device=dev))
-        x = torch.randn(shape, generator=gen, device=dev).requires_grad_()
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        x.requires_grad_()
         y = conv(x)
-        gy = torch.randn(y.shape, generator=gen, device=dev)
+        gy = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
         xb = x.detach().clone().requires_grad_()
         wb = conv.weight.detach().clone().requires_grad_()
-        pads = [p for n in shape[2:0:-1] for p in layers.same_pads(n, 3,
-                                                                   stride)]
-        yb = F.conv2d(F.pad(xb.movedim(-1, 1), pads), wb, None,
-                      stride).movedim(1, -1)
+        pads = [p for n in shape[-2:0:-1] for p in layers.same_pads(n, 3,
+                                                                    stride)]
+        yb = lib(F.pad(xb.movedim(-1, 1), pads), wb.to(dtype), None,
+                 stride).movedim(1, -1)
         port = lambda: torch.autograd.grad(  # noqa: E731
             y, (x, conv.weight), gy, retain_graph=True)
         library = lambda: torch.autograd.grad(  # noqa: E731
@@ -3404,12 +3441,13 @@ def _conv2d_backward_twice(dev) -> list:
         l1, l2 = library(), library()
         out.append(dict(
             shape=list(shape), features=c_out, stride=stride,
+            dtype=str(dtype).split(".")[-1],
             port_bit_equal=all(torch.equal(a, b) for a, b in zip(p1, p2)),
-            conv2d_bit_equal=all(torch.equal(a, b) for a, b in zip(l1, l2)),
-            port_vs_conv2d_max_rel=max(
-                float((a - b).abs().max() / b.abs().max())
+            library_bit_equal=all(torch.equal(a, b) for a, b in zip(l1, l2)),
+            port_vs_library_max_rel=max(
+                float((a - b).float().abs().max() / b.float().abs().max())
                 for a, b in zip(p1, l1)),
-            port_ms=time_ms(port, 5), conv2d_ms=time_ms(library, 5)))
+            port_ms=time_ms(port, 5), library_ms=time_ms(library, 5)))
         del conv, x, y, gy, xb, wb, yb, p1, p2, l1, l2
     torch.cuda.empty_cache()
     return out
@@ -3654,8 +3692,8 @@ def phase_dim2(dev):
         failures.append(f"dim2: the resize's backward gave other bits on a "
                         f"second pass or left the dense contraction: "
                         f"{res['resize_backward_twice']}")
-    res["conv2d_backward_twice"] = _conv2d_backward_twice(dev)
-    if not all(r["port_bit_equal"] and r["port_vs_conv2d_max_rel"] < 1e-4
+    res["conv2d_backward_twice"] = _conv_backward_twice(dev, DIM2_CONVS)
+    if not all(r["port_bit_equal"] and r["port_vs_library_max_rel"] < 1e-4
                for r in res["conv2d_backward_twice"]):
         failures.append(f"dim2: the 2D conv's backward gave other bits on a "
                         f"second pass or left F.conv2d's: "
@@ -4122,6 +4160,196 @@ def phase_genesis(dev):
     return failures
 
 
+PHANTOM_DATA = dict(n_mask=4, n_report=20, n_test=12)  # the tool's defaults
+PHANTOM_CROP = 32
+PHANTOM_STEPS = 60  # steps of each arm (the study's default is 240)
+PHANTOM_METRICS = ("lesion_dice", "lesion_nsd", "sensitivity", "specificity",
+                   "f1")
+# two of the ResUNet preset's convs at 128³ × 2 (base 32): (input (B, D, H,
+# W, C_in), C_out, stride)
+RESUNET_CONVS = (((2, 128, 128, 128, 32), 32, 1),
+                 ((2, 32, 32, 32, 128), 128, 1))
+# the phantom model's last decoder stage at 32³ × 4 (base 8): its first conv
+# on the skip's concatenation, then one inside its block
+PHANTOM_CONVS = (((4, 32, 32, 32, 16), 8, 1), ((4, 32, 32, 32, 8), 8, 1))
+
+
+def _losses_and_grads(model, batch, lmap, cfg):
+    """One step's loss terms (floats) and every parameter's gradient."""
+    from rsuper_tpu_torch.train import step as tstep
+
+    losses = tstep.gradients(model, batch, lmap, cfg)
+    return ({k: float(v) for k, v in losses.items()},
+            {k: p.grad.detach().clone() for k, p in model.named_parameters()})
+
+
+def _phantom_grads_twice(dev, seen) -> dict:
+    """The phantom study's model (``resunet``, base 8, ``BasicBlock``,
+    ``in``, float32, seeded as ``train_variant`` seeds it) through one step
+    of `seen`'s batch, lesion map and loss configuration (a
+    ``_last_step_batch`` of the report arm: ``ball_dice_last`` with a live
+    report slot) twice: ``_grads_twice``."""
+    import torch
+
+    from rsuper_tpu_torch import phantom_benchmark as pb
+    from rsuper_tpu_torch.models import get_model, init_params
+
+    args = pb.variant_config(".", True, 1).model_args
+    model = init_params(get_model("resunet", len(pb.MASK_CLASSES), args,
+                                  dtype=torch.float32), 0).to(dev).train()
+    out = _grads_twice(lambda: _losses_and_grads(
+        model, seen["batch"], seen["lmap"], seen["cfg"]))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _preset_float32_grads_twice(dev) -> dict:
+    """One float32 ``ball_dice_last`` step of the ``abdomenatlas/resunet_3d``
+    preset's model (base 32, seeded) on ``bench.py``'s batch at the
+    preset's 128³ × 2, twice: ``_grads_twice``."""
+    import torch
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.losses import LesionChannelMap, LossConfig
+    from rsuper_tpu_torch.models import get_model, init_params
+
+    model = init_params(get_model("resunet", len(bench_train.CLASSES),
+                                  RESUNET_ARGS, dtype=torch.float32),
+                        0).to(dev).train()
+    batch = {k: v.float() for k, v in bench_train.synthetic_batch(
+        SPATIAL_SIZE, 2, device=dev).items()}
+    lmap = LesionChannelMap.from_classes(bench_train.CLASSES)
+    out = _grads_twice(lambda: _losses_and_grads(model, batch, lmap,
+                                                 LossConfig()))
+    del model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextmanager
+def _topn_shapes():
+    """Inside the block, the (B, V, K) of every top-N launch, by wrapper."""
+    from rsuper_tpu_torch.ops import topn
+
+    seen = {n: set() for n in TOPN_KERNELS}
+    saved = topn._launch
+
+    def launch(x, ns, iters, batched):
+        name = TOPN_KERNELS[1] if batched else TOPN_KERNELS[0]
+        seen[name].add((x.shape[0], x.shape[1], ns.shape[1]))
+        return saved(x, ns, iters, batched)
+
+    topn._launch = launch
+    try:
+        yield seen
+    finally:
+        topn._launch = saved
+
+
+def phase_phantom(dev):
+    """The phantom accuracy study (``rsuper_tpu_torch.phantom_benchmark``)
+    at its default data (4 CT-Mask, 20 CT-Report and 12 test phantoms of
+    64³, seed 0) with PHANTOM_STEPS steps an arm: both arms through
+    ``train_variant`` (float32 ResUNet base 8, 32³ crops × 4) with the top-N
+    launch counts set to 0 just before each and read just after (the report
+    arm must launch row 8, the mask-only arm neither top-N row), then
+    ``evaluate`` (metrics finite and in [0, 1]); row 8 held bit-equal to
+    its plain version at every shape the report arm launched it at (rows
+    tagged ``"path": "phantom"``, returned for the kernels line); the same
+    bits twice: the report arm's captured step at the phantom model, one
+    float32 step of the ResUNet preset at 128³ × 2, and the 3D conv's
+    backward at two preset shapes and two of the phantom model's
+    (RESUNET_CONVS, PHANTOM_CONVS; ``F.conv3d``'s own backward beside it),
+    each failing the run if a bit differs; one ``{"phantom": ...}`` line
+    with ms a step an arm and seconds a stage."""
+    import torch
+
+    from rsuper_tpu_torch import phantom_benchmark as pb
+    from rsuper_tpu_torch.ops import topn
+
+    t_phase = time.time()
+    failures, rows, res, stages = [], [], {}, {}
+    with tempfile.TemporaryDirectory(prefix="phantom_") as tmp:
+        root = str(Path(tmp))
+        t0 = time.time()
+        pb.generate(root, **PHANTOM_DATA, seed=0)
+        stages["generate_s"] = time.time() - t0
+        arms, captured = {}, None
+        for with_reports in (False, True):
+            name = "report" if with_reports else "mask_only"
+            for k in TOPN_KERNELS:
+                getattr(topn, k).launches = 0
+            t0 = time.time()
+            with _last_step_batch() as seen, _topn_shapes() as shapes:
+                model, params = pb.train_variant(
+                    root, with_reports, PHANTOM_STEPS, crop=PHANTOM_CROP,
+                    device=dev)
+            torch.cuda.synchronize()
+            train_s = time.time() - t0
+            launches = {k: getattr(topn, k).launches for k in TOPN_KERNELS}
+            t0 = time.time()
+            metrics = pb.evaluate(model, params, root, crop=PHANTOM_CROP,
+                                  device=dev)
+            arms[name] = dict(metrics=metrics, launches=launches,
+                              launch_shapes={k: sorted(v)
+                                             for k, v in shapes.items()},
+                              train_s=train_s, eval_s=time.time() - t0,
+                              **pb._step_ms(root, name))
+            bad = [k for k in PHANTOM_METRICS
+                   if not 0.0 <= metrics[k] <= 1.0]  # NaN fails too
+            if bad:
+                failures.append(f"phantom {name}: metrics {bad} not finite "
+                                f"in [0, 1]: {metrics}")
+            if with_reports:
+                captured = seen
+            del model, params
+            torch.cuda.empty_cache()
+        res["arms"] = arms
+        rep, mask = arms["report"]["launches"], arms["mask_only"]["launches"]
+        if rep[TOPN_KERNELS[1]] <= 0 or any(mask.values()):
+            failures.append(f"phantom: top-N launches report arm {rep}, "
+                            f"mask-only arm {mask} (row 8 must launch in "
+                            "the first, neither row in the second)")
+
+        # row 8 against its plain version at every shape it launched at
+        t0 = time.time()
+        gen = torch.Generator(device=dev).manual_seed(8)
+        for name, shapes in arms["report"]["launch_shapes"].items():
+            for B, V, K in shapes:
+                topn_row(rows, failures, dev, gen, name, B, V, K, False,
+                         path="phantom")
+        stages["topn_rows_s"] = time.time() - t0
+
+        # the same bits twice
+        t0 = time.time()
+        if captured is None or "batch" not in captured:
+            failures.append("phantom: the report arm took no batch with a "
+                            "live report slot")
+        else:
+            res["step_twice"] = _phantom_grads_twice(dev, captured)
+        res["preset_float32_step_twice"] = _preset_float32_grads_twice(dev)
+        res["conv3d_backward_twice"] = _conv_backward_twice(
+            dev, RESUNET_CONVS + PHANTOM_CONVS)
+        stages["determinism_s"] = time.time() - t0
+        for k in ("step_twice", "preset_float32_step_twice"):
+            if k in res and (res[k]["differing"]
+                             or not res[k]["losses_bit_equal"]):
+                failures.append(f"phantom: {k} gave other bits: {res[k]}")
+        if not all(r["port_bit_equal"] and r["port_vs_library_max_rel"] < 1e-4
+                   for r in res["conv3d_backward_twice"]):
+            failures.append(f"phantom: the 3D conv's backward gave other bits "
+                            f"on a second pass or left F.conv3d's: "
+                            f"{res['conv3d_backward_twice']}")
+    res["topn_rows"] = [{k: r[k] for k in ("name", "shape", "max_abs_err",
+                                           "mask_mismatches", "ms",
+                                           "plain_ms")} for r in rows]
+    res["stages"] = stages
+    res["phase_s"] = time.time() - t_phase
+    log(json.dumps({"phantom": res}))
+    return failures, rows
+
+
 HOST_ANSWERS = (  # a stub LLM's answers, one grammar of each step family
     "lesion 1: type = PDAC; certainty = high; size = 2.3 x 1.8 cm; "
     "organ = pancreas; location = head; attenuation = hypo;\nlesion 2: "
@@ -4154,6 +4382,60 @@ class _StubLLM:
                              % len(HOST_ANSWERS)] for u in users]
 
 
+def _write_xlsx(path: Path, header, rows):
+    """A one-sheet ``.xlsx`` written with ``zipfile`` (no openpyxl on the
+    card's machine): text as inline strings, numbers, datetimes as serial
+    day numbers in Excel's built-in date format 14, None as no cell."""
+    import zipfile
+    from xml.sax.saxutils import escape
+
+    main = "http://schemas.openxmlformats.org/spreadsheetml/2006/main"
+    rel = "http://schemas.openxmlformats.org/officeDocument/2006/relationships"
+    pkg = "http://schemas.openxmlformats.org/package/2006/relationships"
+
+    def cell(ref, v):
+        if v is None:
+            return ""
+        if isinstance(v, str):
+            return (f'<c r="{ref}" t="inlineStr"><is><t xml:space='
+                    f'"preserve">{escape(v)}</t></is></c>')
+        if isinstance(v, _dt.datetime):
+            days = (v - _dt.datetime(1899, 12, 30)).total_seconds() / 86400
+            return f'<c r="{ref}" s="1"><v>{days!r}</v></c>'
+        return f'<c r="{ref}"><v>{v!r}</v></c>'
+
+    def col(j):
+        return chr(65 + j) if j < 26 else chr(64 + j // 26) + chr(65 + j % 26)
+
+    body = "".join(
+        f'<row r="{i}">' + "".join(cell(f"{col(j)}{i}", v)
+                                   for j, v in enumerate(r)) + "</row>"
+        for i, r in enumerate([list(header)] + list(rows), 1))
+    files = {
+        "[Content_Types].xml": '<Types xmlns="http://schemas.openxmlformats'
+                               '.org/package/2006/content-types"/>',
+        "_rels/.rels": f'<Relationships xmlns="{pkg}"><Relationship Id="r1" '
+                       f'Type="{rel}/officeDocument" Target="xl/workbook.xml"'
+                       '/></Relationships>',
+        "xl/workbook.xml": f'<workbook xmlns="{main}" xmlns:r="{rel}"><sheets>'
+                           '<sheet name="Reports" sheetId="1" r:id="r1"/>'
+                           "</sheets></workbook>",
+        "xl/_rels/workbook.xml.rels":
+            f'<Relationships xmlns="{pkg}"><Relationship Id="r1" '
+            f'Type="{rel}/worksheet" Target="worksheets/sheet1.xml"/>'
+            f'<Relationship Id="r2" Type="{rel}/styles" Target="styles.xml"/>'
+            "</Relationships>",
+        "xl/styles.xml": f'<styleSheet xmlns="{main}"><cellXfs count="2">'
+                         '<xf numFmtId="0"/><xf numFmtId="14"/></cellXfs>'
+                         "</styleSheet>",
+        "xl/worksheets/sheet1.xml": f'<worksheet xmlns="{main}"><sheetData>'
+                                    f"{body}</sheetData></worksheet>",
+    }
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
+        for name, text in files.items():
+            zf.writestr(name, text)
+
+
 def phase_host_pipelines():
     """The host pipelines, no device: ``report_extraction.run`` with a stub
     client over a seeded CSV of HOST_REPORTS reports for every step of
@@ -4166,7 +4448,7 @@ def phase_host_pipelines():
     import numpy as np
 
     from rsuper_tpu_torch.data.nifti import read_nifti, write_nifti
-    from rsuper_tpu_torch.data.table import Table
+    from rsuper_tpu_torch.data.table import Table, isna
     from rsuper_tpu_torch.organ_masks import maintenance, predict_suborgans
     from rsuper_tpu_torch.report_extraction import run as extraction
     from rsuper_tpu_torch.utils.debug_dumps import SanityDumper
@@ -4206,6 +4488,30 @@ def phase_host_pipelines():
             if answered < expect * 0.9 or not tables:
                 failures.append(f"host_pipelines: step {step}: "
                                 f"{res['steps'][step]}")
+        # the same reports as an .xlsx (dates as date-formatted serial
+        # numbers) read back against the .csv
+        t0 = time.time()
+        table = Table.read_csv(str(csv))
+        _write_xlsx(root / "reports.xlsx", list(table.columns),
+                    [[None if isna(v) else _dt.datetime.fromisoformat(v)
+                      if k == "Exam Started Date" else v
+                      for k, v in row.items()] for row in table.rows()])
+        got = extraction.read_reports(str(root / "reports.xlsx"),
+                                      "Report Text")
+        want = extraction.read_reports(str(csv), "Report Text")
+        same = list(got.columns) == list(want.columns) and all(
+            (isna(a) and isna(b)) or (f"{a:%Y-%m-%d}" if k ==
+                                      "Exam Started Date" else a) == b
+            for k in want.columns
+            for a, b in zip(got[k].values, want[k].values))
+        res["xlsx"] = dict(rows=len(got), same_as_csv=same,
+                           date_kind=got["Exam Started Date"].kind,
+                           s=time.time() - t0)
+        if not same or len(got) != len(want) or \
+                res["xlsx"]["date_kind"] != "datetime":
+            failures.append(f"host_pipelines: the .xlsx reads otherwise "
+                            f"than its .csv: {res['xlsx']}")
+
         # a case with lesions or the no-lesion sentinel has a per-CT row
         answers = extraction._collect_answers(str(root / "extraction" /
                                                   "type_and_size"))
@@ -5547,6 +5853,10 @@ def main() -> int:
     failures += phase_mf_variants(dev)
     torch.cuda.empty_cache()
     failures += phase_genesis(dev)
+    torch.cuda.empty_cache()
+    fails, phantom_rows = phase_phantom(dev)
+    failures += fails
+    rows += phantom_rows
     failures += phase_host_pipelines()
     torch.cuda.empty_cache()
     failures += phase_ddp(dev)

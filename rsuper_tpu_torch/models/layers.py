@@ -192,31 +192,34 @@ def same_pads(size, kernel, stride):
     return total // 2, total - total // 2
 
 
-class _Conv2dFixedOrder(torch.autograd.Function):
-    """``F.conv2d`` whose backward is ``convolution_backward`` with cuDNN
-    held to its deterministic algorithms: its default float32 data- and
-    weight-gradient algorithms for 2D convs add in no fixed order (two
-    passes of a 2D model's float32 step gave other bits on the card),
-    these give the same bits every run. The forward is ``F.conv2d``'s.
-    cuDNN's flag is global: it is set for the call and restored."""
+class _ConvFixedOrder(torch.autograd.Function):
+    """``F.conv2d`` or ``F.conv3d`` (by the weight's rank) whose backward is
+    ``convolution_backward`` with cuDNN held to its deterministic
+    algorithms: its default float32 data- and weight-gradient algorithms
+    add in no fixed order (two passes of a float32 training step gave
+    other bits on the card, 2D and 3D alike), these give the same bits
+    every run. The forward is ``F.conv2d``'s / ``F.conv3d``'s. cuDNN's flag
+    is global: it is set for the call and restored."""
 
     @staticmethod
     def forward(ctx, x, w, b, stride, padding, groups):
         ctx.save_for_backward(x, w)
         ctx.conf = (stride, padding, groups, b is not None)
-        return F.conv2d(x, w, b, stride, padding, groups=groups)
+        conv = F.conv2d if w.dim() == 4 else F.conv3d
+        return conv(x, w, b, stride, padding, groups=groups)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         stride, padding, groups, bias = ctx.conf
+        nd = w.dim() - 2
         want = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], bias]
         prev = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
             gx, gw, gb = torch.ops.aten.convolution_backward(
                 g, x, w, [w.shape[0]] if bias else None, list(stride),
-                list(padding), [1, 1], False, [0, 0], groups, want)
+                list(padding), [1] * nd, False, [0] * nd, groups, want)
         finally:
             torch.backends.cudnn.deterministic = prev
         return gx, gw, gb, None, None, None
@@ -228,8 +231,8 @@ class Conv(nn.Module):
     ``feature_group_count`` = `groups`), through cuDNN on the card:
     ``weight`` in torch layout (C_out, C_in / groups, *kernel), optional
     ``bias``. `nd` spatial axes: 3 (``F.conv3d``) or 2 (``F.conv2d``, the
-    2D models, with a backward that gives the same bits every run,
-    ``_Conv2dFixedOrder``). The channels-last tensor is handed to cuDNN as a
+    2D models); either way with a backward that gives the same bits every
+    run (``_ConvFixedOrder``). The channels-last tensor is handed to cuDNN as a
     channels-last view, so no layout copy is made. With `spatial` the
     depth is sharded: the halo of the depth's SAME pads comes from the
     neighbours (zeros beyond the faces), and the local depth must divide
@@ -268,12 +271,8 @@ class Conv(nn.Module):
             padding = 0
         b = None if self.bias is None else self.bias.to(self.dtype)
         w = self.weight.to(self.dtype)
-        if self.nd == 2:
-            padding = padding if isinstance(padding, tuple) else (0, 0)
-            y = _Conv2dFixedOrder.apply(x, w, b, self.strides, padding,
-                                        self.groups)
-        else:
-            y = F.conv3d(x, w, b, self.strides, padding, groups=self.groups)
+        padding = padding if isinstance(padding, tuple) else (0,) * self.nd
+        y = _ConvFixedOrder.apply(x, w, b, self.strides, padding, self.groups)
         return y.movedim(1, -1)
 
 

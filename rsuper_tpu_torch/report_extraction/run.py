@@ -5,11 +5,10 @@ read a reports table, shard it across parts, ask the LLM about each report
 (skipping ids already answered), append the raw answers, then standardise
 them into the per-tumour and per-CT CSVs, or one CSV for each other step.
 
-Tables are ``data/table.py``'s: a ``.csv`` is read as ``pandas.read_csv``
-reads it and every CSV is written with the bytes of pandas'
-``to_csv(index=False)``. ``.xlsx``/``.xls`` and ``.feather`` inputs need
-pandas' openpyxl and pyarrow readers, which the port does without: they
-raise ``ValueError``.
+Tables are ``data/table.py``'s: a ``.csv``, ``.xlsx`` or ``.feather`` is
+read as pandas reads it and every CSV is written with the bytes of pandas'
+``to_csv(index=False)``. An ``.xls`` (xlrd's format) raises
+``ValueError``.
 
     python -m rsuper_tpu_torch.report_extraction.run \\
         --reports reports.csv --out_dir extraction/ \\
@@ -25,7 +24,7 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-from ..data.table import Column, Table, isna
+from ..data.table import Column, Table, isna, timestamp_ns
 from . import parse as P
 from . import prompts as PR
 from .client import LLMClient
@@ -67,18 +66,26 @@ STEPS = {
 
 
 def read_reports(path: str, report_column: str | None = None) -> Table:
-    """The reports table of a ``.csv`` (``RunRadGPT.py``'s csv branch),
-    without the rows whose report text is missing. ``.xlsx``, ``.xls`` and
-    ``.feather`` raise ``ValueError``: no reader for them ships with the
-    port (pandas reads them through openpyxl and pyarrow)."""
+    """The reports table in any of the reference's input formats
+    (``RunRadGPT.py``): ``.csv``, ``.xlsx`` (sheet 1, falling back to the
+    first sheet, as ``pandas.read_excel(sheet_name=1)`` then the default
+    sheet) and ``.feather``, without the rows whose report text is missing.
+    ``.xls`` (BIFF8, which pandas reads through xlrd) raises
+    ``ValueError``."""
     lower = path.lower()
-    for suffixes, reader in (((".xlsx", ".xls"), "openpyxl"),
-                             ((".feather",), "pyarrow")):
-        if lower.endswith(suffixes):
-            raise ValueError(
-                f"{path}: {suffixes[0]} report tables need pandas' {reader} "
-                "reader, which the port does not use; convert it to .csv")
-    table = Table.read_csv(path)
+    if lower.endswith(".xls"):
+        raise ValueError(
+            f"{path}: .xls (BIFF8) report tables need pandas' xlrd reader, "
+            "which the port does not have; save it as .xlsx or .csv")
+    if lower.endswith(".xlsx"):
+        try:
+            table = Table.read_xlsx(path, 1)
+        except Exception:  # the reference falls back on any failure
+            table = Table.read_xlsx(path)
+    elif lower.endswith(".feather"):
+        table = Table.read_feather(path)
+    else:
+        table = Table.read_csv(path)
     if report_column and report_column in table:
         table = table.filter([not isna(v) for v in table[report_column]])
     return table
@@ -124,12 +131,15 @@ def example_records(table: Table, example_ids, id_column: str,
 
 
 def _sort_order(col: Column) -> List[int]:
-    """Row order of pandas' ``sort_values`` on one column: numbers by
-    numpy's quicksort (not stable), text stably; missing cells last."""
+    """Row order of pandas' ``sort_values`` on one column: numbers and
+    dates (by their nanoseconds) by numpy's quicksort (not stable), text
+    stably; missing cells last."""
     present = [i for i, v in enumerate(col) if not isna(v)]
     missing = [i for i, v in enumerate(col) if isna(v)]
     values = [col.values[i] for i in present]
-    if col.kind in ("int", "float", "bool"):
+    if col.kind == "datetime":
+        values = [timestamp_ns(v) for v in values]
+    if col.kind in ("int", "float", "bool", "datetime"):
         order = np.argsort(np.asarray(values), kind="quicksort").tolist()
     else:
         order = sorted(range(len(values)), key=values.__getitem__)

@@ -2,8 +2,9 @@
 unless the CPU is asked for.
 
 * No module of ``rsuper_tpu_torch`` and not ``chip_smoke.py`` imports
-  ``jax``, ``flax``, ``optax`` or ``rsuper_tpu``, nor ``pandas`` or
-  ``sklearn``, which the card's machine lacks: checked on the source (AST)
+  ``jax``, ``flax``, ``optax`` or ``rsuper_tpu``, nor the repository's
+  ``tools``, nor ``pandas`` or ``sklearn``, which the card's machine
+  lacks: checked on the source (AST)
   and by importing every module in a fresh interpreter and reading
   ``sys.modules``.
 * The entry points raise without CUDA unless ``device="cpu"`` is given.
@@ -26,7 +27,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "rsuper_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
-             "rsuper_tpu", "pandas", "sklearn")
+             "rsuper_tpu", "pandas", "sklearn", "tools")
 
 
 def _sources():
@@ -68,7 +69,8 @@ def _sources():
                 "report_extraction/metadata.py",
                 "report_extraction/client.py", "report_extraction/run.py",
                 "parallel/__init__.py", "parallel/mesh.py",
-                "parallel/multihost.py", "parallel/spatial.py"):
+                "parallel/multihost.py", "parallel/spatial.py",
+                "phantom_benchmark.py"):
         assert f"rsuper_tpu_torch/{new}" in names
     return files
 
@@ -144,7 +146,7 @@ def test_resolve_device_needs_cuda_unless_cpu(no_cuda):
 
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
-    from rsuper_tpu_torch import bench_infer, bench_train
+    from rsuper_tpu_torch import bench_infer, bench_train, phantom_benchmark
     from rsuper_tpu_torch import predict as cli
     from rsuper_tpu_torch.train import __main__ as train_cli
     from rsuper_tpu_torch.inference.predict import (predict_folder,
@@ -190,6 +192,8 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
                                 "--dist_num_processes", "1",
                                 "--dist_process_id", "0"]),
         lambda: init_distributed("127.0.0.1:1", 1, 0),
+        lambda: phantom_benchmark.main(["--out", str(tmp_path / "p")]),
+        lambda: phantom_benchmark.evaluate(None, {}, str(tmp_path)),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

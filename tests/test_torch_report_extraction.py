@@ -8,19 +8,22 @@ byte. The parsers, the metadata tables and the client are held equal on
 seeded corpora. No endpoint is contacted: the client's HTTP call is a stub.
 """
 
+import datetime
 import json
+import zipfile
 import zlib
 
 import numpy as np
 import pandas as pd
 import pytest
+from pandas.io.parsers import TextParser
 
 from rsuper_tpu.report_extraction import client as jclient
 from rsuper_tpu.report_extraction import metadata as jmeta
 from rsuper_tpu.report_extraction import parse as jparse
 from rsuper_tpu.report_extraction import prompts as jprompts
 from rsuper_tpu.report_extraction import run as jrun
-from rsuper_tpu_torch.data.table import Table
+from rsuper_tpu_torch.data.table import Table, isna
 from rsuper_tpu_torch.report_extraction import client as tclient
 from rsuper_tpu_torch.report_extraction import metadata as tmeta
 from rsuper_tpu_torch.report_extraction import parse as tparse
@@ -206,10 +209,330 @@ def test_read_reports_and_time_machine_pairs_equal_pandas(tmp_path):
 
 @pytest.mark.parametrize("suffix", [".xlsx", ".xls", ".feather"])
 def test_other_formats_raise_naming_the_format(tmp_path, suffix):
+    """``.xlsx`` and ``.feather`` are read; ``.xls`` (xlrd's BIFF8) raises
+    naming the format."""
     path = tmp_path / f"reports{suffix}"
-    path.write_bytes(b"")
-    with pytest.raises(ValueError, match=suffix.split("s")[0]):
-        trun.read_reports(str(path), "Report Text")
+    rows = [["BDMAP ID", "Report Text", "n"], ["A", "a mass", 1],
+            ["B", None, 2], ["C", "normal", 3]]
+    if suffix == ".xlsx":
+        _write_xlsx(path, [("Sheet1", rows)])
+    elif suffix == ".feather":
+        pd.DataFrame(rows[1:], columns=rows[0]).to_feather(
+            path, compression="uncompressed")
+    else:
+        path.write_bytes(b"")
+        with pytest.raises(ValueError, match=suffix.split("s")[0]):
+            trun.read_reports(str(path), "Report Text")
+        return
+    t = trun.read_reports(str(path), "Report Text")
+    assert list(t.rows()) == [{"BDMAP ID": "A", "Report Text": "a mass",
+                               "n": 1},
+                              {"BDMAP ID": "C", "Report Text": "normal",
+                               "n": 3}]
+    assert t["n"].kind == "int"
+
+
+# ------------------------------------------------------------ .xlsx, .feather
+_XLSX_MAIN = "http://schemas.openxmlformats.org/spreadsheetml/2006/main"
+_XLSX_REL = ("http://schemas.openxmlformats.org/officeDocument/2006/"
+             "relationships")
+_EXCEL_EPOCH = datetime.datetime(1899, 12, 30)
+
+
+def _col(j):
+    name = ""
+    while j:
+        j, r = divmod(j - 1, 26)
+        name = chr(65 + r) + name
+    return name
+
+
+def _xml_text(t):
+    return (t.replace("&", "&amp;").replace("<", "&lt;")
+            .replace(">", "&gt;"))
+
+
+def _write_xlsx(path, sheets, date1904=False):
+    """An ``.xlsx`` written by hand (no openpyxl here): `sheets` is a list
+    of (name, rows); a row is a list of cells, or ``("at", r, cells)`` to
+    put it at row number r (rows in between are missing). A cell is None
+    (no ``<c>``: a gap), text (shared strings and inline strings in
+    turns), ``("rich", [runs])`` (a shared string of runs),
+    ``("formula", text)`` (a formula's cached text, ``t="str"``),
+    ``("error", "#N/A")``, a bool, a number, or a datetime (a serial day
+    number in the built-in date format 14 if it is midnight, else in the
+    custom format ``yyyy-mm-dd hh:mm:ss``)."""
+    shared, turn = [], [0]
+    epoch = datetime.datetime(1904, 1, 1) if date1904 else _EXCEL_EPOCH
+
+    def cell(ref, v):
+        if isinstance(v, tuple) and v[0] == "rich":
+            shared.append("".join(f"<r><rPr><b/></rPr><t xml:space="
+                                  f'"preserve">{_xml_text(t)}</t></r>'
+                                  for t in v[1]))
+            return f'<c r="{ref}" t="s"><v>{len(shared) - 1}</v></c>'
+        if isinstance(v, tuple) and v[0] == "formula":
+            return (f'<c r="{ref}" t="str"><f>CONCAT("a")</f>'
+                    f"<v>{_xml_text(v[1])}</v></c>")
+        if isinstance(v, tuple) and v[0] == "error":
+            return f'<c r="{ref}" t="e"><v>{v[1]}</v></c>'
+        if isinstance(v, str):
+            turn[0] += 1
+            if turn[0] % 2:
+                shared.append(f"<t>{_xml_text(v)}</t>")
+                return f'<c r="{ref}" t="s"><v>{len(shared) - 1}</v></c>'
+            return (f'<c r="{ref}" t="inlineStr"><is><t>{_xml_text(v)}'
+                    f"</t></is></c>")
+        if isinstance(v, bool):
+            return f'<c r="{ref}" t="b"><v>{int(v)}</v></c>'
+        if isinstance(v, datetime.datetime):
+            days = (v - epoch).total_seconds() / 86400
+            style = 1 if v.time() == datetime.time() else 2
+            return f'<c r="{ref}" s="{style}"><v>{days!r}</v></c>'
+        return f'<c r="{ref}"><v>{v!r}</v></c>'
+
+    files = {}
+    for k, (name, rows) in enumerate(sheets, 1):
+        lines, r = [], 0
+        for row in rows:
+            r = row[1] if isinstance(row, tuple) else r + 1
+            cells = row[2] if isinstance(row, tuple) else row
+            body = "".join(cell(f"{_col(j)}{r}", v)
+                           for j, v in enumerate(cells, 1) if v is not None)
+            lines.append(f'<row r="{r}">{body}</row>')
+        files[f"xl/worksheets/sheet{k}.xml"] = (
+            f'<worksheet xmlns="{_XLSX_MAIN}"><sheetData>'
+            + "".join(lines) + "</sheetData></worksheet>")
+    files["xl/sharedStrings.xml"] = (
+        f'<sst xmlns="{_XLSX_MAIN}">'
+        + "".join(f"<si>{si}</si>" for si in shared) + "</sst>")
+    files["xl/styles.xml"] = (
+        f'<styleSheet xmlns="{_XLSX_MAIN}"><numFmts count="1">'
+        '<numFmt numFmtId="164" formatCode="yyyy-mm-dd hh:mm:ss"/></numFmts>'
+        '<cellXfs count="3"><xf numFmtId="0"/><xf numFmtId="14"/>'
+        '<xf numFmtId="164"/></cellXfs></styleSheet>')
+    files["xl/workbook.xml"] = (
+        f'<workbook xmlns="{_XLSX_MAIN}" xmlns:r="{_XLSX_REL}">'
+        + ('<workbookPr date1904="1"/>' if date1904 else "") + "<sheets>"
+        + "".join(f'<sheet name="{n}" sheetId="{k}" r:id="rId{k}"/>'
+                  for k, (n, _) in enumerate(sheets, 1))
+        + "</sheets></workbook>")
+    rel = "http://schemas.openxmlformats.org/package/2006/relationships"
+    kinds = [(f"rId{k}", "worksheet", f"worksheets/sheet{k}.xml")
+             for k in range(1, len(sheets) + 1)]
+    kinds += [("rIdS", "sharedStrings", "sharedStrings.xml"),
+              ("rIdT", "styles", "styles.xml")]
+    files["xl/_rels/workbook.xml.rels"] = (
+        f'<Relationships xmlns="{rel}">'
+        + "".join(f'<Relationship Id="{i}" Type="{_XLSX_REL}/{t}" '
+                  f'Target="{tg}"/>' for i, t, tg in kinds)
+        + "</Relationships>")
+    files["_rels/.rels"] = (
+        f'<Relationships xmlns="{rel}"><Relationship Id="rId1" '
+        f'Type="{_XLSX_REL}/officeDocument" Target="xl/workbook.xml"/>'
+        "</Relationships>")
+    files["[Content_Types].xml"] = (
+        '<Types xmlns="http://schemas.openxmlformats.org/package/2006/'
+        'content-types"/>')
+    with zipfile.ZipFile(path, "w") as zf:
+        for name, text in files.items():
+            zf.writestr(name, '<?xml version="1.0" encoding="UTF-8"?>' + text)
+
+
+def _plain(cell):
+    """A cell as pandas prints it after the CSV round trip: rich runs
+    joined, a formula's text, errors and gaps empty, dates as a
+    ``Timestamp`` prints."""
+    if isinstance(cell, tuple):
+        return "" if cell[0] == "error" else (
+            "".join(cell[1]) if cell[0] == "rich" else cell[1])
+    if cell is None:
+        return ""
+    if isinstance(cell, datetime.datetime):
+        return str(pd.Timestamp(cell))
+    return cell
+
+
+def _opened(cell):
+    """A cell as openpyxl reads it and pandas' Excel reader hands it to its
+    parser."""
+    if isinstance(cell, tuple):
+        return float("nan") if cell[0] == "error" else _plain(cell)
+    return "" if cell is None else cell
+
+
+def _same_cells(table, frame):
+    """Every column of the port's table equals the pandas frame's: missing
+    with missing, dates by their text."""
+    assert list(table.columns) == list(frame.columns)
+    for name in frame.columns:
+        want = [None if pd.isna(v) else
+                str(v) if isinstance(v, (pd.Timestamp, datetime.datetime))
+                else v for v in frame[name]]
+        got = [None if isna(v) else
+               str(v) if isinstance(v, datetime.datetime) else v
+               for v in table[name].values]
+        assert got == want, name
+
+
+_XLSX_HEADER = ["BDMAP ID", "Report Text", "Assigned Number",
+                "Exam Started Date", "score", "gappy", "flag",
+                "pancreatic cancer timeline"]
+
+
+def _xlsx_rows(n=24, seed=3):
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        day = datetime.datetime(2019, 1, 1) + datetime.timedelta(
+            days=int(rng.integers(0, 900)),
+            seconds=int(rng.integers(0, 3)) * 3600 * 7)
+        text = [None, "mass in the head", ("rich", ["bold ", "cyst, 2 cm"]),
+                ("formula", "hypodense"), "normal, \"clear\""][i % 5]
+        score = round(float(rng.normal()), 3)
+        rows.append([f"BDMAP_{i:05d}", text, int(rng.integers(0, 6)),
+                     day if i % 7 else None,
+                     ("error", "#N/A") if i % 11 == 4 else score,
+                     None if i % 3 else int(rng.integers(0, 100)),
+                     bool(i % 2),
+                     ["pre-diagnosis", "first positive", ""][i % 3] or None])
+    return rows
+
+
+@pytest.mark.parametrize("layout", ["second_sheet", "one_sheet"])
+def test_xlsx_reads_as_the_csv_of_the_same_table(tmp_path, layout):
+    """A hand-written ``.xlsx`` (shared, inline and rich-text strings, a
+    formula's cached text, an error cell, gaps in the cell references, a
+    missing row, bools, numbers, dates in a built-in and a custom format)
+    read by ``read_reports`` (sheet 1; a one-sheet workbook falls back to
+    its first) gives the rows and kinds the JAX ``read_reports`` gives
+    for the same table saved as ``.csv``, dates as pandas prints them."""
+    rows = _xlsx_rows()
+    body = [_XLSX_HEADER] + rows[:10] + [("at", 14, rows[10])] + rows[11:]
+    other = [["something", "else"], [1, 2]]
+    sheets = [("Reports", body)] if layout == "one_sheet" else \
+        [("Summary", other), ("Reports", body)]
+    _write_xlsx(tmp_path / "r.xlsx", sheets)
+    plain = [[_plain(c) for c in r] for r in rows]
+    blank = [[""] * len(_XLSX_HEADER)] * 2  # rows 12 and 13 are missing
+    pd.DataFrame(plain[:10] + blank + plain[10:],
+                 columns=_XLSX_HEADER).to_csv(tmp_path / "r.csv", index=False)
+    jt = jrun.read_reports(str(tmp_path / "r.csv"), "Report Text")
+    tt = trun.read_reports(str(tmp_path / "r.xlsx"), "Report Text")
+    assert 0 < len(tt) < len(rows)
+    _same_cells(tt, jt)
+    # the kinds are those pandas' Excel reader gives the cells openpyxl
+    # reads (its parser on them: a bool column with a blank is float
+    # there, object in a CSV)
+    cells = [[_opened(c) for c in r] for r in rows]
+    xf = TextParser([_XLSX_HEADER] + cells[:10] + blank + cells[10:],
+                    header=0, skip_blank_lines=False).read()
+    xf = xf.dropna(subset=["Report Text"])
+    _same_cells(tt, xf)
+    kinds = {"int64": "int", "float64": "float", "bool": "bool"}
+    for name in _XLSX_HEADER:
+        want = "datetime" if str(xf[name].dtype).startswith("datetime") \
+            else kinds.get(str(xf[name].dtype), "object")
+        assert tt[name].kind == want, name
+    assert jrun.read_reports(str(tmp_path / "r.csv")).shape[0] == \
+        len(trun.read_reports(str(tmp_path / "r.xlsx"))) == len(rows) + 2
+
+
+def test_xlsx_cells_as_openpyxl_reads_them(tmp_path):
+    """Sheet choice by index and name, the 1904 date system, a time of
+    day, the elapsed-time format and the kinds of mixed columns."""
+    from rsuper_tpu_torch.data import table as T
+
+    _write_xlsx(tmp_path / "a.xlsx", [
+        ("one", [["x"], [1]]),
+        ("two", [["when", "mixed", "bools"],
+                 [datetime.datetime(2001, 2, 3, 4, 5, 6), "a", True],
+                 [datetime.datetime(2001, 2, 3), 3, None]])],
+        date1904=True)
+    t = Table.read_xlsx(str(tmp_path / "a.xlsx"), "two")
+    assert [str(v) for v in t["when"].values] == ["2001-02-03 04:05:06",
+                                                  "2001-02-03 00:00:00"]
+    assert t["mixed"].values == ["a", 3] and t["mixed"].kind == "object"
+    assert t["bools"].kind == "float" and t["bools"].values[0] == 1.0
+    assert list(Table.read_xlsx(str(tmp_path / "a.xlsx"), 0).rows()) == \
+        [{"x": 1}]
+    with pytest.raises(IndexError):
+        Table.read_xlsx(str(tmp_path / "a.xlsx"), 2)
+    assert str(T._from_excel(0.5625, T._WINDOWS_EPOCH, False)) == "13:30:00"
+    td = T.Column.from_objects([T._from_excel(1.0625, T._WINDOWS_EPOCH, True),
+                                ""])
+    assert td.kind == "timedelta" and str(td.values[0]) == "1 days 01:30:00"
+    assert str(td.values[1]) == "NaT"
+
+
+def _feather_frame(tmp_path):
+    csv = tmp_path / "reports.csv"
+    df = _reports(csv)
+    rng = np.random.default_rng(1)
+    df["Exam Started Date"] = pd.to_datetime(df["Exam Started Date"]) + \
+        pd.to_timedelta(rng.integers(0, 3, len(df)) * 5400, unit="s")
+    df.loc[3, "Exam Started Date"] = pd.NaT
+    df["Assigned Number"] = df["Assigned Number"].astype("int32")
+    df["score"] = [None if i % 4 == 0 else i for i in range(len(df))]
+    df["flag"] = [True if i % 3 else None for i in range(len(df))]
+    df["flag"] = df["flag"].astype(object)
+    df["done"] = [i % 2 == 0 for i in range(len(df))]
+    return df
+
+
+@pytest.mark.parametrize("compression", ["lz4", "uncompressed"])
+def test_feather_reads_as_pandas(tmp_path, compression):
+    """A table of strings, ints, floats, blanks and dates written by
+    pandas' ``to_feather``: the port's ``read_reports`` gives pandas' rows
+    and kinds, and the time machine's pairs and payloads are pandas'."""
+    df = _feather_frame(tmp_path)
+    path = tmp_path / "r.feather"
+    df.to_feather(path, compression=compression)
+    jt = jrun.read_reports(str(path), "Report Text")
+    tt = trun.read_reports(str(path), "Report Text")
+    assert 0 < len(tt) < len(df)
+    _same_cells(tt, jt)
+    kinds = {"int64": "int", "int32": "int", "float64": "float",
+             "bool": "bool"}
+    for name in jt.columns:
+        want = "datetime" if str(jt[name].dtype).startswith("datetime") \
+            else kinds.get(str(jt[name].dtype), "object")
+        assert tt[name].kind == want, name
+    jp = jrun.pair_time_machine_reports(
+        jt.rename(columns={"BDMAP ID": "BDMAP_ID"}))
+    tp = trun.pair_time_machine_reports(tt.rename({"BDMAP ID": "BDMAP_ID"}))
+    assert len(tp) > 1 and any("00:00" in p for p in tp["Report Text"])
+    jp.to_csv(tmp_path / "jp.csv", index=False)
+    tp.to_csv(str(tmp_path / "tp.csv"))
+    assert (tmp_path / "jp.csv").read_bytes() == \
+        (tmp_path / "tp.csv").read_bytes()
+
+
+def test_feather_zstd_and_categoricals_raise(tmp_path):
+    df = _feather_frame(tmp_path)
+    df.to_feather(tmp_path / "z.feather", compression="zstd")
+    with pytest.raises(ValueError, match="zstd"):
+        trun.read_reports(str(tmp_path / "z.feather"), "Report Text")
+    cat = df.assign(note=df["pancreatic cancer timeline"].astype("category"))
+    cat.to_feather(tmp_path / "c.feather", compression="uncompressed")
+    with pytest.raises(ValueError, match="dictionary"):
+        trun.read_reports(str(tmp_path / "c.feather"), "Report Text")
+
+
+def test_lz4_frame_decoder_on_long_matches():
+    """Overlapping matches, long literal and match runs, linked blocks:
+    the frames pyarrow's LZ4 writes for a large repetitive buffer decode
+    to it."""
+    import pyarrow as pa
+
+    from rsuper_tpu_torch.data.table import lz4_frame_decompress
+
+    rng = np.random.default_rng(0)
+    data = b"".join([b"a" * 300, rng.bytes(700), b"xyz" * 5000,
+                     rng.bytes(70_000), b"\0" * 200_000, b"report " * 3000])
+    packed = pa.compress(data, codec="lz4", asbytes=True)
+    assert len(packed) < len(data)
+    assert lz4_frame_decompress(packed) == data
 
 
 def test_example_records_match_jax(tmp_path):
