@@ -81,7 +81,18 @@ Phases, in order (any failure exits non-zero):
              the masks equal but for voxels whose source coordinate lies
              within 1e-4 of a half (counted); TF32 off on the path; device
              ms a batch;
-8. train_cli — ``python -m rsuper_tpu_torch.train``'s ``main`` with
+8. loop   — the training loop's throughput (``rsuper_tpu_torch.bench_loop``:
+             loader, transfer, device augmentation and the ``ball_dice_last``
+             step of the default MedFormer at 96³, batch 1) at 1, 2, 4 and 8
+             loader threads, 4 + 12 steps each, the launch counts set to 0
+             just before and read just after each run (rows 1–6 launched,
+             the top-N rows not: mask cases); rows 1–6 against their plain
+             versions at every shape the runs launched them at;
+             ``profile_loader``'s stages on the same cases and the host's
+             CPU count; a checkpoint of the default model exported to the
+             reference's ``.pth`` and converted back (bit-equal parameters
+             and logits on the card);
+9. train_cli — ``python -m rsuper_tpu_torch.train``'s ``main`` with
              ``--preset abdomenatlas_ufo/medformer_3d`` (default MedFormer,
              128³ crops, batch 2, bf16, ``ball_dice_last``) on synthetic
              CT-Mask and CT-Report cases written through ``preprocess_case``
@@ -92,7 +103,7 @@ Phases, in order (any failure exits non-zero):
              optimizer state and every kernel of the step in the profiled
              window are checked; ms a step, loader, transfer and augment ms,
              busy share, peak memory and host reads are printed;
-9. validate — on the same synthetic cases: ``validate_cases`` at 128³
+10. validate — on the same synthetic cases: ``validate_cases`` at 128³
              windows in batches of 4, the seeded model's final head made
              confident, in bf16 and in float32 through the kernels and the
              plain versions (probabilities held against the plain versions',
@@ -106,7 +117,7 @@ Phases, in order (any failure exits non-zero):
              augmentation, and ``device_prefetch`` 2 against 0 (equal
              batches and first losses, batches intact after their step, ms
              an iteration of both);
-10. clip   — CLIP pretraining and the classification branch on the same
+11. clip   — CLIP pretraining and the classification branch on the same
              cases: ``main`` with ``--clip_pretrain --clip_source DIR`` (seeded
              768-wide report embeddings) for 4 steps, the last profiled, and 2
              on ``--resume``, the launch counts set to 0 just before and read
@@ -119,7 +130,7 @@ Phases, in order (any failure exits non-zero):
              2 steps of the preset with the classification branch. The
              kernels phase also holds the depthwise kernels at the heads'
              (2,4,4,4,C) shapes.
-11. zoo    — the 3D model zoo: ``main`` with ``--preset
+12. zoo    — the 3D model zoo: ``main`` with ``--preset
              abdomenatlas/resunet_3d`` (ResUNet, 128³ crops, batch 2, bf16,
              ``ball_dice_last``) on the same cases, fold 0 of ``--k_fold
              2``: 4 steps with a profiled last step and the launch counts set
@@ -135,7 +146,7 @@ Phases, in order (any failure exits non-zero):
              128³: their deepest stage must be a multiple of the window 4),
              ms and peak memory, and the float32 logits on the card against
              the CPU's.
-12. dim2   — the 2D pathway: ``main`` with ``--preset slices/resunet_2d``
+13. dim2   — the 2D pathway: ``main`` with ``--preset slices/resunet_2d``
              (UNet2D base 32, 256² slices × 2, ``dice``, EMA) on the
              CT-Mask cases alone, fold 0 of ``--k_fold 2``: 4 steps, the
              fold's slice-wise validation (``validate_cases_2d``), 2 on
@@ -144,7 +155,7 @@ Phases, in order (any failure exits non-zero):
              registry's defaults: a bf16 forward and backward at 256² × 8
              (ms, peak memory), float32 logits on the card against the
              CPU's within max(1e-3, 4ρ)·(1 + max|ref|).
-13. mf_variants — two MedFormer configurations at the default widths on a
+14. mf_variants — two MedFormer configurations at the default widths on a
              96³ volume: ``mf_aniso`` (scale (1, 2, 2) first) and
              ``mf_mbconv`` (MBConv stages beside attention, linear
              projections, GELU): a bf16 forward and backward with the launch
@@ -153,7 +164,7 @@ Phases, in order (any failure exits non-zero):
              every shape they launch rows 1–6 at, each row against its plain
              version at each of those shapes, float32 through the kernels
              against the plain versions.
-14. genesis — the Model-Genesis mode and the baselines on the train_cli
+15. genesis — the Model-Genesis mode and the baselines on the train_cli
              cases: ``loop.train`` of the preset with
              ``model_genesis_pretrain`` and a single-head model
              (``aux_loss=False``) for 4 steps, the last profiled, launch
@@ -167,7 +178,7 @@ Phases, in order (any failure exits non-zero):
              probabilities ``predict_masks_volume`` serves; one round of the
              augmentation daemon read back through
              ``AugmentedRecordDataset``.
-15. phantom — the phantom accuracy study
+16. phantom — the phantom accuracy study
              (``rsuper_tpu_torch.phantom_benchmark``) at its default data
              with 60 steps an arm: both arms trained (float32 ResUNet base
              8, 32³ crops × 4) with the top-N launch counts set to 0 just
@@ -176,14 +187,18 @@ Phases, in order (any failure exits non-zero):
              [0, 1]); row 8 against its plain version at every shape the
              report arm launched it at; the same bits twice from one
              phantom step, one float32 step of the ResUNet preset at 128³ ×
-             2 and the 3D conv's backward at four shapes.
-16. host_pipelines — no device: report extraction with a stub LLM client
+             2, the 3D conv's backward at four shapes and one float32
+             ``dice`` step of UNETR, SwinUNETR and VNet (their transposed
+             convs' backward).
+17. host_pipelines — no device: report extraction with a stub LLM client
              over 50 seeded reports for every step, the same reports as a
              written ``.xlsx`` read back against the ``.csv``, the
              organ-mask maintenance tools on synthetic NIfTIs, the sub-organ
-             predictor's discovery and sharding, one sanity dump; pandas
-             never imported.
-17. ddp    — data parallelism on the one card: the training CLI as a
+             predictor's discovery and sharding, one sanity dump; a
+             ``.feather`` that pandas wrote with ZSTD bodies and categorical
+             columns (``tests/data``) read and timed, its cells against
+             pandas' digest of them; pandas never imported.
+18. ddp    — data parallelism on the one card: the training CLI as a
              one-rank NCCL job (``--dist_*``, ``--zero_opt``, ``--zero_ema``)
              at the preset's sizes for 3 steps against three plain runs of
              the same seed (first-step losses bit-equal; then parameters,
@@ -197,7 +212,7 @@ Phases, in order (any failure exits non-zero):
              with ZeRO-1 (ms a step, all-reduce ms and bytes, peak memory
              and optimizer-state bytes a rank, launches a rank a step), one
              CLIP step; every logged loss bit-equal on the two ranks.
-18. spatial — spatial sharding on the one card: two gloo ranks in a 1 × 2
+19. spatial — spatial sharding on the one card: two gloo ranks in a 1 × 2
              grid split every volume's depth: the MedFormer and ResUNet
              presets and the mf_variants phase's ``mf_mbconv`` at 128³ × 2
              (ms a step a rank beside one process, collectives, peak
@@ -3899,6 +3914,114 @@ def phase_mf_variants(dev):
     return failures
 
 
+# ----------------------------------------------- the loop bench, the export
+BENCH_WORKERS = (1, 2, 4, 8)  # loader threads of the loop bench's runs
+BENCH_WARMUP, BENCH_STEPS = 4, 12
+
+
+def _export_round_trip(dev, root: Path) -> dict:
+    """The default MedFormer's seeded parameters from the card, saved as a
+    port checkpoint, exported (``export_checkpoint``, ``.pth``) and
+    converted back (``convert_checkpoint``): the parameters bit-equal, and
+    a model of the converted parameters on the card gives the original's
+    bf16 logits bit for bit on one 96³ window; seconds of each stage."""
+    import torch
+
+    from rsuper_tpu_torch import (bench_train, convert_checkpoint,
+                                  export_checkpoint)
+    from rsuper_tpu_torch.models import get_model
+    from rsuper_tpu_torch.train.checkpoint import load_params, save_params
+
+    res = {}
+    model = bench_train.build_state(dev).model.eval()
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    t0 = time.time()
+    save_params(str(root / "ckpt"), params)
+    export_checkpoint.main([str(root / "ckpt"), "best",
+                            str(root / "model.pth")])
+    res["export_s"] = time.time() - t0
+    t0 = time.time()
+    convert_checkpoint.main([str(root / "model.pth"), str(root / "back")])
+    res["convert_s"] = time.time() - t0
+    back = load_params(str(root / "back"))
+    res["tensors"] = len(back)
+    res["params_bit_equal"] = sorted(back) == sorted(params) and all(
+        torch.equal(back[k], v.cpu()) for k, v in params.items())
+    served = get_model("medformer", len(bench_train.CLASSES), {},
+                       dtype=torch.bfloat16)
+    served.load_state_dict(back)
+    served = served.to(dev).eval()
+    x = torch.randn((1, WINDOW, WINDOW, WINDOW, 1), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    with torch.inference_mode():
+        a, b = model(x)["segmentation"], served(x)["segmentation"]
+    res["logits_bit_equal"] = all(torch.equal(u, v) for u, v in zip(a, b))
+    del model, served, params, back, a, b
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_loop(dev):
+    """The training loop's throughput (``rsuper_tpu_torch.bench_loop``: the
+    loader, the transfer, the device augmentation and the
+    ``ball_dice_last`` step of the default MedFormer at 96³, batch 1) with
+    BENCH_WARMUP + BENCH_STEPS steps at each of BENCH_WORKERS loader
+    threads, the launch counts set to 0 just before each run and read just
+    after (rows 1–6 launched, 7–8 not: the cases are mask cases); rows 1–6
+    held against their plain versions at every shape the runs launched
+    them at; ``profile_loader``'s stages on the runs' cases and the host's
+    CPU count; the export round trip (``_export_round_trip``). One
+    ``{"loop": ...}`` line; each run prints its own JSON line first."""
+    import torch
+
+    from rsuper_tpu_torch import bench_loop, profile_loader
+    from rsuper_tpu_torch.utils.device import card_line
+
+    t_phase = time.time()
+    failures = []
+    res = {"card": card_line(), "host_cpus": os.cpu_count(), "runs": []}
+    counted = wrappers()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    seen = {}
+    with tempfile.TemporaryDirectory(prefix="loop_") as tmp:
+        for workers in BENCH_WORKERS:
+            for w in counted.values():
+                w.launches = 0
+            with _launch_shapes() as shapes:
+                line = bench_loop.main([
+                    "--size", str(WINDOW), "--batch", "1", "--warmup",
+                    str(BENCH_WARMUP), "--steps", str(BENCH_STEPS),
+                    "--workers", str(workers), "--case_dir", tmp])
+            torch.cuda.synchronize()
+            line["launches"] = {k: counted[k].launches for k in KERNELS}
+            res["runs"].append(line)
+            for k, v in shapes.items():
+                seen.setdefault(k, set()).update(v)
+            bad = [k for k in PATH_ROWS if line["launches"][k] <= 0] + [
+                k for k in TOPN_KERNELS if line["launches"][k]]
+            if bad or not (line["value"] > 0
+                           and math.isfinite(line["loss"])):
+                failures.append(f"loop: {workers} workers: {line} (rows "
+                                f"{bad} launched wrongly)")
+        t0 = time.time()
+        cases = [_row_at_shape(k, s, d, gen, dev)
+                 for k, v in seen.items() for s, d in sorted(v)]
+        failures += [f"loop: {c}" for c in cases if not c["ok"]]
+        res["rows_vs_plain"] = dict(
+            shapes=len(cases), s=time.time() - t0,
+            worst=max(cases, key=lambda c: c["max_abs_err"] / c["tol"]))
+        size = WINDOW + bench_loop.MARGIN
+        res["profile_loader"] = profile_loader.main(
+            [str(size)] * 3 + ["--case_dir", tmp])
+        res["export"] = _export_round_trip(dev, Path(tmp))
+        if not (res["export"]["params_bit_equal"]
+                and res["export"]["logits_bit_equal"]):
+            failures.append(f"loop: export round trip {res['export']}")
+    res["phase_s"] = time.time() - t_phase
+    log(json.dumps({"loop": res}))
+    return failures
+
+
 # ------------------------------------- Model Genesis and the host pipelines
 GENESIS_STEPS = 4
 # lesions a report gives each organ, for the report-guided pseudo-labels of
@@ -4227,6 +4350,52 @@ def _preset_float32_grads_twice(dev) -> dict:
     return out
 
 
+# the archs with a transposed conv (``layers.ConvTranspose``), float32 at
+# the registry's defaults, and the edge of their one-item batch
+CONVT_ARCHS = {"unetr": 96, "swin_unetr": 64, "vnet": 64}
+
+
+def _conv_transpose_twice(dev) -> dict:
+    """One float32 ``dice`` step of each of CONVT_ARCHS (seeded, on
+    ``bench.py``'s batch at the arch's edge) twice from the same
+    parameters: by arch, ``_grads_twice``'s counts plus the transposed
+    convs' gradients (``F.conv_transpose3d``'s own backward) among those
+    that differ."""
+    import torch
+
+    from rsuper_tpu_torch import bench_train
+    from rsuper_tpu_torch.losses import LesionChannelMap, LossConfig
+    from rsuper_tpu_torch.models import get_model, init_params, layers
+
+    lmap = LesionChannelMap.from_classes(bench_train.CLASSES)
+    out = {}
+    for arch, size in CONVT_ARCHS.items():
+        model = init_params(get_model(arch, len(bench_train.CLASSES), {},
+                                      dtype=torch.float32), 0).to(dev).train()
+        batch = {k: v.float() for k, v in
+                 bench_train.synthetic_batch(size, 1, device=dev).items()}
+        convt = {f"{m}.{n}" for m, mod in model.named_modules()
+                 if isinstance(mod, layers.ConvTranspose)
+                 for n, _ in mod.named_parameters()}
+        grads = []
+
+        def run():
+            losses, g = _losses_and_grads(model, batch, lmap,
+                                          LossConfig(loss="dice"))
+            grads.append(g)
+            return losses, g
+
+        r = _grads_twice(run)
+        r.update(size=size, conv_transpose_parameters=len(convt),
+                 conv_transpose_differing=sum(
+                     not torch.equal(grads[0][k], grads[1][k])
+                     for k in convt))
+        out[arch] = r
+        del model, batch, grads
+        torch.cuda.empty_cache()
+    return out
+
+
 @contextmanager
 def _topn_shapes():
     """Inside the block, the (B, V, K) of every top-N launch, by wrapper."""
@@ -4261,8 +4430,10 @@ def phase_phantom(dev):
     float32 step of the ResUNet preset at 128³ × 2, and the 3D conv's
     backward at two preset shapes and two of the phantom model's
     (RESUNET_CONVS, PHANTOM_CONVS; ``F.conv3d``'s own backward beside it),
-    each failing the run if a bit differs; one ``{"phantom": ...}`` line
-    with ms a step an arm and seconds a stage."""
+    one float32 ``dice`` step of each arch with a transposed conv
+    (CONVT_ARCHS: UNETR, SwinUNETR, VNet), each failing the run if a bit
+    differs; one ``{"phantom": ...}`` line with ms a step an arm and
+    seconds a stage."""
     import torch
 
     from rsuper_tpu_torch import phantom_benchmark as pb
@@ -4331,7 +4502,12 @@ def phase_phantom(dev):
         res["preset_float32_step_twice"] = _preset_float32_grads_twice(dev)
         res["conv3d_backward_twice"] = _conv_backward_twice(
             dev, RESUNET_CONVS + PHANTOM_CONVS)
+        res["conv_transpose_step_twice"] = _conv_transpose_twice(dev)
         stages["determinism_s"] = time.time() - t0
+        for arch, r in res["conv_transpose_step_twice"].items():
+            if r["differing"] or not r["losses_bit_equal"]:
+                failures.append(f"phantom: a float32 dice step of {arch} "
+                                f"gave other bits: {r}")
         for k in ("step_twice", "preset_float32_step_twice"):
             if k in res and (res[k]["differing"]
                              or not res[k]["losses_bit_equal"]):
@@ -4436,6 +4612,28 @@ def _write_xlsx(path: Path, header, rows):
             zf.writestr(name, text)
 
 
+# a report table pandas wrote with ZSTD bodies, categorical columns and
+# several record batches (``tests/test_torch_report_extraction.py``'s
+# ``fixture_frame``), and the digest of its cells as pandas reads them
+FEATHER_FIXTURE = ROOT / "tests" / "data" / "reports_zstd_categorical.feather"
+FEATHER_DIGEST = ("35c891be268c3a09c308667c6af851b0"
+                  "ac5afbc5b6efb813f274a680fb9d68f7")
+FEATHER_READS = 3  # timed reads of the fixture
+
+
+def table_digest(table) -> str:
+    """sha256 of a ``data/table.py`` Table's names, kinds and cells (as
+    text; a missing cell as the empty string)."""
+    import hashlib
+
+    from rsuper_tpu_torch.data.table import isna
+
+    cells = [[name, table[name].kind,
+              ["" if isna(v) else str(v) for v in table[name].values]]
+             for name in table.columns]
+    return hashlib.sha256(json.dumps(cells).encode()).hexdigest()
+
+
 def phase_host_pipelines():
     """The host pipelines, no device: ``report_extraction.run`` with a stub
     client over a seeded CSV of HOST_REPORTS reports for every step of
@@ -4511,6 +4709,21 @@ def phase_host_pipelines():
                 res["xlsx"]["date_kind"] != "datetime":
             failures.append(f"host_pipelines: the .xlsx reads otherwise "
                             f"than its .csv: {res['xlsx']}")
+        # a .feather pandas wrote with ZSTD bodies and categoricals
+        ms = []
+        for _ in range(FEATHER_READS):
+            t0 = time.perf_counter()
+            got = extraction.read_reports(str(FEATHER_FIXTURE),
+                                          "Report Text")
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res["feather_zstd_categorical"] = dict(
+            rows=len(got), bytes=FEATHER_FIXTURE.stat().st_size,
+            read_ms=ms, digest_equal=table_digest(got) == FEATHER_DIGEST,
+            kinds={k: got[k].kind for k in got.columns})
+        if not res["feather_zstd_categorical"]["digest_equal"]:
+            failures.append("host_pipelines: the ZSTD + categorical .feather "
+                            "reads otherwise than pandas: "
+                            f"{res['feather_zstd_categorical']}")
 
         # a case with lesions or the no-lesion sentinel has a per-CT row
         answers = extraction._collect_answers(str(root / "extraction" /
@@ -5842,6 +6055,8 @@ def main() -> int:
     failures += fails
     torch.cuda.empty_cache()
     failures += phase_augment(dev)
+    failures += phase_loop(dev)
+    torch.cuda.empty_cache()
     fails, full_step_ops = phase_train_cli(dev)
     failures += fails
     failures += phase_clip(dev, full_step_ops)

@@ -126,13 +126,13 @@ def _center_crop(a: np.ndarray, size) -> np.ndarray:
 
 
 def intensity_augment_np(img: np.ndarray, rng: np.random.Generator,
-                         noise_std_max: float = 0.2):
+                         noise_std_max: float = 0.2,
+                         p: float = INTENSITY_PROB):
     """Numpy mirror of `augment.intensity_augment` (reference
     dataset_abdomenatlas_UFO.py:493-507: six ops, each with probability
-    ``INTENSITY_PROB``)."""
+    `p`)."""
     from scipy import ndimage
 
-    p = INTENSITY_PROB
     img = img.astype(np.float32)
     if rng.uniform() < p:  # brightness multiplicative
         img = img * rng.uniform(0.7, 1.3)
@@ -161,11 +161,15 @@ def intensity_augment_np(img: np.ndarray, rng: np.random.Generator,
 
 
 def make_host_augment(crop_size, scale=(0.0, 0.0, 0.0),
-                      rotate=(30.0, 30.0, 30.0), translate=(0.0, 0.0, 0.0)):
+                      rotate=(30.0, 30.0, 30.0), translate=(0.0, 0.0, 0.0),
+                      affine_prob: float = AFFINE_PROB,
+                      intensity_prob: float = INTENSITY_PROB):
     """`transform(rec, rng) -> rec` for `PrefetchLoader(transform=...)`:
-    random affine (with probability ``AFFINE_PROB``, gated by the record's
+    random affine (with probability `affine_prob`, gated by the record's
     ``apply_affine``) + centre crop +
-    intensity stack, computed in the loader worker on a channel-first
+    intensity stack (each op with probability `intensity_prob`; both 0:
+    the centre crop alone, as the JAX package's loop bench runs with its
+    augmentation off), computed in the loader worker on a channel-first
     record of ``RSuperDataset.sample``. Records leave channels-last at
     `crop_size` (image (*crop, 1) float32, masks (*crop, C) uint8) with
     ``apply_affine`` consumed, so the train loop runs NO device augmentation
@@ -179,7 +183,7 @@ def make_host_augment(crop_size, scale=(0.0, 0.0, 0.0),
             raise ValueError(f"{3 * C} mask channels do not fit a float64 "
                              f"word ({MAX_MASK_CHANNELS} at most)")
         do_aff = (float(rec.get("apply_affine", 1.0)) > 0
-                  and rng.uniform() < AFFINE_PROB)
+                  and rng.uniform() < affine_prob)
         if do_aff:
             theta = _theta_np(rng, scale, rotate, translate)
             starts = tuple(
@@ -196,7 +200,7 @@ def make_host_augment(crop_size, scale=(0.0, 0.0, 0.0),
             label, unk, seg = (
                 _center_crop(np.moveaxis(rec[k], 0, -1), crop_size)
                 for k in ("label", "unk", "segment_mask"))
-        img = intensity_augment_np(img, rng)
+        img = intensity_augment_np(img, rng, p=intensity_prob)
         out = {k: v for k, v in rec.items() if k != "apply_affine"}
         out.update(image=img[..., None],
                    label=np.asarray(label, np.uint8),

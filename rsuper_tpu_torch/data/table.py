@@ -382,11 +382,15 @@ class Table:
         """A ``.feather`` file (Arrow IPC, as ``DataFrame.to_feather``
         writes it) as ``pandas.read_feather`` reads it: utf8 and large
         utf8 text, integers, float64/float32, bools, timestamps (naive or
-        UTC) and all-null columns, bodies uncompressed or LZ4-frame
-        compressed; other column types raise ``ValueError``. Integer and bool
+        UTC) and all-null columns, and dictionary-encoded (categorical)
+        columns of those (indices int8 to int64, dictionaries with their
+        delta batches; ``object`` kind, the categories' values and NaN as
+        pandas' ``astype(object)`` gives them), bodies uncompressed, LZ4
+        frame (pyarrow's default where it has lz4) or ZSTD compressed
+        (``zstd_decompress``). Other column types (nested ones among them)
+        and time zones other than UTC raise ``ValueError``. Integer and bool
         columns with a missing cell become ``float`` and ``object`` as in
-        pandas. ZSTD bodies and dictionary-encoded (categorical) columns
-        raise ``ValueError``."""
+        pandas."""
         return cls(_read_arrow_file(path))
 
     def __len__(self) -> int:
@@ -848,25 +852,533 @@ def lz4_frame_decompress(data: bytes) -> bytes:
     return bytes(out)
 
 
+# ---------------------------------------------------------------- Zstandard
+# RFC 8878, read by hand: frames, raw/RLE/compressed blocks, Huffman
+# literals, FSE sequences and repeat offsets (no dictionaries)
+_ZSTD_MAGIC = 0xFD2FB528
+_ZSTD_BLOCK_MAX = 128 * 1024
+_LL_BASE = list(range(16)) + [16, 18, 20, 22, 24, 28, 32, 40, 48, 64, 128,
+                              256, 512, 1024, 2048, 4096, 8192, 16384,
+                              32768, 65536]
+_LL_BITS = [0] * 16 + [1, 1, 1, 1, 2, 2, 3, 3, 4, 6, 7, 8, 9, 10, 11, 12,
+                       13, 14, 15, 16]
+_ML_BASE = list(range(3, 35)) + [35, 37, 39, 41, 43, 47, 51, 59, 67, 83, 99,
+                                 131, 259, 515, 1027, 2051, 4099, 8195,
+                                 16387, 32771, 65539]
+_ML_BITS = [0] * 32 + [1, 1, 1, 1, 2, 2, 3, 3, 4, 4, 5, 7, 8, 9, 10, 11, 12,
+                       13, 14, 15, 16]
+# the predefined distributions: (normalized counts, accuracy log)
+_LL_DEFAULT = ([4, 3, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 1, 1, 1, 2, 2, 2, 2,
+                2, 2, 2, 2, 2, 3, 2, 1, 1, 1, 1, 1, -1, -1, -1, -1], 6)
+_ML_DEFAULT = ([1, 4, 3, 2, 2, 2, 2, 2, 2] + [1] * 37 + [-1] * 7, 6)
+_OF_DEFAULT = ([1, 1, 1, 1, 1, 1, 2, 2, 2] + [1] * 15 + [-1] * 5, 5)
+# by kind: (largest symbol, largest accuracy log, predefined distribution)
+_SEQ_KINDS = {"ll": (35, 9, _LL_DEFAULT), "of": (31, 8, _OF_DEFAULT),
+              "ml": (52, 9, _ML_DEFAULT)}
+_M64 = (1 << 64) - 1
+_P1, _P2, _P3 = 11400714785074694791, 14029467366897019727, \
+    1609587929392839161
+_P4, _P5 = 9650029242287828579, 2870177450012600261
+
+
+def _zstd_error(what: str) -> ValueError:
+    return ValueError(f"corrupt Zstandard frame: {what}")
+
+
+def _rotl64(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & _M64
+
+
+def _xxh64_round(acc: int, lane: int) -> int:
+    return (_rotl64((acc + lane * _P2) & _M64, 31) * _P1) & _M64
+
+
+def xxh64(data: bytes) -> int:
+    """XXH64 of `data` with seed 0 (the hash a Zstandard frame's checksum
+    keeps the low 32 bits of)."""
+    n, i = len(data), 0
+    if n >= 32:
+        v = [(_P1 + _P2) & _M64, _P2, 0, (-_P1) & _M64]
+        stripes = n // 32
+        lanes = struct.unpack_from(f"<{4 * stripes}Q", data, 0)
+        for j in range(0, 4 * stripes, 4):
+            v[0] = _xxh64_round(v[0], lanes[j])
+            v[1] = _xxh64_round(v[1], lanes[j + 1])
+            v[2] = _xxh64_round(v[2], lanes[j + 2])
+            v[3] = _xxh64_round(v[3], lanes[j + 3])
+        i = 32 * stripes
+        h = (_rotl64(v[0], 1) + _rotl64(v[1], 7) + _rotl64(v[2], 12)
+             + _rotl64(v[3], 18)) & _M64
+        for x in v:
+            h = ((h ^ _xxh64_round(0, x)) * _P1 + _P4) & _M64
+    else:
+        h = _P5
+    h = (h + n) & _M64
+    while i + 8 <= n:
+        lane = struct.unpack_from("<Q", data, i)[0]
+        h = (_rotl64(h ^ _xxh64_round(0, lane), 27) * _P1 + _P4) & _M64
+        i += 8
+    if i + 4 <= n:
+        lane = struct.unpack_from("<I", data, i)[0]
+        h = (_rotl64(h ^ (lane * _P1 & _M64), 23) * _P2 + _P3) & _M64
+        i += 4
+    while i < n:
+        h = (_rotl64(h ^ (data[i] * _P5 & _M64), 11) * _P1) & _M64
+        i += 1
+    h = ((h ^ (h >> 33)) * _P2) & _M64
+    h = ((h ^ (h >> 29)) * _P3) & _M64
+    return h ^ (h >> 32)
+
+
+class _ForwardBits:
+    """Bits read from the low end of `data` on (an FSE table description)."""
+
+    def __init__(self, data: bytes, start: int):
+        self.data, self.bit = data, 8 * start
+
+    def peek(self, n: int) -> int:
+        b = self.bit
+        chunk = self.data[b >> 3:(b + n + 7 >> 3) + 1]
+        return (int.from_bytes(chunk, "little") >> (b & 7)) & ((1 << n) - 1)
+
+    def read(self, n: int) -> int:
+        v = self.peek(n)
+        self.bit += n
+        return v
+
+
+class _BackwardBits:
+    """A Zstandard backward bitstream: read from its last set bit (the end
+    mark of the last byte) down; bits below the start read as zeros, and
+    ``pos`` (the bits left) then goes negative."""
+
+    def __init__(self, data: bytes):
+        if not data or data[-1] == 0:
+            raise _zstd_error("a bitstream without its end mark")
+        self.data = data
+        self.pos = 8 * (len(data) - 1) + data[-1].bit_length() - 1
+
+    def read(self, n: int) -> int:
+        if n == 0:
+            return 0
+        p = self.pos - n
+        self.pos = p
+        if p < 0:
+            if p + n <= 0:
+                return 0
+            head = int.from_bytes(self.data[:p + n + 7 >> 3], "little")
+            return (head & ((1 << (p + n)) - 1)) << -p
+        chunk = self.data[p >> 3:(p + n + 7 >> 3)]
+        return (int.from_bytes(chunk, "little") >> (p & 7)) & ((1 << n) - 1)
+
+
+def _fse_counts(data: bytes, start: int, max_symbol: int, max_log: int):
+    """An FSE table description at `data[start:]`: (normalized counts,
+    accuracy log, bytes it takes)."""
+    bits = _ForwardBits(data, start)
+    log = bits.read(4) + 5
+    if log > max_log:
+        raise _zstd_error(f"FSE accuracy log {log} above {max_log}")
+    remaining, threshold, nb = (1 << log) + 1, 1 << log, log + 1
+    counts: List[int] = []
+    previous0 = False
+    while True:
+        if previous0:
+            while True:
+                r = bits.read(2)
+                counts += [0] * r
+                if r != 3:
+                    break
+            if len(counts) > max_symbol:
+                break
+        top = 2 * threshold - 1 - remaining
+        v = bits.peek(nb - 1)
+        if v < top:
+            bits.bit += nb - 1
+        else:
+            v = bits.read(nb)
+            if v >= threshold:
+                v -= top
+        count = v - 1
+        remaining -= abs(count)
+        counts.append(count)
+        previous0 = count == 0
+        if remaining < threshold:
+            if remaining <= 1:
+                break
+            nb = remaining.bit_length()
+            threshold = 1 << (nb - 1)
+        if len(counts) > max_symbol:
+            break
+    used = (bits.bit + 7) // 8 - start
+    if remaining != 1 or len(counts) > max_symbol + 1 \
+            or start + used > len(data):
+        raise _zstd_error("bad FSE table description")
+    return counts, log, used
+
+
+def _fse_table(counts: Sequence[int], log: int):
+    """The FSE decoding table of `counts` (probability -1: "less than
+    one"): (symbol, bits to read, baseline) of every state."""
+    size = 1 << log
+    symbol = [0] * size
+    high = size - 1
+    following = [1 if c == -1 else c for c in counts]
+    for s, c in enumerate(counts):
+        if c == -1:
+            symbol[high] = s
+            high -= 1
+    step, mask, pos = (size >> 1) + (size >> 3) + 3, size - 1, 0
+    for s, c in enumerate(counts):
+        for _ in range(max(c, 0)):
+            symbol[pos] = s
+            pos = (pos + step) & mask
+            while pos > high:
+                pos = (pos + step) & mask
+    if pos != 0:
+        raise _zstd_error("FSE counts that do not fill their table")
+    nbits, base = [0] * size, [0] * size
+    for u in range(size):
+        x = following[symbol[u]]
+        following[symbol[u]] += 1
+        nbits[u] = log - (x.bit_length() - 1)
+        base[u] = (x << nbits[u]) - size
+    return symbol, nbits, base, log
+
+
+def _huffman_weights(src: bytes):
+    """A Huffman tree description: (weights of every symbol but the last,
+    bytes it takes)."""
+    head = src[0]
+    if head >= 128:  # direct: 4 bits a weight
+        n = head - 127
+        raw = src[1:1 + (n + 1) // 2]
+        if len(raw) < (n + 1) // 2:
+            raise _zstd_error("truncated Huffman weights")
+        w = [x for b in raw for x in (b >> 4, b & 15)][:n]
+        return w, 1 + (n + 1) // 2
+    if head == 0 or 1 + head > len(src):
+        raise _zstd_error("bad Huffman tree description")
+    data = src[1:1 + head]
+    counts, log, used = _fse_counts(data, 0, 255, 6)
+    symbol, nbits, base, _ = _fse_table(counts, log)
+    bits = _BackwardBits(data[used:])
+    s1, s2 = bits.read(log), bits.read(log)
+    out: List[int] = []
+    while True:  # two states in turn until the stream runs dry
+        if len(out) > 253:
+            raise _zstd_error("too many Huffman weights")
+        out.append(symbol[s1])
+        s1 = base[s1] + bits.read(nbits[s1])
+        if bits.pos < 0:
+            out.append(symbol[s2])
+            break
+        out.append(symbol[s2])
+        s2 = base[s2] + bits.read(nbits[s2])
+        if bits.pos < 0:
+            out.append(symbol[s1])
+            break
+    return out, 1 + head
+
+
+def _huffman_table(weights: List[int]):
+    """(symbol of every `max_bits`-bit prefix, its code length, max_bits)
+    from the weights of every symbol but the last (whose weight makes the
+    sum a power of two)."""
+    total = sum(1 << (w - 1) for w in weights if w)
+    if total == 0 or any(w > 11 for w in weights):
+        raise _zstd_error("bad Huffman weights")
+    max_bits = total.bit_length()
+    rest = (1 << max_bits) - total
+    if rest & (rest - 1) or max_bits > 11:
+        raise _zstd_error("Huffman weights that sum to no power of two")
+    weights = list(weights) + [rest.bit_length()]
+    start, at = {}, 0
+    for w in range(1, max_bits + 1):
+        start[w] = at
+        at += sum(1 for x in weights if x == w) << (w - 1)
+    symbols = np.zeros(1 << max_bits, np.uint8)
+    lengths = np.zeros(1 << max_bits, np.int64)
+    for s, w in enumerate(weights):
+        if w:
+            n = 1 << (w - 1)
+            symbols[start[w]:start[w] + n] = s
+            lengths[start[w]:start[w] + n] = max_bits + 1 - w
+            start[w] += n
+    return symbols, lengths, max_bits
+
+
+def _huffman_stream(data: bytes, n: int, table) -> bytes:
+    """`n` literals of one Huffman-coded backward stream: every bit
+    position's `max_bits`-bit window is looked up at once, then the code
+    lengths are walked from the top; the stream must end on its first
+    bit."""
+    symbols, lengths, max_bits = table
+    if not data or data[-1] == 0:
+        raise _zstd_error("a Huffman stream without its end mark")
+    top = 8 * (len(data) - 1) + data[-1].bit_length() - 1
+    bits = np.unpackbits(np.frombuffer(data, np.uint8), bitorder="little")
+    padded = np.concatenate([np.zeros(max_bits, np.uint8), bits[:top]])
+    window = np.zeros(top + 1, np.int64)
+    for i in range(max_bits):
+        window |= padded[i:i + top + 1].astype(np.int64) << i
+    sym, step = symbols[window].tolist(), lengths[window].tolist()
+    out = bytearray(n)
+    p = top
+    for k in range(n):  # p only falls: below 0 it stays below, and fails
+        out[k] = sym[p]
+        p -= step[p]
+    if p != 0:
+        raise _zstd_error("a Huffman stream that does not end on its start")
+    return bytes(out)
+
+
+class _ZstdFrame:
+    """What the blocks of one frame hand on: the last Huffman table, the
+    last FSE tables of the sequences and the three repeat offsets."""
+
+    def __init__(self):
+        self.huffman = None
+        self.tables: Dict[str, Any] = {"ll": None, "of": None, "ml": None}
+        self.rep = [1, 4, 8]
+
+
+def _zstd_literals(block: bytes, frame: _ZstdFrame):
+    """The literals section at the start of a compressed block: (literals,
+    bytes it takes)."""
+    b0 = block[0]
+    kind, fmt = b0 & 3, (b0 >> 2) & 3
+    if kind < 2:  # raw or RLE
+        if fmt in (0, 2):
+            size, at = b0 >> 3, 1
+        elif fmt == 1:
+            size, at = (b0 >> 4) + (block[1] << 4), 2
+        else:
+            size, at = (b0 >> 4) + (block[1] << 4) + (block[2] << 12), 3
+        if kind == 1:
+            return bytes(block[at:at + 1]) * size, at + 1
+        if at + size > len(block):
+            raise _zstd_error("truncated raw literals")
+        return bytes(block[at:at + size]), at + size
+    at, width = {0: (3, 10), 1: (3, 10), 2: (4, 14), 3: (5, 18)}[fmt]
+    v = int.from_bytes(block[:at], "little")
+    regen, size = (v >> 4) & ((1 << width) - 1), \
+        (v >> (4 + width)) & ((1 << width) - 1)
+    src = block[at:at + size]
+    if len(src) < size or regen > _ZSTD_BLOCK_MAX:
+        raise _zstd_error("bad literals header")
+    used = 0
+    if kind == 2:
+        weights, used = _huffman_weights(src)
+        frame.huffman = _huffman_table(weights)
+    elif frame.huffman is None:
+        raise _zstd_error("repeated Huffman table without a first one")
+    data = src[used:]
+    if fmt == 0:  # one stream
+        return _huffman_stream(data, regen, frame.huffman), at + size
+    s1, s2, s3 = struct.unpack_from("<3H", data, 0)
+    seg = (regen + 3) // 4
+    sizes = [s1, s2, s3, len(data) - 6 - s1 - s2 - s3]
+    counts = [seg, seg, seg, regen - 3 * seg]
+    if sizes[3] < 1 or counts[3] < 0:
+        raise _zstd_error("bad jump table")
+    out, pos = [], 6
+    for sz, cnt in zip(sizes, counts):
+        out.append(_huffman_stream(data[pos:pos + sz], cnt, frame.huffman))
+        pos += sz
+    return b"".join(out), at + size
+
+
+def _zstd_sequences(block: bytes, frame: _ZstdFrame) -> List[tuple]:
+    """The sequences section: every (literal length, offset value, match
+    length) in order."""
+    b0 = block[0]
+    if b0 == 0:
+        if len(block) != 1:
+            raise _zstd_error("bytes after an empty sequences section")
+        return []
+    if b0 < 128:
+        n, at = b0, 1
+    elif b0 < 255:
+        n, at = ((b0 - 128) << 8) + block[1], 2
+    else:
+        n, at = block[1] + (block[2] << 8) + 0x7F00, 3
+    modes = block[at]
+    at += 1
+    if modes & 3:
+        raise _zstd_error("reserved bits of the compression modes set")
+    for kind, shift in (("ll", 6), ("of", 4), ("ml", 2)):
+        mode = (modes >> shift) & 3
+        max_symbol, max_log, default = _SEQ_KINDS[kind]
+        if mode == 0:
+            frame.tables[kind] = _fse_table(*default)
+        elif mode == 1:  # RLE: one symbol, no bits
+            if block[at] > max_symbol:
+                raise _zstd_error(f"RLE {kind} symbol {block[at]}")
+            frame.tables[kind] = ([block[at]], [0], [0], 0)
+            at += 1
+        elif mode == 2:
+            counts, log, used = _fse_counts(block, at, max_symbol, max_log)
+            frame.tables[kind] = _fse_table(counts, log)
+            at += used
+        elif frame.tables[kind] is None:
+            raise _zstd_error(f"repeated {kind} table without a first one")
+    ll_sym, ll_nb, ll_base, ll_log = frame.tables["ll"]
+    of_sym, of_nb, of_base, of_log = frame.tables["of"]
+    ml_sym, ml_nb, ml_base, ml_log = frame.tables["ml"]
+    bits = _BackwardBits(block[at:])
+    read = bits.read
+    ll, of, ml = read(ll_log), read(of_log), read(ml_log)
+    out = []
+    for k in range(n):
+        oc, mc, lc = of_sym[of], ml_sym[ml], ll_sym[ll]
+        if oc > 31:
+            raise _zstd_error(f"offset code {oc}")
+        offset = (1 << oc) + read(oc)
+        match = _ML_BASE[mc] + read(_ML_BITS[mc])
+        lits = _LL_BASE[lc] + read(_LL_BITS[lc])
+        out.append((lits, offset, match))
+        if k + 1 < n:
+            ll = ll_base[ll] + read(ll_nb[ll])
+            ml = ml_base[ml] + read(ml_nb[ml])
+            of = of_base[of] + read(of_nb[of])
+    if bits.pos != 0:
+        raise _zstd_error("a sequences bitstream that does not end on its "
+                          "start")
+    return out
+
+
+def _zstd_block(block: bytes, frame: _ZstdFrame, out: bytearray,
+                start: int) -> None:
+    """Decodes one compressed block onto `out` (the frame's output from
+    `start` on is the window)."""
+    literals, at = _zstd_literals(block, frame)
+    seqs = _zstd_sequences(block[at:], frame)
+    rep, lp, begin = frame.rep, 0, len(out)
+    for lits, value, match in seqs:
+        if lits:
+            out += literals[lp:lp + lits]
+            lp += lits
+        if value > 3:
+            off = value - 3
+            rep[2], rep[1], rep[0] = rep[1], rep[0], off
+        else:
+            idx = value - 1 + (lits == 0)
+            if idx == 0:
+                off = rep[0]
+            elif idx == 1:
+                off = rep[1]
+                rep[1], rep[0] = rep[0], off
+            else:
+                off = rep[2] if idx == 2 else rep[0] - 1
+                rep[2], rep[1], rep[0] = rep[1], rep[0], off
+        have = len(out) - start
+        if off <= 0 or off > have or lp > len(literals):
+            raise _zstd_error("a match before the frame's start")
+        at = len(out) - off
+        if match <= off:
+            out += out[at:at + match]
+        else:  # an overlapping match repeats the last `off` bytes
+            out += (bytes(out[at:]) * (match // off + 1))[:match]
+    out += literals[lp:]
+    if len(out) - begin > _ZSTD_BLOCK_MAX:
+        raise _zstd_error("a block of more than 128 KiB")
+
+
+def zstd_decompress(data: bytes) -> bytes:
+    """The content of one or more Zstandard frames (RFC 8878): raw, RLE
+    and compressed blocks (Huffman-coded literals in one or four streams,
+    or reusing the previous table; FSE-coded sequences in predefined, RLE,
+    described or repeated tables; repeat offsets), skippable frames
+    skipped, the XXH64 content checksum checked where a frame carries one.
+    A frame that names a dictionary, and a corrupt one, raise
+    ``ValueError``."""
+    try:
+        return _zstd_frames(bytes(data))
+    except (IndexError, struct.error) as e:
+        raise _zstd_error(f"truncated ({e})") from None
+
+
+def _zstd_frames(data: bytes) -> bytes:
+    out = bytearray()
+    i = 0
+    while i < len(data):
+        magic = struct.unpack_from("<I", data, i)[0]
+        if magic & 0xFFFFFFF0 == 0x184D2A50:  # a skippable frame
+            i += 8 + struct.unpack_from("<I", data, i + 4)[0]
+            if i > len(data):
+                raise _zstd_error("truncated skippable frame")
+            continue
+        if magic != _ZSTD_MAGIC:
+            raise _zstd_error("no frame magic number")
+        fhd = data[i + 4]
+        i += 5
+        if fhd & 0x08:
+            raise _zstd_error("reserved bit of the frame header set")
+        single = fhd & 0x20
+        if not single:
+            i += 1  # the window descriptor
+        did_size = (0, 1, 2, 4)[fhd & 3]
+        did = int.from_bytes(data[i:i + did_size], "little")
+        i += did_size
+        if did:
+            raise ValueError(f"this Zstandard frame needs dictionary {did}, "
+                             "which a .feather file never carries")
+        fcs_size = (1 if single else 0, 2, 4, 8)[fhd >> 6]
+        fcs = int.from_bytes(data[i:i + fcs_size], "little") \
+            + (256 if fcs_size == 2 else 0)
+        i += fcs_size
+        frame, start = _ZstdFrame(), len(out)
+        while True:
+            if i + 3 > len(data):
+                raise _zstd_error("truncated block header")
+            head = int.from_bytes(data[i:i + 3], "little")
+            last, kind, size = head & 1, (head >> 1) & 3, head >> 3
+            i += 3
+            if kind == 0:
+                if i + size > len(data):
+                    raise _zstd_error("truncated raw block")
+                out += data[i:i + size]
+                i += size
+            elif kind == 1:
+                out += data[i:i + 1] * size
+                i += 1
+            elif kind == 2:
+                if size > _ZSTD_BLOCK_MAX or i + size > len(data):
+                    raise _zstd_error("bad compressed block size")
+                _zstd_block(data[i:i + size], frame, out, start)
+                i += size
+            else:
+                raise _zstd_error("reserved block type")
+            if last:
+                break
+        if fcs_size and len(out) - start != fcs:
+            raise _zstd_error("content of another size than the header's")
+        if fhd & 0x04:
+            if i + 4 > len(data):
+                raise _zstd_error("truncated checksum")
+            want = struct.unpack_from("<I", data, i)[0]
+            if xxh64(bytes(out[start:])) & 0xFFFFFFFF != want:
+                raise _zstd_error("content checksum mismatch")
+            i += 4
+    return bytes(out)
+
+
 def _body_buffer(body: bytes, offset: int, length: int, codec) -> bytes:
-    """One buffer of a record batch's body, decompressed (LZ4 frame) when
-    the batch says so: 8 bytes of uncompressed length (-1: stored as is),
-    then the data."""
+    """One buffer of a record batch's body, decompressed (LZ4 frame or
+    ZSTD) when the batch says so: 8 bytes of uncompressed length (-1:
+    stored as is), then the data."""
     raw = body[offset:offset + length]
     if codec is None or length == 0:
         return raw
     n = struct.unpack_from("<q", raw, 0)[0]
     if n == -1:
         return raw[8:]
-    if codec != 0:
-        raise ValueError(
-            "this .feather file's record batches are ZSTD-compressed (pandas' "
-            "to_feather default when pyarrow has zstd); the port reads no "
-            "zstd (the card's Python has no zstd decoder): write it with "
-            'to_feather(path, compression="lz4") or "uncompressed"')
-    out = lz4_frame_decompress(raw[8:])
+    # CompressionType: 0 LZ4 frame (pyarrow's to_feather default where
+    # pyarrow has lz4), 1 ZSTD (when the writer asks for it)
+    out = (lz4_frame_decompress if codec == 0 else zstd_decompress)(raw[8:])
     if len(out) != n:
-        raise ValueError("LZ4 buffer of the wrong length")
+        raise ValueError("compressed .feather buffer of the wrong length")
     return out
 
 
@@ -935,6 +1447,37 @@ def _arrow_column(field: _FB, node, bufs: List[bytes]):
     return vals, kind
 
 
+def _dictionary_indices(enc: _FB, node, bufs: List[bytes]) -> List[Any]:
+    """The indices of a dictionary-encoded column of a record batch
+    (missing: None), from its index type (signed int32 unless given)."""
+    n, nulls = node
+    valid = _validity(bufs.pop(0), n, nulls)
+    t = enc.table(1)
+    width, signed = (32, True) if t is None else (t.scalar(0, "i"),
+                                                  t.scalar(1, "?"))
+    dt = np.dtype(("<i" if signed else "<u") + str(width // 8))
+    idx = np.frombuffer(bufs.pop(0), dt, n).tolist()
+    return [i if ok else None for i, ok in zip(idx, valid)]
+
+
+def _messages(data: bytes, blocks):
+    """(header type, header table, body) of each footer block."""
+    for offset, meta_len, _, body_len in blocks:
+        cont = struct.unpack_from("<I", data, offset)[0] == 0xFFFFFFFF
+        start = offset + (8 if cont else 4)
+        msg = _root(data[start:offset + meta_len])
+        yield (msg.scalar(1, "B"), msg.table(2),
+               data[offset + meta_len:offset + meta_len + body_len])
+
+
+def _batch_buffers(batch: _FB, body: bytes) -> List[bytes]:
+    """A record batch's buffers, decompressed where it says so."""
+    comp = batch.table(3)
+    codec = None if comp is None else comp.scalar(0, "b")
+    return [_body_buffer(body, o, ln, codec)
+            for o, ln in batch.structs(2, "qq")]
+
+
 def _read_arrow_file(path: str) -> Dict[str, Column]:
     with open(path, "rb") as f:
         data = f.read()
@@ -944,31 +1487,42 @@ def _read_arrow_file(path: str) -> Dict[str, Column]:
     footer = _root(data[len(data) - 10 - flen:len(data) - 10])
     schema = footer.table(1)
     fields = schema.tables(1)
+    encodings = [fl.table(4) for fl in fields]
+    by_id = {enc.scalar(0, "q"): fl for fl, enc in zip(fields, encodings)
+             if enc is not None}
     for fl in fields:
-        if fl.table(4) is not None:
-            raise ValueError(
-                f"{path}: column {fl.string(0)!r} is dictionary-encoded (a "
-                "pandas categorical); the port reads no dictionary batches: "
-                "write it with astype(str) first")
         if fl.tables(5):
             raise ValueError(f"{path}: nested column {fl.string(0)!r}")
+    # the dictionaries (a pandas categorical's categories) in file order:
+    # a delta appends to its dictionary, which every batch then indexes
+    values: Dict[int, List[Any]] = {}
+    for kind, db, body in _messages(data, footer.structs(2, "qiiq")):
+        if kind != 2:  # a DictionaryBatch header
+            continue
+        did, rb, delta = db.scalar(0, "q"), db.table(1), db.scalar(2, "?")
+        if did not in by_id:
+            raise ValueError(f"{path}: dictionary {did} of no column")
+        vals, _ = _arrow_column(by_id[did], rb.structs(1, "qq")[0],
+                                _batch_buffers(rb, body))
+        values[did] = (values.get(did, []) + vals) if delta else vals
     cells: List[List[Any]] = [[] for _ in fields]
     kinds = ["object"] * len(fields)
-    for offset, meta_len, _, body_len in footer.structs(3, "qiiq"):
-        cont = struct.unpack_from("<I", data, offset)[0] == 0xFFFFFFFF
-        start = offset + (8 if cont else 4)
-        msg = _root(data[start:offset + meta_len])
-        if msg.scalar(1, "B") != 3:  # a RecordBatch header
+    for kind, batch, body in _messages(data, footer.structs(3, "qiiq")):
+        if kind != 3:  # a RecordBatch header
             continue
-        batch = msg.table(2)
-        body = data[offset + meta_len:offset + meta_len + body_len]
-        comp = batch.table(3)
-        codec = None if comp is None else comp.scalar(0, "b")
-        bufs = [_body_buffer(body, o, ln, codec)
-                for o, ln in batch.structs(2, "qq")]
+        bufs = _batch_buffers(batch, body)
         nodes = batch.structs(1, "qq")
         for j, fl in enumerate(fields):
-            vals, kinds[j] = _arrow_column(fl, nodes[j], bufs)
+            enc = encodings[j]
+            if enc is None:
+                vals, kinds[j] = _arrow_column(fl, nodes[j], bufs)
+            else:  # categories as pandas' astype(object) gives them
+                dic = values.get(enc.scalar(0, "q"), [])
+                idx = _dictionary_indices(enc, nodes[j], bufs)
+                if any(i is not None and not 0 <= i < len(dic) for i in idx):
+                    raise ValueError(f"{path}: a dictionary index out of "
+                                     f"range in column {fl.string(0)!r}")
+                vals = [None if i is None else dic[i] for i in idx]
             cells[j] += vals
     out = {}
     for fl, vals, kind in zip(fields, cells, kinds):

@@ -70,7 +70,8 @@ def _sources():
                 "report_extraction/client.py", "report_extraction/run.py",
                 "parallel/__init__.py", "parallel/mesh.py",
                 "parallel/multihost.py", "parallel/spatial.py",
-                "phantom_benchmark.py"):
+                "phantom_benchmark.py", "bench_loop.py",
+                "profile_loader.py", "export_checkpoint.py"):
         assert f"rsuper_tpu_torch/{new}" in names
     return files
 
@@ -146,7 +147,8 @@ def test_resolve_device_needs_cuda_unless_cpu(no_cuda):
 
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
-    from rsuper_tpu_torch import bench_infer, bench_train, phantom_benchmark
+    from rsuper_tpu_torch import (bench_infer, bench_loop, bench_train,
+                                  phantom_benchmark)
     from rsuper_tpu_torch import predict as cli
     from rsuper_tpu_torch.train import __main__ as train_cli
     from rsuper_tpu_torch.inference.predict import (predict_folder,
@@ -178,6 +180,8 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
                           "--classes_json", "c.json"]),
         lambda: bench_infer.main(["--edge", "32", "--window", "32"]),
         lambda: bench_train.main(["--size", "32", "--steps", "1"]),
+        lambda: bench_loop.main(["--size", "32", "--case_dir",
+                                 str(tmp_path / "cases")]),
         lambda: train_cli.main(["--data_root", str(tmp_path)]),
         lambda: train_cli.main(["--data_root", str(tmp_path), "--preset",
                                 "slices/resunet_2d"]),

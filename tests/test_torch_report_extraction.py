@@ -12,6 +12,7 @@ import datetime
 import json
 import zipfile
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pandas as pd
@@ -30,6 +31,7 @@ from rsuper_tpu_torch.report_extraction import parse as tparse
 from rsuper_tpu_torch.report_extraction import prompts as tprompts
 from rsuper_tpu_torch.report_extraction import run as trun
 
+ROOT = Path(__file__).resolve().parent.parent
 ORGANS = ("liver", "pancreas", "kidney")
 
 # answers of every step's grammar; a stub client picks one per prompt
@@ -508,15 +510,301 @@ def test_feather_reads_as_pandas(tmp_path, compression):
         (tmp_path / "tp.csv").read_bytes()
 
 
-def test_feather_zstd_and_categoricals_raise(tmp_path):
+def _categorical_frame(tmp_path):
+    """``_feather_frame`` with pandas categoricals: string categories with
+    missing cells, ordered integer categories with missing cells, float
+    categories, and a category column of one value."""
     df = _feather_frame(tmp_path)
+    n = len(df)
+    rng = np.random.default_rng(2)
+    df["timeline"] = df["pancreatic cancer timeline"].astype("category")
+    df["organ"] = pd.Categorical(
+        rng.choice(["liver", "pancreas", "kidney", None], n))
+    df["grade"] = pd.Categorical(rng.choice([3, 1, 2, None], n),
+                                 categories=[1, 2, 3], ordered=True)
+    df["size"] = pd.Categorical(rng.choice([1.5, 2.25, np.nan], n))
+    df["site"] = pd.Categorical(["A"] * n)
+    return df
+
+
+def _same_as_pandas(path, tt):
+    """The port's table holds pandas' cells of the same file, cell for cell
+    and type for type (categoricals as ``astype(object)`` gives them), and
+    pandas' kinds."""
+    jt = jrun.read_reports(str(path), "Report Text")
+    _same_cells(tt, jt)
+    kinds = {"int64": "int", "int32": "int", "float64": "float",
+             "bool": "bool"}
+    for name in jt.columns:
+        want = "datetime" if str(jt[name].dtype).startswith("datetime") \
+            else kinds.get(str(jt[name].dtype), "object")
+        assert tt[name].kind == want, name
+        if str(jt[name].dtype) == "category":
+            cells = [None if pd.isna(v) else type(v).__name__
+                     for v in jt[name].astype(object)]
+            assert [None if isna(v) else type(v).__name__
+                    for v in tt[name].values] == cells, name
+
+
+@pytest.mark.parametrize("compression", ["zstd", "lz4", "uncompressed"])
+def test_feather_categoricals_read_as_pandas(tmp_path, compression):
+    """Categorical columns written by pandas' ``to_feather`` (several
+    record batches through `chunksize`, one dictionary each) under each
+    compression: the port's ``read_reports`` gives pandas' cells and
+    kinds."""
+    df = _categorical_frame(tmp_path)
+    path = tmp_path / "c.feather"
+    df.to_feather(path, compression=compression, chunksize=7)
+    tt = trun.read_reports(str(path), "Report Text")
+    assert 0 < len(tt) < len(df)
+    _same_as_pandas(path, tt)
+
+
+@pytest.mark.parametrize("index_type", ["int8", "int16", "int32", "int64"])
+def test_feather_dictionary_deltas_read_as_pandas(tmp_path, index_type):
+    """A file of three record batches whose dictionaries grow by delta
+    batches (pyarrow's ``emit_dictionary_deltas``), ZSTD bodies, string and
+    integer dictionaries indexed by `index_type`, missing cells."""
+    import pyarrow as pa
+    import pyarrow.ipc as ipc
+
+    it = getattr(pa, index_type)()
+    words = ["liver", "kidney", "pancreas", "spleen", "aorta", "colon"]
+    batches, known = [], 2
+    for b, idx in enumerate(([0, 1, None, 1], [2, 0, 3, None, 1],
+                             [5, 4, 0, None, 5, 2])):
+        known = max([known] + [i + 1 for i in idx if i is not None])
+        text = pa.DictionaryArray.from_arrays(pa.array(idx, it),
+                                              pa.array(words[:known]))
+        nums = pa.DictionaryArray.from_arrays(
+            pa.array([None if i is None else known - 1 - i for i in idx],
+                     it), pa.array([10 * k for k in range(known)]))
+        report = pa.array([f"report {b}-{i}" for i in range(len(idx))])
+        batches.append((text, nums, report))
+    schema = pa.schema([("organ", batches[0][0].type),
+                        ("grade", batches[0][1].type),
+                        ("Report Text", pa.large_string())])
+    path = tmp_path / "d.feather"
+    opts = ipc.IpcWriteOptions(emit_dictionary_deltas=True,
+                               compression="zstd")
+    with ipc.new_file(str(path), schema, options=opts) as w:
+        for cols in batches:
+            w.write_batch(pa.record_batch(list(cols), schema=schema))
+    tt = trun.read_reports(str(path), "Report Text")
+    assert len(tt) == 15 and tt["organ"].values[-2] == "colon"
+    _same_as_pandas(path, tt)
+
+
+def test_feather_zstd_and_categoricals_raise(tmp_path):
+    """What the reader still refuses: a ZSTD frame that names a dictionary
+    (pyarrow never writes one), a corrupt ZSTD body, a dictionary index out
+    of range, and a time zone other than UTC."""
+    import pyarrow as pa
+    import pyarrow.ipc as ipc
+
+    df = _categorical_frame(tmp_path)
     df.to_feather(tmp_path / "z.feather", compression="zstd")
-    with pytest.raises(ValueError, match="zstd"):
-        trun.read_reports(str(tmp_path / "z.feather"), "Report Text")
-    cat = df.assign(note=df["pancreatic cancer timeline"].astype("category"))
-    cat.to_feather(tmp_path / "c.feather", compression="uncompressed")
+    data = (tmp_path / "z.feather").read_bytes()
+    at = data.index(ZSTD_MAGIC)
+    fhd = data[at + 4]
+    assert fhd & 3 == 0  # no dictionary ID field: make one of two bytes
+    named = data[:at + 4] + bytes([fhd | 2]) + data[at + 5:]
+    (tmp_path / "named.feather").write_bytes(named)
     with pytest.raises(ValueError, match="dictionary"):
-        trun.read_reports(str(tmp_path / "c.feather"), "Report Text")
+        trun.read_reports(str(tmp_path / "named.feather"), "Report Text")
+    bad = data[:at] + b"\0" * 4 + data[at + 4:]
+    (tmp_path / "bad.feather").write_bytes(bad)
+    with pytest.raises(ValueError, match="Zstandard"):
+        trun.read_reports(str(tmp_path / "bad.feather"), "Report Text")
+    arr = pa.DictionaryArray.from_arrays(pa.array([0, 1], pa.int8()),
+                                         pa.array(["a", "b"]))
+    schema = pa.schema([("c", arr.type)])
+    path = tmp_path / "range.feather"
+    with ipc.new_file(str(path), schema) as w:
+        w.write_batch(pa.record_batch([arr], schema=schema))
+    raw = bytearray(path.read_bytes())
+    body = raw.index(bytes([0, 1]) + b"\0" * 6)  # the indices buffer
+    raw[body + 1] = 7
+    path.write_bytes(bytes(raw))
+    with pytest.raises(ValueError, match="range"):
+        Table.read_feather(str(path))
+    pd.DataFrame({"t": pd.to_datetime(["2020-01-01"]).tz_localize(
+        "Asia/Tokyo")}).to_feather(tmp_path / "tz.feather")
+    with pytest.raises(ValueError, match="time zone"):
+        Table.read_feather(str(tmp_path / "tz.feather"))
+
+
+FIXTURE = ROOT / "tests" / "data" / "reports_zstd_categorical.feather"
+
+
+def fixture_frame(n=1500, seed=11):
+    """The table of ``tests/data/reports_zstd_categorical.feather``, which
+    ``chip_smoke.py`` reads on the card's machine (no pandas there). Written
+    with ``fixture_frame().to_feather(path, compression="zstd",
+    chunksize=500)``."""
+    rng = np.random.default_rng(seed)
+    words = ["liver", "mass", "2 cm,", "pancreatic", "cyst", "kidney",
+             "normal", "segment 7", "head", "lesion", "hypodense", "no"]
+    text = [None if i % 17 == 0 else
+            " ".join(rng.choice(words, int(rng.integers(20, 60))))
+            for i in range(n)]
+    dates = pd.to_datetime("2015-01-01") + pd.to_timedelta(
+        rng.integers(0, 3000, n), unit="D")
+    df = pd.DataFrame({
+        "BDMAP ID": [f"BDMAP_{i:05d}" for i in range(n)],
+        "Report Text": text,
+        "Exam Started Date": dates,
+        "Assigned Number": rng.integers(0, 400, n).astype("int32"),
+        "organ": pd.Categorical(rng.choice(["liver", "pancreas", "kidney",
+                                            None], n)),
+        "grade": pd.Categorical(rng.choice([1, 2, 3, None], n),
+                                categories=[1, 2, 3], ordered=True),
+        "pancreatic cancer timeline": pd.Categorical(rng.choice(
+            ["pre-diagnosis", "first positive", None], n)),
+    })
+    df.loc[5, "Exam Started Date"] = pd.NaT
+    return df
+
+
+def test_feather_fixture_reads_as_pandas():
+    """The committed fixture holds ``fixture_frame()``; the port reads it as
+    pandas does, and its digest is the one ``chip_smoke.py`` checks on the
+    card."""
+    import chip_smoke
+
+    pd.testing.assert_frame_equal(pd.read_feather(FIXTURE), fixture_frame())
+    data = FIXTURE.read_bytes()
+    assert data.count(ZSTD_MAGIC) > 10  # ZSTD bodies, several batches
+    tt = trun.read_reports(str(FIXTURE), "Report Text")
+    _same_as_pandas(FIXTURE, tt)
+    assert chip_smoke.table_digest(tt) == chip_smoke.FEATHER_DIGEST
+
+
+ZSTD_MAGIC = bytes.fromhex("28b52ffd")
+
+
+def _zstd_inputs():
+    """Random, repetitive and text inputs, each across the 128 KiB block
+    size."""
+    rng = np.random.default_rng(0)
+    words = [b"mass", b"pancreas", b"lesion", b"the", b"hypodense", b"cm",
+             b"liver", b"of", b"in", b"no", b"kidney", b"cyst", b"with"]
+    return {
+        "random": rng.bytes(300_000),
+        "repetitive": b"abcabcabd" * 30_000 + b"\0" * 100_000
+        + rng.bytes(1000) * 60 + bytes(np.minimum(
+            rng.geometric(0.3, 60_000), 255).astype(np.uint8))
+        + b"".join(bytes([int(c)]) * int(k) for c, k in zip(
+            rng.integers(0, 256, 1000), rng.integers(1, 300, 1000)))
+        + bytes(rng.choice(np.frombuffer(b"acgt", np.uint8), 200_000)),
+        "text": b" ".join(words[i] for i in rng.integers(0, len(words),
+                                                         60_000)),
+    }
+
+
+@pytest.mark.parametrize("level", [-5, 1, 3, 19])
+@pytest.mark.parametrize("kind", ["random", "repetitive", "text"])
+def test_zstd_decoder_matches_pyarrow(level, kind):
+    import pyarrow as pa
+
+    from rsuper_tpu_torch.data.table import zstd_decompress
+
+    data = _zstd_inputs()[kind]
+    assert len(data) > 2 * 128 * 1024
+    codec = pa.Codec("zstd", compression_level=level)
+    packed = codec.compress(data, asbytes=True)
+    assert zstd_decompress(packed) == data == codec.decompress(
+        packed, decompressed_size=len(data), asbytes=True)
+
+
+def _zstd_frame(blocks, checksum_of=None):
+    """A hand-written frame: single segment, no content size, the given
+    (type, payload, regenerated size) blocks, and a checksum of
+    `checksum_of` if given."""
+    import xxhash
+
+    # single segment, content-size flag 0: a content size of one byte
+    fhd = 0x20 | (4 if checksum_of is not None else 0)
+    out = bytearray(ZSTD_MAGIC) + bytes([fhd, 0])
+    size = 0
+    for k, (kind, payload, regen) in enumerate(blocks):
+        last = k == len(blocks) - 1
+        head = int(last) | (kind << 1) | ((regen if kind == 1 else
+                                           len(payload)) << 3)
+        out += head.to_bytes(3, "little") + payload
+        size += regen
+    out[5] = size
+    if checksum_of is not None:
+        out += (xxhash.xxh64(checksum_of).intdigest()
+                & 0xFFFFFFFF).to_bytes(4, "little")
+    return bytes(out)
+
+
+def test_zstd_frames_skippable_checksummed_and_hand_written():
+    """Frames with content checksums (``zstandard``'s writer), skippable
+    frames between them, RLE blocks, and hand-written RLE and raw blocks
+    and a compressed block of RLE literals without sequences; a wrong
+    checksum raises."""
+    import zstandard
+
+    from rsuper_tpu_torch.data.table import zstd_decompress
+
+    inputs = _zstd_inputs()
+    skip = (0x184D2A53).to_bytes(4, "little") + (5).to_bytes(4, "little") \
+        + b"hello"
+    parts, want = [], b""
+    for lvl, (kind, data) in zip((1, 9, 19), inputs.items()):
+        parts += [zstandard.ZstdCompressor(
+            level=lvl, write_checksum=True).compress(data[:150_000]), skip]
+        want += data[:150_000]
+    assert zstd_decompress(b"".join(parts)) == want
+    zeros = zstandard.ZstdCompressor(level=3).compress(b"\0" * 300_000)
+    assert zstd_decompress(zeros) == b"\0" * 300_000
+    lits = bytes([(20 << 3) | 1]) + b"q" + b"\0"  # RLE literals, no seqs
+    content = b"z" * 7 + b"raw!" + b"q" * 20
+    frame = _zstd_frame([(1, b"z", 7), (0, b"raw!", 4), (2, lits, 20)],
+                        checksum_of=content)
+    assert zstd_decompress(frame) == content
+    wrong = frame[:-1] + bytes([frame[-1] ^ 1])
+    with pytest.raises(ValueError, match="checksum"):
+        zstd_decompress(wrong)
+
+
+def test_zstd_corrupt_frames_raise():
+    """Truncations, a wrong magic number, reserved bits and block types,
+    and flipped bytes of a checksummed frame raise ``ValueError``."""
+    import zstandard
+
+    from rsuper_tpu_torch.data.table import zstd_decompress
+
+    data = _zstd_inputs()["text"][:200_000]
+    frame = zstandard.ZstdCompressor(level=3, write_checksum=True) \
+        .compress(data)
+    assert zstd_decompress(frame) == data
+    rng = np.random.default_rng(4)
+    bad = [frame[:n] for n in (3, 5, 9, 40, len(frame) // 2,
+                               len(frame) - 3)]
+    bad.append(b"\x27" + frame[1:])
+    bad.append(frame[:4] + bytes([frame[4] | 0x08]) + frame[5:])
+    head = 6 + (frame[4] >> 6 == 1) * 2  # the first block header's offset
+    h = int.from_bytes(frame[head:head + 3], "little") | (3 << 1)
+    bad.append(frame[:head] + h.to_bytes(3, "little") + frame[head + 3:])
+    for at in rng.integers(head + 3, len(frame) - 4, 12):
+        bad.append(frame[:at] + bytes([frame[at] ^ 0x5A]) + frame[at + 1:])
+    for b in bad:
+        with pytest.raises(ValueError):
+            zstd_decompress(b)
+
+
+def test_xxh64_matches_xxhash():
+    import xxhash
+
+    from rsuper_tpu_torch.data.table import xxh64
+
+    rng = np.random.default_rng(1)
+    for n in list(range(0, 70)) + [1000, 4099]:
+        data = rng.bytes(n)
+        assert xxh64(data) == xxhash.xxh64(data).intdigest(), n
 
 
 def test_lz4_frame_decoder_on_long_matches():
