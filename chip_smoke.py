@@ -54,6 +54,9 @@ Phases, in order (any failure exits non-zero):
              probabilities against the plain versions); ``evaluate`` on
              those predictions; ``bench_infer`` once; the CLI's 128³
              window at batches of 4 and 8 (seconds a volume, peak memory);
+             ``profile_infer``'s trace of a 256³ prediction (96³ windows in
+             batches of 4): device time by op and by the model's children,
+             rows 1, 2 and 5 among its ops;
 6. train   — training steps of the default MedFormer on ``bench.py``'s
              synthetic 96³ batch of 1 (bf16 compute, float32 parameters,
              ``remat`` off) with the full R-Super losses (``LossConfig()``,
@@ -187,9 +190,10 @@ Phases, in order (any failure exits non-zero):
              [0, 1]); row 8 against its plain version at every shape the
              report arm launched it at; the same bits twice from one
              phantom step, one float32 step of the ResUNet preset at 128³ ×
-             2, the 3D conv's backward at four shapes and one float32
-             ``dice`` step of UNETR, SwinUNETR and VNet (their transposed
-             convs' backward).
+             2, the 3D conv's backward at four shapes and one ``dice`` step
+             of UNETR, SwinUNETR and VNet (their transposed convs'
+             backward) in float32 and bf16 at one item of their edges, and
+             in bf16 at the training CLI's 128³ × 2.
 17. host_pipelines — no device: report extraction with a stub LLM client
              over 50 seeded reports for every step, the same reports as a
              written ``.xlsx`` read back against the ``.csv``, the
@@ -1212,6 +1216,32 @@ def _same_masks(a, b) -> bool:
     return all(np.array_equal(a[c], b[c]) for c in CLASSES)
 
 
+SERVE_CHILDREN = ("Conv_0", "BasicBlock_0", "DownBlockMF_0", "DownBlockMF_1",
+                  "DownBlockMF_2", "DownBlockMF_3", "SemanticMapFusion_0",
+                  "UpBlockMF_0", "UpBlockMF_1", "aux_out", "UpBlockMF_2",
+                  "UpBlockMF_3", "outc")
+# the forward conv kernels of csrc/conv_cf.cu; their last template argument
+# is FUSE: the fused in-relu conv (row 2) or the plain one (row 1)
+_CONV_KERNEL = re.compile(r"(stem_fwd_kernel|conv3_tc_kernel|conv3_cf_kernel)"
+                          r"(?:<([^>]*)>|I(.*?)EEv)")
+
+
+def _trace_row(name: str):
+    """The kernel-table row (serving's wrapper name) of a kernel's name in
+    a trace, demangled or not: rows 1 and 2 by the conv kernels' FUSE
+    argument, row 5 the depthwise forward; None for any other."""
+    m = _CONV_KERNEL.search(name)
+    if m:
+        if m.group(2) is not None:
+            fuse = m.group(2).split(",")[-1].strip() in ("true", "1")
+        else:
+            fuse = m.group(3).endswith("Lb1E")
+        return "in_relu_conv3x3x3_cf" if fuse else "conv3x3x3_cf"
+    if "dw3_fwd_kernel" in name:
+        return "depthwise_conv3x3x3"
+    return None
+
+
 def phase_serve(dev):
     """Serving a checkpoint of any origin, scoring the predictions, and the
     serving benchmark, at full width (default MedFormer, 16 classes, bf16,
@@ -1236,11 +1266,17 @@ def phase_serve(dev):
     d. ``bench_infer.main --reps 1``: its line and its keys;
     e. ``predict_masks_volume`` on a VOLUME³ phantom at the CLI's 128³
        windows in batches of 4 and of 8: seconds a volume and peak
-       memory."""
+       memory;
+    f. ``profile_infer.main`` at its defaults (a 256³ volume, 96³ windows
+       in batches of 4): its line; the device total positive, a row for
+       each of MedFormer's 13 children (SERVE_CHILDREN), the module rows and
+       the time outside the model adding up to the total within 1 %, and
+       kernels of rows 1, 2 and 5 among its ops (``_trace_row``)."""
     import numpy as np
     import torch
 
-    from rsuper_tpu_torch import bench_infer, convert_checkpoint, evaluate
+    from rsuper_tpu_torch import (bench_infer, convert_checkpoint, evaluate,
+                                  profile_infer)
     from rsuper_tpu_torch import predict as cli
     from rsuper_tpu_torch.data.nifti import write_nifti
     from rsuper_tpu_torch.data.preprocess import clip_and_normalize
@@ -1435,6 +1471,30 @@ def phase_serve(dev):
             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     del model, fn
     torch.cuda.empty_cache()
+
+    # f. the serving trace
+    t1 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        line = profile_infer.main(["--out", tmp])
+    rows = {m["name"]: m["ms"] for m in line["modules"]}
+    found = {_trace_row(op["name"]) for op in line["top_ops"]}
+    total = line["device_ms_total"]
+    res["profile_infer"] = dict(
+        {k: line[k] for k in ("device_ms_total", "events",
+                              "outside_model_ms", "wall_ms", "modules")},
+        top_ops=line["top_ops"][:12], call_s=time.time() - t1,
+        rows_found=sorted(r for r in found if r))
+    if not total > 0:
+        failures.append(f"serve profile_infer: device total {total}")
+    if not set(SERVE_CHILDREN) <= set(rows):
+        failures.append(f"serve profile_infer: module rows {sorted(rows)}")
+    if not abs(sum(rows.values()) + line["outside_model_ms"] - total) \
+            <= 0.01 * total:
+        failures.append("serve profile_infer: the module rows and the time "
+                        f"outside the model do not add up to {total} ms")
+    if not set(SERVING_KERNELS) <= found:
+        failures.append(f"serve profile_infer: rows {SERVING_KERNELS} not "
+                        f"all among the ops: {res['profile_infer']}")
     res["phase_s"] = time.time() - t_phase
     log(json.dumps({"serve": res}))
     return failures
@@ -4350,17 +4410,19 @@ def _preset_float32_grads_twice(dev) -> dict:
     return out
 
 
-# the archs with a transposed conv (``layers.ConvTranspose``), float32 at
-# the registry's defaults, and the edge of their one-item batch
+# the archs with a transposed conv (``layers.ConvTranspose``) at the
+# registry's defaults, and the edge of their one-item batch; then the
+# training CLI's crop and batch (``training_size`` 128³, ``batch_size`` 2)
 CONVT_ARCHS = {"unetr": 96, "swin_unetr": 64, "vnet": 64}
+CONVT_CLI = (128, 2)
 
 
-def _conv_transpose_twice(dev) -> dict:
-    """One float32 ``dice`` step of each of CONVT_ARCHS (seeded, on
-    ``bench.py``'s batch at the arch's edge) twice from the same
-    parameters: by arch, ``_grads_twice``'s counts plus the transposed
-    convs' gradients (``F.conv_transpose3d``'s own backward) among those
-    that differ."""
+def _conv_transpose_twice(dev, dtype, cli: bool = False) -> dict:
+    """One ``dice`` step of each of CONVT_ARCHS (seeded, computing in
+    `dtype`, float32 parameters, on ``bench.py``'s batch: one item at the
+    arch's edge, or CONVT_CLI with `cli`) twice from the same parameters:
+    by arch, ``_grads_twice``'s counts plus the transposed convs' gradients
+    among those that differ. UNETR's ``img_size`` is set to the edge."""
     import torch
 
     from rsuper_tpu_torch import bench_train
@@ -4369,11 +4431,13 @@ def _conv_transpose_twice(dev) -> dict:
 
     lmap = LesionChannelMap.from_classes(bench_train.CLASSES)
     out = {}
-    for arch, size in CONVT_ARCHS.items():
-        model = init_params(get_model(arch, len(bench_train.CLASSES), {},
-                                      dtype=torch.float32), 0).to(dev).train()
-        batch = {k: v.float() for k, v in
-                 bench_train.synthetic_batch(size, 1, device=dev).items()}
+    for arch, edge in CONVT_ARCHS.items():
+        size, batch_size = CONVT_CLI if cli else (edge, 1)
+        args = {"img_size": (size,) * 3} if arch == "unetr" else {}
+        model = init_params(get_model(arch, len(bench_train.CLASSES), args,
+                                      dtype=dtype), 0).to(dev).train()
+        batch = {k: v.float() for k, v in bench_train.synthetic_batch(
+            size, batch_size, device=dev).items()}
         convt = {f"{m}.{n}" for m, mod in model.named_modules()
                  if isinstance(mod, layers.ConvTranspose)
                  for n, _ in mod.named_parameters()}
@@ -4386,7 +4450,9 @@ def _conv_transpose_twice(dev) -> dict:
             return losses, g
 
         r = _grads_twice(run)
-        r.update(size=size, conv_transpose_parameters=len(convt),
+        r.update(size=size, batch=batch_size,
+                 dtype=str(dtype).replace("torch.", ""),
+                 conv_transpose_parameters=len(convt),
                  conv_transpose_differing=sum(
                      not torch.equal(grads[0][k], grads[1][k])
                      for k in convt))
@@ -4430,10 +4496,11 @@ def phase_phantom(dev):
     float32 step of the ResUNet preset at 128³ × 2, and the 3D conv's
     backward at two preset shapes and two of the phantom model's
     (RESUNET_CONVS, PHANTOM_CONVS; ``F.conv3d``'s own backward beside it),
-    one float32 ``dice`` step of each arch with a transposed conv
-    (CONVT_ARCHS: UNETR, SwinUNETR, VNet), each failing the run if a bit
-    differs; one ``{"phantom": ...}`` line with ms a step an arm and
-    seconds a stage."""
+    one ``dice`` step of each arch with a transposed conv (CONVT_ARCHS:
+    UNETR, SwinUNETR, VNet) in float32 and bf16 at one item of its edge
+    and in bf16 at CONVT_CLI (one ``{"conv_transpose_twice": ...}`` line),
+    each failing the run if a bit differs; one ``{"phantom": ...}`` line
+    with ms a step an arm and seconds a stage."""
     import torch
 
     from rsuper_tpu_torch import phantom_benchmark as pb
@@ -4502,12 +4569,22 @@ def phase_phantom(dev):
         res["preset_float32_step_twice"] = _preset_float32_grads_twice(dev)
         res["conv3d_backward_twice"] = _conv_backward_twice(
             dev, RESUNET_CONVS + PHANTOM_CONVS)
-        res["conv_transpose_step_twice"] = _conv_transpose_twice(dev)
+        convt = res["conv_transpose_step_twice"] = {
+            "float32": _conv_transpose_twice(dev, torch.float32),
+            "bfloat16": _conv_transpose_twice(dev, torch.bfloat16),
+            "bfloat16_cli": _conv_transpose_twice(dev, torch.bfloat16,
+                                                  cli=True)}
         stages["determinism_s"] = time.time() - t0
-        for arch, r in res["conv_transpose_step_twice"].items():
-            if r["differing"] or not r["losses_bit_equal"]:
-                failures.append(f"phantom: a float32 dice step of {arch} "
-                                f"gave other bits: {r}")
+        log(json.dumps({"conv_transpose_twice": [
+            {k: r[k] for k in ("dtype", "size", "batch", "parameters",
+                               "differing", "conv_transpose_parameters",
+                               "conv_transpose_differing")} | {"arch": arch}
+            for runs in convt.values() for arch, r in runs.items()]}))
+        for run, runs in convt.items():
+            for arch, r in runs.items():
+                if r["differing"] or not r["losses_bit_equal"]:
+                    failures.append(f"phantom: a {run} dice step of {arch} "
+                                    f"gave other bits: {r}")
         for k in ("step_twice", "preset_float32_step_twice"):
             if k in res and (res[k]["differing"]
                              or not res[k]["losses_bit_equal"]):

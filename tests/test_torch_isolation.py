@@ -71,7 +71,9 @@ def _sources():
                 "parallel/__init__.py", "parallel/mesh.py",
                 "parallel/multihost.py", "parallel/spatial.py",
                 "phantom_benchmark.py", "bench_loop.py",
-                "profile_loader.py", "export_checkpoint.py"):
+                "profile_loader.py", "export_checkpoint.py",
+                "profile_infer.py", "train_forever.py",
+                "launch_llm_fleet.py"):
         assert f"rsuper_tpu_torch/{new}" in names
     return files
 
@@ -148,7 +150,7 @@ def test_resolve_device_needs_cuda_unless_cpu(no_cuda):
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from rsuper_tpu_torch import (bench_infer, bench_loop, bench_train,
-                                  phantom_benchmark)
+                                  phantom_benchmark, profile_infer)
     from rsuper_tpu_torch import predict as cli
     from rsuper_tpu_torch.train import __main__ as train_cli
     from rsuper_tpu_torch.inference.predict import (predict_folder,
@@ -179,6 +181,8 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
                           str(tmp_path / "o"), "--checkpoint", "run",
                           "--classes_json", "c.json"]),
         lambda: bench_infer.main(["--edge", "32", "--window", "32"]),
+        lambda: profile_infer.main(["--edge", "32", "--window", "16",
+                                    "--out", str(tmp_path / "t")]),
         lambda: bench_train.main(["--size", "32", "--steps", "1"]),
         lambda: bench_loop.main(["--size", "32", "--case_dir",
                                  str(tmp_path / "cases")]),
