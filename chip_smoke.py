@@ -128,8 +128,9 @@ Phases, in order (any failure exits non-zero):
              the resumed batches those of the uninterrupted run, no top-N
              launch, float32 embeddings at the step; ms an iteration, busy
              share, device operations against the full CLI step's, peak
-             memory); a CLIP step and a classification step through the
-             kernels against the plain versions (the train phase's rules);
+             memory); a CLIP step (full and cut depth) and a
+             classification step (mid and cut depth) through the kernels
+             against the plain versions (the train phase's rules);
              2 steps of the preset with the classification branch. The
              kernels phase also holds the depthwise kernels at the heads'
              (2,4,4,4,C) shapes.
@@ -2596,15 +2597,19 @@ def phase_clip(dev, full_step_ops: int):
         res[f"kernels_vs_plain_{key}"] = agree
         failures += [f"clip {key}: {f}" for f in fails]
     del batch
+    # the classification step at the train phase's cut depths: at full
+    # depth one rounding of the input moves the seeded model's float32
+    # gradients by more than RHO_MAX (2.36e-2 with flax's truncated draw)
     n_cls = len(lmap.lesion_class_indices())
-    agree, fails = _kernels_vs_plain(
-        dev, {**MODEL_ARGS, "classification_classes": n_cls},
-        bench_train.synthetic_batch(WINDOW, 1, device=dev), lmap,
-        LossConfig(classification_branch=True))
-    res["classification"]["kernels_vs_plain"] = agree
-    failures += [f"classification: {f}" for f in fails]
-    if "classification" not in agree["losses"]:
-        failures.append("classification: no classification term")
+    for key, depth in (("mid_depth", MID_DEPTH), ("cut_depth", CUT_DEPTH)):
+        agree, fails = _kernels_vs_plain(
+            dev, {**MODEL_ARGS, **depth, "classification_classes": n_cls},
+            bench_train.synthetic_batch(WINDOW, 1, device=dev), lmap,
+            LossConfig(classification_branch=True))
+        res["classification"][f"kernels_vs_plain_{key}"] = agree
+        failures += [f"classification {key}: {f}" for f in fails]
+        if "classification" not in agree["losses"]:
+            failures.append(f"classification {key}: no classification term")
     res["phase_s"] = time.time() - t_phase
     torch.cuda.empty_cache()
     log(json.dumps({"clip": res}))
@@ -4355,6 +4360,33 @@ RESUNET_CONVS = (((2, 128, 128, 128, 32), 32, 1),
 # the phantom model's last decoder stage at 32³ × 4 (base 8): its first conv
 # on the skip's concatenation, then one inside its block
 PHANTOM_CONVS = (((4, 32, 32, 32, 16), 8, 1), ((4, 32, 32, 32, 8), 8, 1))
+def _seeded_lecun_max(root):
+    """The largest |w|·√fan_in over the LeCun leaves (``lecun_fan_ins``) of
+    the seeded phantom model (seed 0, as the study's first seed builds it)
+    and of the seeded default MedFormer: {model: {max, leaves}}, and the
+    bound that flax's lecun_normal keeps, its normal cut at ±2 of its own
+    standard deviation, 1/√fan_in / TRUNCATED_STD. The fan-ins themselves
+    are held against flax's own init on the CPU
+    (``tests/test_torch_init.py``), not here."""
+    import torch
+
+    from rsuper_tpu_torch import phantom_benchmark as pb
+    from rsuper_tpu_torch.models import get_model, init_params
+    from rsuper_tpu_torch.models.params import TRUNCATED_STD, lecun_fan_ins
+
+    cfg = pb.variant_config(root, False, PHANTOM_STEPS, crop=PHANTOM_CROP)
+    out = {}
+    for name, model in (
+            ("phantom", get_model(cfg.arch, len(pb.MASK_CLASSES),
+                                  cfg.model_args, dtype=torch.float32)),
+            ("medformer", get_model("medformer", len(CLASSES), MODEL_ARGS))):
+        init_params(model, 0)
+        weights = dict(model.named_parameters())
+        fans = lecun_fan_ins(model)
+        out[name] = dict(max_abs_w_sqrt_fan_in=max(
+            float(weights[k].detach().abs().max()) * math.sqrt(f)
+            for k, f in fans.items()), lecun_leaves=len(fans))
+    return out, 2.0 / TRUNCATED_STD
 
 
 def _losses_and_grads(model, batch, lmap, cfg):
@@ -4489,7 +4521,9 @@ def phase_phantom(dev):
     ``train_variant`` (float32 ResUNet base 8, 32³ crops × 4) with the top-N
     launch counts set to 0 just before each and read just after (the report
     arm must launch row 8, the mask-only arm neither top-N row), then
-    ``evaluate`` (metrics finite and in [0, 1]); row 8 held bit-equal to
+    ``evaluate`` (metrics finite and in [0, 1]); the seeded phantom model's
+    and default MedFormer's kernels within flax's truncation
+    (``_seeded_lecun_max``); row 8 held bit-equal to
     its plain version at every shape the report arm launched it at (rows
     tagged ``"path": "phantom"``, returned for the kernels line); the same
     bits twice: the report arm's captured step at the phantom model, one
@@ -4513,6 +4547,12 @@ def phase_phantom(dev):
         t0 = time.time()
         pb.generate(root, **PHANTOM_DATA, seed=0)
         stages["generate_s"] = time.time() - t0
+        lecun, lecun_max = _seeded_lecun_max(root)
+        res["seeded_lecun"] = lecun
+        if not all(v["max_abs_w_sqrt_fan_in"] <= lecun_max + 1e-6
+                   for v in lecun.values()):
+            failures.append(f"phantom: a seeded LeCun kernel leaves flax's "
+                            f"truncation ±{lecun_max}/√fan_in: {lecun}")
         arms, captured = {}, None
         for with_reports in (False, True):
             name = "report" if with_reports else "mask_only"

@@ -232,35 +232,59 @@ def load_flax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     return model
 
 
-@torch.no_grad()
-def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Seeded random parameters, with flax's initialisers: LeCun-normal
-    kernels and weights (fan-in by layout), zero biases and DANet gates,
-    unit LayerNorm scales, PReLU slopes 0.25, and normal(0.02) for Swin's
-    relative-position tables and the position embeddings of UNETR and
-    TransUNet 2D. Returns `model`."""
-    gen = torch.Generator(device="cpu").manual_seed(seed)
+# The standard deviation of a unit normal cut at ±2: flax's
+# ``variance_scaling(..., "truncated_normal")`` divides by it
+TRUNCATED_STD = 0.87962566103423978
+
+
+def lecun_fan_ins(model: nn.Module) -> Dict[str, int]:
+    """{name: fan_in} of the parameters that flax draws from
+    ``lecun_normal``: every kernel and weight but LayerNorm scales. fan_in
+    by layout: flax's (..., I, O), torch's (O, I, ...) or a transposed
+    conv's (I, O, ...)."""
+    fans = {}
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         owner = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name \
             else model
-        if leaf in ("bias", "gamma"):
+        if (leaf in ("bias", "gamma", "alpha", "rel_bias", "pos_embed", "pos")
+                or type(owner).__name__ == "LayerNorm"):
+            continue
+        if leaf == "kernel":
+            fans[name] = math.prod(p.shape[:-1])
+        elif isinstance(owner, ConvTranspose):
+            fans[name] = p.shape[0] * math.prod(p.shape[2:])
+        else:
+            fans[name] = math.prod(p.shape[1:])
+    return fans
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random parameters, drawn as flax's initialisers draw them:
+    kernels and weights (``lecun_fan_ins``) from flax's ``lecun_normal``, a
+    normal cut at ±2 of its own standard deviation 1/√fan_in /
+    `TRUNCATED_STD` (so that the variance stays 1/fan_in); zero biases and
+    DANet gates, unit LayerNorm scales, PReLU slopes 0.25, and untruncated
+    normal(0.02) for Swin's relative-position tables and the position
+    embeddings of UNETR and TransUNet 2D. One CPU generator of `seed` draws
+    the leaves in registration order, so a seed gives the same bits on any
+    device. Returns `model`."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    fans = lecun_fan_ins(model)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if name in fans:
+            std = 1.0 / math.sqrt(fans[name]) / TRUNCATED_STD
+            val = nn.init.trunc_normal_(torch.empty(p.shape), 0.0, std,
+                                        -2.0 * std, 2.0 * std, generator=gen)
+        elif leaf in ("bias", "gamma"):
             val = torch.zeros(p.shape)
-        elif type(owner).__name__ == "LayerNorm":
-            val = torch.ones(p.shape)
         elif leaf == "alpha":
             val = torch.full(p.shape, 0.25)
         elif leaf in ("rel_bias", "pos_embed", "pos"):
             val = 0.02 * torch.randn(p.shape, generator=gen)
-        else:
-            # flax layout (..., I, O), torch layout (O, I, ...) or a
-            # transposed conv's (I, O, ...)
-            if leaf == "kernel":
-                fan_in = math.prod(p.shape[:-1])
-            elif isinstance(owner, ConvTranspose):
-                fan_in = p.shape[0] * math.prod(p.shape[2:])
-            else:
-                fan_in = math.prod(p.shape[1:])
-            val = torch.randn(p.shape, generator=gen) / math.sqrt(fan_in)
+        else:  # a LayerNorm's scale
+            val = torch.ones(p.shape)
         p.copy_(val.to(p.device))
     return model

@@ -155,7 +155,8 @@ def test_dim2_matches_jax_forward_and_gradient(arch):
 def test_dim2_params_round_trip_through_flax_layout(arch):
     """flax → port → flax gives back every leaf bit for bit (2D kernels and
     1×1 convs, DANet's gates, Swin's tables, TransUNet's embedding); the
-    seeded initialiser fills them as flax's initialisers do."""
+    seeded initialiser fills each of the right kind (each leaf against
+    flax's own ``init``: ``tests/test_torch_init.py``)."""
     flat = _flat(arch)
     model = load_flax_params(_model(arch), flat)
     back = flax_from_state_dict(model.state_dict(), model=model)

@@ -10,10 +10,12 @@ at 127.0.0.1:PORT and writes what it saw to ``OUT/JOB{RANK}.pt``:
   at the global batch of 2 (its data rank's item), in ``RES_MODES``: the
   global loss terms and the reduced gradients;
 * job ``mf`` (1 × 2): the tiny MedFormer with both heads at ``MF_SHAPE``,
-  every mode of ``MODES``, and ``dice`` again with ``remat``; the gathered
-  logits of a forward; the unit checks (``units``): the collectives, the
-  sharded convs, norms, fused prologue, depthwise conv and resizes, each
-  against its unsharded self on the whole volume, as relative errors;
+  every mode of ``MODES``, the classification step again at
+  ``MF_CLS_SHAPE`` (``CLS_KEY``), and ``dice`` again with ``remat``; the
+  gathered logits of a forward; the unit checks (``units``): the
+  collectives, the sharded convs, norms, fused prologue, depthwise conv
+  and resizes, each against its unsharded self on the whole volume, as
+  relative errors;
 * job ``units`` (1 × 4): the unit checks again, where the middle ranks
   exchange halos with two neighbours;
 * job ``configs`` (1 × 2, INPUTS ``-``: seeded weights and volumes): each
@@ -59,6 +61,13 @@ MF_SHAPE = (64, 32, 32)  # the JAX loop's guard: 64 // 16 >= 2·2
 # 2 voxels, whose float32 gradient is noise (as at 32³ in
 # tests/test_torch_parallel.py, which takes 64³ for it too)
 MF_CLIP_SHAPE = (64, 64, 64)
+# so does the classification step's head (``cls_extra``'s norms): at
+# 64×32×32 one rounding of the image moves the JAX reference's gradients
+# past RHO_MAX on 81 of 164 tensors, at 64³ on one bias whose gradient is
+# nil (``python tools/zoo_rounding_witness.py --steps``); the job runs
+# that step at both sizes, at 64³ under key CLS_KEY
+MF_CLS_SHAPE = MF_CLIP_SHAPE
+CLS_KEY = "classification_branch/cls_shape"
 B = 2
 NUDGE = 2.0 ** -22  # one float32 rounding of the image
 
@@ -450,6 +459,9 @@ def _job_mf(data, dp):
         b = data["mf_clip_batch"] if mode == "clip" else data["mf_batch"]
         res[mode] = step(medformer(data["mf_state"]), rows(b, slice(None)),
                          mode, dp)
+    res[CLS_KEY] = step(medformer(data["mf_state"]),
+                        rows(data["mf_cls_batch"], slice(None)),
+                        "classification_branch", dp)
     res["dice_remat"] = step(medformer(data["mf_state"], remat=True),
                              rows(data["mf_batch"], slice(None)), "dice", dp)
     m = medformer(data["mf_state"])

@@ -150,7 +150,8 @@ def test_zoo_matches_jax_forward_and_gradient(case):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_zoo_params_round_trip_through_flax_layout(case):
     """flax → port → flax gives back every leaf bit for bit; the seeded
-    initialiser fills every parameter as flax's initialisers do."""
+    initialiser fills every parameter of the right kind (each leaf against
+    flax's own ``init``: ``tests/test_torch_init.py``)."""
     flat = _ref(case)["flat"]
     model = _port(case, flat)
     back = flax_from_state_dict(model.state_dict())
